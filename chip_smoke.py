@@ -4,8 +4,8 @@
 Phases:
   1. the device, and `nvidia-smi` name and power limit;
   2. the nvcc build of the CUDA kernels, timed;
-  3. each kernel against its plain PyTorch version on the card at the
-     main path's launch shape (D=128 rows for 100 objects, T=512, the
+  3. each fused kernel against its plain PyTorch version on the card at
+     the main path's launch shape (D=128 rows for 100 objects, T=512, the
      runners' chunk of C=16 frames; K=3, F=512 for the visual kernel):
      ids, slots, voting types, is_new, lengths, overflow flags and
      auction statistics equal, floats within tests/torch_parity.py's
@@ -15,13 +15,31 @@ Phases:
   4. the main path: `run_sequence_device_visual`, then `run_sequence_device`,
      on a synthetic 1024-frame sequence of 100 random-walk objects with
      512-d identities, the launch counters zeroed before and read after;
-  5. one `kernels` JSON line, then the result line.
+  5. the rotated-box clip kernel against its plain version
+     (`pair_block_plain`): IoU at D=500, T=2000 on the x-sorted views of
+     one frame of the oriented SORT stream (most tiles skip) and on the
+     same boxes unsorted (few skip), the intersection area at n=1000 on
+     the NMS stream; masks equal, floats within RTOL/ATOL, tiles run equal
+     to the plain count; identical rotated boxes give exactly 1.0;
+  6. the oriented SORT path: `sort_scan` at D=500 detections, T=2000 slots
+     (bench.py's `sort_iou_oriented_500`) over --oriented-frames frames,
+     the clip launches counted (one per frame), then its first 64 frames
+     again with the plain version patched in place of the kernel: ids,
+     slots, is_new, lengths, overflow and state equal, floats within
+     tolerance;
+  7. oriented NMS at n=1000 (bench.py's `nms_oriented_1000`) over
+     --nms-frames frames: the block-skip route (the kernel) keeps the same
+     boxes as the dense route;
+  8. Mahalanobis SORT: `run_sequence_device(engine="step", method="maha")`
+     on phase 4's sequence;
+  9. one `kernels` JSON line, then the result line.
 
-The kernel checks take the main path's configurations from the runners'
-own builders, the other configurations and the crowded stream from
-tests/torch_parity.py.
+The fused-kernel checks take the main path's configurations from the
+runners' own builders, the other configurations and the crowded stream
+from tests/torch_parity.py.
 
-Usage: python3 chip_smoke.py [--frames N] [--main-frames N] [--seed S]
+Usage: python3 chip_smoke.py [--frames N] [--main-frames N]
+                             [--oriented-frames N] [--nms-frames N] [--seed S]
 Exits non-zero, printing no result, when CUDA is missing or any phase fails.
 """
 
@@ -43,13 +61,18 @@ from similari_tpu_torch import _build  # noqa: E402
 from similari_tpu_torch.eval.mot import (  # noqa: E402
     CHUNK, DeviceTimer, run_sequence_device, run_sequence_device_visual,
     sequence_sort_config, sequence_visual_config)
+from similari_tpu_torch.ops import clip as cl  # noqa: E402
 from similari_tpu_torch.ops import fused_sort as fs  # noqa: E402
 from similari_tpu_torch.ops import fused_visual as fv  # noqa: E402
+from similari_tpu_torch.ops.nms import nms_kernel, use_block_skip  # noqa: E402
+from similari_tpu_torch.trackers.sort_step import (  # noqa: E402
+    SortConfig, sort_scan, use_sorted_path)
 from similari_tpu_torch.trackers.state import new_sort_state  # noqa: E402
 from similari_tpu_torch.trackers.visual_state import new_visual_state  # noqa: E402
 from similari_tpu_torch.trackers.visual_step import VisualConfig  # noqa: E402
 from similari_tpu_torch.utils.pad import pad_pow2  # noqa: E402
-from torch_parity import ATOL, RTOL, VISUAL_CONFIGS, crowded_stream  # noqa: E402
+from torch_parity import (  # noqa: E402
+    ATOL, EXACT_BOX_COLUMNS, RTOL, VISUAL_CONFIGS, crowded_stream)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12  # non-tensor float32
@@ -58,6 +81,16 @@ D_VALID, T, K, F = 100, 512, 3, 512
 D = pad_pow2(D_VALID)  # the rows the runners pad 100 detections to
 CROWD_SPREAD = 400.0  # px: 100 objects of 30-60 px overlap their neighbours
 MIN_CROWDED_ROUNDS = 4.0  # auction rounds per frame the crowded stream needs
+# oriented SORT (bench.py `sort_iou_oriented_500`: 500 objects, 4x slots)
+# and oriented NMS (bench.py `nms_oriented_1000`)
+OD, OT = 500, 2000
+NMS_N, NMS_THRESHOLD = 1000, 0.8
+PARITY_FRAMES = 64  # frames of the oriented path rerun with the plain clip
+# f32 operations of one in-radius pair in csrc/clip.cu, counted from the
+# source: every add, sub, mul, div, min, max, abs, negation and comparison
+# (far test 7, recentred vertices 24, first boundary pass 4 x 87, tie pass
+# 4 x 107, area 3, IoU 5)
+CLIP_FLOPS = 815
 
 
 def log(*a):
@@ -296,8 +329,7 @@ def ids_per_object(out):
     return [len(set(ids[:, i].tolist())) for i in range(ids.shape[1])], ids
 
 
-def phase_main(args):
-    dets, feats = synthetic_sequence(args.main_frames, args.seed + 2)
+def phase_main(args, dets, feats):
     fs.fused_sort_chunk.launches = 0
     fv.fused_visual_chunk.launches = 0
     vout, vfps = run_sequence_device_visual(dets, feats, capacity=T,
@@ -327,10 +359,255 @@ def phase_main(args):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 5-8: the clip kernel, the oriented SORT path, NMS, Mahalanobis SORT
+# ---------------------------------------------------------------------------
+
+def oriented_stream(frames, seed=42):
+    """bench.py's `bench_sort_scan` stream: 500 random-walk boxes (spread
+    1000 px, 30-60 px), angles U(0, 0.6) per box and frame."""
+    s = box_stream(frames, OD, np.random.default_rng(seed))
+    s[..., 2] = np.random.default_rng(7).uniform(0, 0.6, size=s.shape[:2])
+    return s
+
+
+def nms_stream(frames):
+    """bench.py's `bench_nms` stream at n=1000: boxes (seed 5, spread
+    500), angles U(0, 0.6), each frame in descending order of a rank
+    drawn U(0.5, 1)."""
+    rng = np.random.default_rng(3)
+    b = box_stream(frames, NMS_N, np.random.default_rng(5), spread=500.0)
+    b[..., 2] = rng.uniform(0, 0.6, size=b.shape[:2])
+    ranks = rng.uniform(0.5, 1.0, size=(frames, NMS_N)).astype(np.float32)
+    order = np.argsort(-ranks, axis=1, kind="stable")
+    return np.take_along_axis(b, order[:, :, None], axis=1)
+
+
+def x_sorted(boxes, active):
+    """The sorted path's view: stable sort by x, inactive rows last."""
+    key = torch.where(active, boxes[:, 0], 3.0e38)
+    return boxes[torch.sort(key, stable=True).indices]
+
+
+def time_ms(dev, fn, n):
+    """CUDA-event ms per call of fn, after one warm-up call."""
+    fn()
+    with DeviceTimer(dev) as timer:
+        for _ in range(n):
+            fn()
+    return timer.seconds * 1e3 / n
+
+
+def clip_bound_ms(d, t, near_pairs):
+    """The larger of: the clip columns read once and [D, T] written once
+    at the HBM rate; the in-radius pairs' clips at the f32 rate."""
+    by_bytes = ((d + t) * 8 * 4 + d * t * 4) / HBM_BYTES_PER_S * 1e3
+    by_ops = near_pairs * CLIP_FLOPS / F32_OPS_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def check_clip_case(dev, name, det_box, trk_box, want_iou):
+    """Kernel against plain version on one input; returns (kernel ms,
+    plain ms, max_abs_err, bound)."""
+    det8, trk8 = cl.clip_columns(det_box), cl.clip_columns(trk_box)
+    tiles = torch.zeros(1, dtype=torch.int32, device=dev)
+    k = cl.clip_pairs(det8, trk8, want_iou, tiles)
+    p = cl.pair_block_plain(det8, trk8, want_iou)
+    far = cl.far_pairs(det8, trk8)
+    if not torch.equal(k > 0, p > 0):
+        raise AssertionError(f"clip[{name}]: masks differ at "
+                             f"{((k > 0) != (p > 0)).nonzero()[:5].tolist()}")
+    torch.testing.assert_close(k, p, rtol=RTOL, atol=ATOL)
+    err = float((k - p).abs().max())
+    run, want = int(tiles.item()), int(cl.tiles_to_run(far))
+    if run != want:
+        raise AssertionError(f"clip[{name}]: {run} tiles ran, {want} hold "
+                             "an in-radius pair")
+    d, t = far.shape
+    total = -(-d // cl.TILE) * -(-t // cl.TILE)
+    k_ms = time_ms(dev, lambda: cl.clip_pairs(det8, trk8, want_iou), 20)
+    p_ms = time_ms(dev, lambda: cl.pair_block_plain(det8, trk8, want_iou), 3)
+    near = int((~far).sum())
+    bound = clip_bound_ms(d, t, near)
+    log(f"[5] clip[{name}] D={d} T={t} {'iou' if want_iou else 'inter'}  "
+        f"kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  max_abs_err {err:.3e}  "
+        f"tiles run {run}/{total}  in-radius pairs {near}  bound "
+        f"{bound[0]:.6f} ms ({bound[1]})")
+    return k_ms, p_ms, err, bound
+
+
+def phase_clip(args, dev):
+    """Phase 5; returns the kernel's entry (launches filled in later)."""
+    stream = torch.as_tensor(oriented_stream(2, args.seed + 42), device=dev)
+    # one frame of the oriented SORT path: frame 1's detections against
+    # frame 0's boxes in the first 500 of 2000 slots, both x-sorted
+    pred = torch.zeros((OT, 5), dtype=torch.float32, device=dev)
+    pred[:OD] = stream[0]
+    active = torch.arange(OT, device=dev) < OD
+    det_s = x_sorted(stream[1], torch.ones(OD, dtype=torch.bool, device=dev))
+    trk_s = x_sorted(pred, active)
+    k_ms, p_ms, err, bound = check_clip_case(dev, "sorted", det_s, trk_s, True)
+    g = torch.Generator(device="cpu").manual_seed(args.seed)
+    errs = [err]
+    errs.append(check_clip_case(
+        dev, "unsorted", det_s[torch.randperm(OD, generator=g).to(dev)],
+        trk_s[torch.randperm(OT, generator=g).to(dev)], True)[2])
+    nms_boxes = torch.as_tensor(nms_stream(args.nms_frames)[0], device=dev)
+    nms_s = x_sorted(nms_boxes, torch.ones(NMS_N, dtype=torch.bool,
+                                           device=dev))
+    errs.append(check_clip_case(dev, "nms", nms_s, nms_s, False)[2])
+
+    exact = torch.tensor(EXACT_BOX_COLUMNS, dtype=torch.float32, device=dev)
+    same = cl.clip_pairs(exact, exact, True).diagonal()
+    if not torch.equal(same, torch.ones_like(same)):
+        raise AssertionError(f"identical rotated boxes: IoU {same.tolist()}, "
+                             "not exactly 1.0")
+    det8 = cl.clip_columns(det_s)
+    self_iou = cl.clip_pairs(det8, det8, True).diagonal()
+    if not torch.equal(self_iou, cl.pair_block_plain(det8, det8,
+                                                     True).diagonal()):
+        raise AssertionError("self IoU of the stream's boxes: kernel and "
+                             "plain version differ")
+    gap = float((self_iou - 1.0).abs().max())
+    if gap > 1e-6:
+        raise AssertionError(f"a box against itself has IoU {1 - gap}")
+    log(f"[5] identical rotated boxes: IoU exactly 1.0 for "
+        f"{len(EXACT_BOX_COLUMNS)} boxes with integer corner offsets; the "
+        f"stream's {OD} boxes against themselves within {gap:.2e} of 1 "
+        f"({int((self_iou == 1.0).sum())} exactly 1.0), equal to the plain "
+        "version")
+    return dict(name="clip_pairs", route="cuda",
+                source="similari_tpu_torch/csrc/clip.cu",
+                replaces="similari_tpu/ops/pallas_clip.py:96", launches=0,
+                max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms,
+                bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+
+
+def plain_clip_pairs(det8, trk8, want_iou, tiles=None):
+    """`clip_pairs` with the plain version on any device: what phase 6
+    patches into ops/clip.py to rerun the path without the kernel."""
+    return cl.pair_block_plain(det8, trk8, want_iou)
+
+
+def compare_scans(name, k, p):
+    """Integers equal, floats within tolerance, over (state, outputs) of
+    two `sort_scan` runs.  Returns the largest float difference."""
+    (ks, ko), (ps, po) = k, p
+    err = 0.0
+    pairs = [(f"out.{f}", getattr(ko, f), getattr(po, f))
+             for f in ("slot", "track_id", "is_new", "length", "overflow",
+                       "pred_box")]
+    for f in ("pred_box", "obs_box", "conf", "active", "last_epoch",
+              "length", "track_id", "next_id"):
+        pairs.append((f"state.{f}", getattr(ks, f), getattr(ps, f)))
+    for f in ("mean_pos", "mean_vel", "cpp", "cpv", "cvv"):
+        pairs.append((f"state.kf.{f}", getattr(ks.kf, f), getattr(ps.kf, f)))
+    for label, a, b in pairs:
+        if a.dtype.is_floating_point:
+            err = max(err, float((a - b).abs().max()))
+            torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+        elif not torch.equal(a, b):
+            raise AssertionError(f"{name}: {label} differs")
+    return err
+
+
+def phase_oriented_sort(args, dev):
+    """Phase 6; returns (clip launches, max_abs_err)."""
+    s = args.oriented_frames
+    box = torch.as_tensor(oriented_stream(s, args.seed + 42), device=dev)
+    conf = torch.ones((s, OD), dtype=torch.float32, device=dev)
+    valid = torch.ones((s, OD), dtype=torch.bool, device=dev)
+    cfg = SortConfig(method="iou", assignment="auction", max_idle_epochs=5,
+                     oriented=True)
+    if not use_sorted_path(cfg, OD, OT, dev):
+        raise AssertionError("the oriented config does not take the sorted "
+                             "path on CUDA")
+    st0 = new_sort_state(OT, 1, device=dev)
+    sort_scan(cfg, st0, box[:2], conf[:2], valid[:2], 1)  # warm-up
+    cl.clip_pairs.launches = 0
+    with DeviceTimer(dev) as timer:
+        state, out = sort_scan(cfg, st0, box, conf, valid, 1)
+    launches = cl.clip_pairs.launches
+    if launches != s:
+        raise AssertionError(f"oriented SORT: {launches} clip launches for "
+                             f"{s} frames")
+    if bool(out.overflow.any()):
+        raise AssertionError("oriented SORT overflowed its 2000 slots")
+    n = min(PARITY_FRAMES, s)
+    kernel_run = sort_scan(cfg, st0, box[:n], conf[:n], valid[:n], 1)
+    for f in ("slot", "track_id", "is_new", "length"):
+        if not torch.equal(getattr(kernel_run[1], f), getattr(out, f)[:n]):
+            raise AssertionError(f"oriented SORT: a second kernel run gave "
+                                 f"other {f}")
+    orig = cl.clip_pairs
+    cl.clip_pairs = plain_clip_pairs
+    try:
+        plain_run = sort_scan(cfg, st0, box[:n], conf[:n], valid[:n], 1)
+    finally:
+        cl.clip_pairs = orig
+    err = compare_scans("oriented SORT", kernel_run, plain_run)
+    ids = out.track_id.cpu().numpy()
+    kept = sum(len(set(ids[:, i].tolist())) == 1 for i in range(OD))
+    log(f"[6] oriented SORT D={OD} T={OT}: {s} frames, "
+        f"{s / timer.seconds:.1f} frames/s (CUDA events), clip launches "
+        f"{launches}; {int(state.next_id)} ids, {kept}/{OD} objects kept "
+        f"one id; first {n} frames equal to the plain-clip run "
+        f"(max_abs_err {err:.3e})")
+    return launches, err
+
+
+def phase_nms(args, dev):
+    """Phase 7; returns the clip launches on the NMS path."""
+    frames = torch.as_tensor(nms_stream(args.nms_frames), device=dev)
+    valid = torch.ones(NMS_N, dtype=torch.bool, device=dev)
+    if not use_block_skip(None, True, 0, NMS_N, dev):
+        raise AssertionError("NMS at n=1000 does not take the block-skip "
+                             "route on CUDA")
+    nms_kernel(frames[0], valid, NMS_THRESHOLD)  # warm-up
+    cl.clip_pairs.launches = 0
+    with DeviceTimer(dev) as timer:
+        keep = [nms_kernel(b, valid, NMS_THRESHOLD) for b in frames]
+    launches = cl.clip_pairs.launches
+    with DeviceTimer(dev) as dense_timer:
+        dense = [nms_kernel(b, valid, NMS_THRESHOLD, block_skip=False)
+                 for b in frames]
+    if launches != len(frames):
+        raise AssertionError(f"NMS: {launches} clip launches for "
+                             f"{len(frames)} frames")
+    for f, (a, b) in enumerate(zip(keep, dense)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"NMS frame {f}: block-skip and dense keep "
+                                 "other boxes")
+    kept = float(torch.stack(keep).sum(1).float().mean())
+    n = len(frames)
+    log(f"[7] oriented NMS n={NMS_N}: block-skip "
+        f"{timer.seconds * 1e3 / n:.4f} ms/frame, dense "
+        f"{dense_timer.seconds * 1e3 / n:.4f} ms/frame (CUDA events), "
+        f"{n} frames, clip launches {launches}, keep masks equal, "
+        f"{kept:.1f} boxes kept per frame")
+    return launches
+
+
+def phase_maha(dets, frames):
+    """Phase 8: the general step's Mahalanobis SORT on phase 4's sequence."""
+    out, fps = run_sequence_device(dets, method="maha", engine="step",
+                                   capacity=T)
+    vals = np.array([r[1:] for f in out for r in out[f]])
+    if len(out) != frames or not np.isfinite(vals).all():
+        raise AssertionError("Mahalanobis SORT outputs are not "
+                             "finite/complete")
+    count, _ = ids_per_object(out)
+    log(f"[8] Mahalanobis SORT (engine='step'): {frames} frames x {D_VALID} "
+        f"objects, {fps:.1f} frames/s (CUDA events), "
+        f"{sum(c == 1 for c in count)}/{D_VALID} objects kept one id")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=256)
     ap.add_argument("--main-frames", type=int, default=1024)
+    ap.add_argument("--oriented-frames", type=int, default=256)
+    ap.add_argument("--nms-frames", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.frames % CHUNK:
@@ -355,12 +632,19 @@ def main(argv=None) -> int:
             log("    " + line.strip())
 
     kernels = [phase_sort(args, dev), phase_visual(args, dev)]
-    launches = phase_main(args)
+    dets, feats = synthetic_sequence(args.main_frames, args.seed + 2)
+    launches = phase_main(args, dets, feats)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    clip_entry = phase_clip(args, dev)
+    clip_entry["launches"], err = phase_oriented_sort(args, dev)
+    clip_entry["max_abs_err"] = max(clip_entry["max_abs_err"], err)
+    nms_launches = phase_nms(args, dev)
+    log(f"[7] clip launches: oriented SORT path {clip_entry['launches']}, "
+        f"NMS path {nms_launches}")
+    phase_maha(dets, args.main_frames)
+    kernels.append(clip_entry)
     log(json.dumps({"kernels": kernels, "not_ported": [
-        {"replaces": "similari_tpu/ops/pallas_clip.py:96",
-         "status": "not ported"},
         {"replaces": "similari_tpu/ops/pallas_merge.py:36",
          "status": "not ported"}]}))
     log(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """Build the CUDA kernels with nvcc on first use and bind them with ctypes.
 
-The sources under `csrc/` compile into one shared library with a plain C
-interface, written to `_build/` beside this file (listed in .gitignore) and
-named by a hash of the sources and flags, so an edited source rebuilds.
-Nothing here runs at import time.
+Each source under `csrc/` compiles to an object file, all of them in
+parallel (one nvcc each, started together); the objects link into one
+shared library with a plain C interface, written to `_build/` beside this
+file (listed in .gitignore) and named by a hash of the sources and flags,
+so an edited source rebuilds.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -20,13 +21,14 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fused_track.cu",)
+SOURCES = ("fused_track.cu", "clip.cu")
 HEADERS = ("fused_track.cuh",)
 # --fmad=false: no multiply-add contraction, so the kernels round every
-# product and sum exactly as their plain PyTorch versions do
+# product and sum exactly as their plain PyTorch versions do, and the clip
+# kernel's exact collinear tests hold
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -38,6 +40,8 @@ _F = ctypes.c_float
 SORT_ARGTYPES = [_P] * (3 + 13 + 5 + 1) + [_I] * 6 + [_F] * 6 + [_P]
 VISUAL_ARGTYPES = ([_P] * (7 + 20 + 8 + 5) + [_I] * 14 + [_F] * 12
                    + [_P, _P] + [_P])
+# csrc/clip.cu: det8, trk8, out, tiles_run; d, t, want_iou; stream
+CLIP_ARGTYPES = [_P] * 4 + [_I] * 3 + [_P]
 
 
 class _Library:
@@ -65,21 +69,45 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; raise with their output if any fails.
+    Returns their joined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs, failed = [], []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} ({proc.returncode})")
+    log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed: {'; '.join(failed)}\n{log}")
+    return log
+
+
 def build() -> Path:
     """Compile the library if this exact source is not built yet."""
-    out = BUILD_DIR / f"libfused_track_{_digest()}.so"
+    digest = _digest()
+    out = BUILD_DIR / f"libsimilari_kernels_{digest}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{digest}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    _LIB.build_seconds = time.perf_counter() - t0
-    _LIB.build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{_LIB.build_log}")
+    try:
+        log = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o),
+                         str(CSRC / s)] for s, o in zip(SOURCES, objs)])
+        log += _run_all([[_nvcc(), "-shared", "-o", str(tmp),
+                          *map(str, objs)]])
+    finally:
+        _LIB.build_seconds = time.perf_counter() - t0
+        for o in objs:
+            o.unlink(missing_ok=True)
+    _LIB.build_log = log
     os.replace(tmp, out)
     return out
 
@@ -92,6 +120,8 @@ def library() -> ctypes.CDLL:
         lib.fused_sort_launch.restype = ctypes.c_int
         lib.fused_visual_launch.argtypes = VISUAL_ARGTYPES
         lib.fused_visual_launch.restype = ctypes.c_int
+        lib.clip_pairs_launch.argtypes = CLIP_ARGTYPES
+        lib.clip_pairs_launch.restype = ctypes.c_int
         _LIB.lib = lib
     return _LIB.lib
 

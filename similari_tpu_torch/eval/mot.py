@@ -5,7 +5,9 @@
 SoA buffers, expand frame gaps into all-invalid frames (the fused kernels
 run consecutive epochs), and run the whole sequence through the fused SORT
 or VisualSORT kernel: on the card by default, or through the kernels'
-plain PyTorch versions when `device="cpu"`.
+plain PyTorch versions when `device="cpu"`.  `run_sequence_device` also
+runs the general SORT step (`engine="step"`, per-frame epochs, every
+method and assignment).
 """
 
 from __future__ import annotations
@@ -108,6 +110,13 @@ def _check_overflow(overflow, capacity: int) -> None:
         )
 
 
+def _epochs_of(frames) -> np.ndarray:
+    """Per-frame epochs from the frame numbers (first frame = epoch 1), so
+    gaps age tracks as stepping every frame would."""
+    f = np.asarray(frames, np.int64)
+    return (f - f[0] + 1).astype(np.int32)
+
+
 def _chunked(frames, arrays):
     """Gap-expand, then pad with all-invalid frames to a multiple of the
     chunk (CHUNK frames, or the whole span when shorter).  Returns (dense
@@ -200,23 +209,30 @@ def run_sequence_device(
     assignment: str = "auction",
     recycle_idle: bool = True,
     device: DeviceLike = None,
+    engine: str = "fused",
 ) -> Tuple[Outputs, float]:
-    """Whole-sequence SORT through the fused kernel.
+    """Whole-sequence SORT on the device.
 
-    `detections` may also be a path to a MOT det csv.  Only aligned-IoU
-    matching (`method="iou"`) runs in the fused kernel, and only its
-    in-kernel auction assigns (`assignment="auction"`).  Returns
-    (per-frame outputs, frames/s of the timed run: CUDA-event time on the
-    card).
+    `detections` may also be a path to a MOT det csv.  engine="fused" (the
+    default here) runs the fused SORT kernel over 16-frame chunks: aligned
+    IoU matching (`method="iou"`) with its in-kernel auction
+    (`assignment="auction"`) only.  engine="step" runs the general step
+    (`trackers/sort_step.py::sort_scan`) frame by frame with per-frame
+    epochs: IoU or Mahalanobis (`method="maha"`), assignment "auction",
+    "hungarian" or "auto".  The JAX package's default is its general step
+    (`engine="xla"`); both engines give the same ids.  Returns (per-frame
+    outputs, frames/s of the timed run: CUDA-event time on the card).
     """
-    from ..ops.fused_sort import fused_sort_scan
     from ..trackers.state import new_sort_state
 
-    if method != "iou":
-        raise NotImplementedError(
-            "the fused SORT kernel matches by aligned IoU; Mahalanobis "
-            "matching needs the general SORT step (ROADMAP queue 1, item 7)")
-    _auction_only(assignment)
+    if engine not in ("fused", "step"):
+        raise ValueError(f"unknown engine {engine!r}: 'fused' or 'step'")
+    if engine == "fused":
+        if method != "iou":
+            raise NotImplementedError(
+                "the fused SORT kernel matches by aligned IoU; Mahalanobis "
+                "matching runs on engine='step'")
+        _auction_only(assignment)
     dev = resolve_device(device)
     if isinstance(detections, (str, Path)):
         detections = read_detections(detections)
@@ -237,6 +253,22 @@ def run_sequence_device(
 
     cfg = sequence_sort_config(iou_threshold, max_idle_epochs, recycle_idle)
     state = new_sort_state(capacity, 1, device=dev)
+    if engine == "step":
+        from ..trackers.sort_step import sort_scan
+
+        cfg = dataclasses.replace(cfg, method=method, assignment=assignment)
+        args = [torch.as_tensor(a, device=dev) for a in (box, conf, valid)]
+        with DeviceTimer(dev) as timer:
+            state, outs = sort_scan(cfg, state, *args, _epochs_of(frames))
+        fps = steps / timer.seconds
+        _check_overflow(outs.overflow.cpu().numpy(), capacity)
+        ids = outs.track_id.cpu().numpy()
+        pred = outs.pred_box.cpu().numpy()
+        return (_assemble_outputs(frames, valid, box, pred, ids,
+                                  report_observed), fps)
+
+    from ..ops.fused_sort import fused_sort_scan
+
     pos, span, chunk, (box2, conf2, valid2) = _chunked(
         frames, (box, conf, valid))
     args = [torch.as_tensor(a, device=dev) for a in (box2, conf2, valid2)]

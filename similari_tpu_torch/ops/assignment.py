@@ -1,0 +1,248 @@
+"""Linear assignment (maximisation) for tracker voting (mirrors
+`similari_tpu/ops/assignment.py`).
+
+Rows are detections, columns the detections' private "new track" columns
+followed by the tracks: the augmented [D, D+T] matrix of the reference's
+voting, with the new-track threshold on the diagonal.  Every solver
+returns, per row, a column in that convention: col < D is a new track,
+col >= D is track col - D.
+
+* `auction_lap_fallback` / `auction_lap`: the Jacobi forward auction of the
+  JAX package, round for round (3 rounds, then more until every row is
+  assigned or 3000 rounds ran).  Ties go to the first column and the lowest
+  row.  It is tensor code on the device of its input, with one host check
+  per round after the third.
+* `hungarian_host`: the exact optimum by scipy's `linear_sum_assignment`;
+  the matrix goes to the host and the columns come back.
+
+The JAX package's general step solves the auction in XLA, not in a Pallas
+kernel, so it stays plain PyTorch here.  The C++ LAP solver of the JAX
+package (`native`) is not part of the port yet (ROADMAP queue 1, item 5).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+NEG = -1e30
+MAX_AUCTION_ROUNDS = 3000
+# rounds run before the first convergence check; tracking-shaped matrices
+# converge in 1-3 rounds, and a round changes nothing once all rows hold
+UNROLLED_ROUNDS = 3
+
+_NATIVE_NOT_PORTED = (
+    "the native C++ LAP solver is not part of the port yet (ROADMAP queue "
+    "1, item 5): use assignment='hungarian' or 'auction'")
+
+
+def first_argmax(values: torch.Tensor, dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(max, lowest index of the max) along `dim`."""
+    m = values.max(dim=dim, keepdim=True).values
+    n = values.shape[dim]
+    shape = [1] * values.dim()
+    shape[dim] = n
+    idx = torch.arange(n, device=values.device).reshape(shape)
+    first = torch.where(values >= m, idx, n).min(dim=dim).values
+    return m.squeeze(dim), first
+
+
+def _second_best(values: torch.Tensor, j_best: torch.Tensor) -> torch.Tensor:
+    """Row max of `values` with each row's best column taken out."""
+    d = values.shape[0]
+    rows = torch.arange(d, device=values.device)
+    neg = torch.full((d,), NEG, dtype=values.dtype, device=values.device)
+    return values.index_put((rows, j_best), neg).max(dim=1).values
+
+
+def _column_side(bidders, j_best, bid, prices, row_to_col, col_to_row):
+    """Each column takes its highest bid (the lowest row among equal bids);
+    owners of re-auctioned columns are evicted.  Returns (prices,
+    row_to_col with -1 for evicted rows and the won column for winners,
+    col_to_row)."""
+    d = row_to_col.shape[0]
+    n = prices.shape[0]
+    cols = torch.arange(n, device=prices.device)
+    bids = torch.where(bidders[:, None] & (j_best[:, None] == cols[None, :]),
+                       bid[:, None], NEG)
+    best_bid, winner_row = first_argmax(bids, 0)
+    got = best_bid > NEG * 0.5
+    evicted = torch.zeros(d + 1, dtype=torch.bool, device=prices.device)
+    evicted[torch.where(got & (col_to_row >= 0), col_to_row, d)] = True
+    # a row bids on one column, so it wins at most one
+    won_col = torch.full((d + 1,), -1, dtype=torch.int64, device=prices.device)
+    won_col[torch.where(got, winner_row, d)] = cols
+    row_to_col = torch.where(won_col[:d] >= 0, won_col[:d],
+                             torch.where(evicted[:d], -1, row_to_col))
+    col_to_row = torch.where(got, winner_row, col_to_row)
+    prices = torch.where(got, best_bid, prices)
+    return prices, row_to_col, col_to_row
+
+
+def _fb_round(carry, weights, theta, eps):
+    """One auction round with an analytic private fallback column per row.
+
+    The diagonal block of the augmented matrix is never contested, so it
+    is a constant outside option worth `theta`: a row whose best real
+    value (net of prices) is below theta takes it at once and for good
+    (state -2); the others bid v_best - max(v_second, theta) + eps."""
+    prices, row_to_col, col_to_row = carry
+    unassigned = row_to_col == -1
+    values = weights - prices[None, :]
+    v_best, j_best = first_argmax(values, 1)
+    v_second = _second_best(values, j_best)
+    take_fb = unassigned & (theta >= v_best)
+    bid = prices[j_best] + (v_best - torch.clamp(v_second, min=theta)) + eps
+    prices, r2c, col_to_row = _column_side(
+        unassigned & ~take_fb, j_best, bid, prices, row_to_col, col_to_row)
+    return prices, torch.where(take_fb, -2, r2c), col_to_row
+
+
+def _run_rounds(round_fn, carry, max_iters, pending):
+    """UNROLLED_ROUNDS rounds, then more while `pending(row_to_col)` has a
+    row and fewer than max_iters rounds ran."""
+    for _ in range(UNROLLED_ROUNDS):
+        carry = round_fn(carry)
+    i = UNROLLED_ROUNDS
+    while i < max_iters and bool(pending(carry[1]).any()):
+        carry = round_fn(carry)
+        i += 1
+    return carry
+
+
+def auction_lap_fallback(weights: torch.Tensor, theta: float,
+                         max_iters: int = MAX_AUCTION_ROUNDS) -> torch.Tensor:
+    """Auction on the SORT voting LP (real-column weights [D, T], 0 = no
+    edge) with private fallback columns.  Returns per row the column in
+    the augmented convention."""
+    d, t = weights.shape
+    dev = weights.device
+    wmax = torch.clamp(weights.max(), min=theta)
+    wmin = torch.clamp(weights.min(), max=0.0)
+    span = torch.clamp(wmax - wmin, min=1e-6)
+    eps = span / max(4096.0, 64.0 * d)
+    carry = (torch.zeros(t, dtype=weights.dtype, device=dev),
+             torch.full((d,), -1, dtype=torch.int64, device=dev),
+             torch.full((t,), -1, dtype=torch.int64, device=dev))
+    _, row_to_col, _ = _run_rounds(
+        lambda c: _fb_round(c, weights, theta, eps), carry, max_iters,
+        lambda r2c: r2c == -1)
+    rows = torch.arange(d, device=dev)
+    return torch.where(row_to_col >= 0, d + row_to_col, rows)
+
+
+def _auction_round(carry, weights, eps):
+    """One Jacobi round: every unassigned row bids for its best column."""
+    prices, row_to_col, col_to_row = carry
+    unassigned = row_to_col < 0
+    values = weights - prices[None, :]
+    v_best, j_best = first_argmax(values, 1)
+    v_second = _second_best(values, j_best)
+    bid = prices[j_best] + (v_best - v_second) + eps
+    return _column_side(unassigned, j_best, bid, prices, row_to_col,
+                        col_to_row)
+
+
+def _fixup_unassigned(row_to_col: torch.Tensor,
+                      col_to_row: torch.Tensor) -> torch.Tensor:
+    """Give rows still unassigned after the round cap the free columns in
+    order (the r-th such row the r-th free column; n-1 when none is
+    left), so the result stays a matching."""
+    n = col_to_row.shape[0]
+    dev = col_to_row.device
+    col_free = col_to_row < 0
+    order = torch.cumsum(col_free.long(), 0) - 1
+    row_un = row_to_col < 0
+    rank = torch.cumsum(row_un.long(), 0) - 1
+    table = torch.full((n + 1,), n - 1, dtype=torch.int64, device=dev)
+    table[torch.where(col_free, order, n)] = torch.arange(n, device=dev)
+    fill = table[torch.clamp(rank, 0, n - 1)]
+    return torch.where(row_un, fill, row_to_col)
+
+
+def auction_lap(weights: torch.Tensor,
+                max_iters: int = MAX_AUCTION_ROUNDS) -> torch.Tensor:
+    """Maximisation LAP on weights[D, N] (N >= D): one forward-auction
+    phase from zero prices.  Returns the column per row [D]."""
+    d, n = weights.shape
+    if n < d:
+        raise ValueError("need at least as many columns as rows")
+    dev = weights.device
+    wmax = weights.max()
+    wmin = torch.clamp(weights.min(), max=0.0)
+    span = torch.clamp(wmax - wmin, min=1e-6)
+    eps = span / max(4096.0, 64.0 * d)
+    carry = (torch.zeros(n, dtype=weights.dtype, device=dev),
+             torch.full((d,), -1, dtype=torch.int64, device=dev),
+             torch.full((n,), -1, dtype=torch.int64, device=dev))
+    _, row_to_col, col_to_row = _run_rounds(
+        lambda c: _auction_round(c, weights, eps), carry, max_iters,
+        lambda r2c: r2c < 0)
+    return _fixup_unassigned(row_to_col, col_to_row)
+
+
+def _hungarian_np(weights: np.ndarray) -> np.ndarray:
+    from scipy.optimize import linear_sum_assignment
+
+    d, n = weights.shape
+    rows, cols = linear_sum_assignment(weights, maximize=True)
+    out = np.full((d,), -1, np.int64)
+    out[rows] = cols
+    # scipy assigns every row when n >= d; guard anyway
+    if (out < 0).any():
+        free = sorted(set(range(n)) - set(out[out >= 0].tolist()))
+        out[out < 0] = np.asarray(free[: (out < 0).sum()], np.int64)
+    return out
+
+
+def hungarian_host(weights: torch.Tensor) -> torch.Tensor:
+    """Exact Hungarian on the host; the columns come back to the weights'
+    device."""
+    out = _hungarian_np(weights.detach().cpu().numpy())
+    return torch.from_numpy(out).to(weights.device)
+
+
+def resolve_backend(backend: str, device: torch.device) -> str:
+    """'auto' -> the auction on CUDA, the exact host solver on the CPU."""
+    if backend != "auto":
+        return backend
+    return "auction" if device.type == "cuda" else "hungarian"
+
+
+def solve_lap(weights: torch.Tensor, backend: str = "auction") -> torch.Tensor:
+    if backend == "auction":
+        return auction_lap(weights)
+    if backend == "hungarian":
+        return hungarian_host(weights)
+    if backend == "native":
+        raise NotImplementedError(_NATIVE_NOT_PORTED)
+    raise ValueError(f"unknown assignment backend: {backend}")
+
+
+def augment_with_threshold(metric: torch.Tensor, threshold: float,
+                           row_valid: torch.Tensor,
+                           col_valid: torch.Tensor) -> torch.Tensor:
+    """The SORT voting matrix [D, D+T]: the threshold on the diagonal (for
+    padding rows too: their row is 0 elsewhere and the diagonal column is
+    private, so the optimum parks them there), the masked metric beside
+    it."""
+    d = metric.shape[0]
+    body = torch.where(row_valid[:, None] & col_valid[None, :], metric, 0.0)
+    eye = torch.eye(d, dtype=torch.bool, device=metric.device)
+    diag = torch.where(eye, threshold, 0.0).to(metric.dtype)
+    return torch.cat([diag, body], dim=1)
+
+
+def solve_voting(metric: torch.Tensor, threshold: float,
+                 row_valid: torch.Tensor, col_valid: torch.Tensor,
+                 backend: str) -> torch.Tensor:
+    """SORT voting: per-row column in the augmented convention.  The
+    auction never builds the [D, D] diagonal block; the host solvers solve
+    the augmented matrix."""
+    body = torch.where(row_valid[:, None] & col_valid[None, :], metric, 0.0)
+    if backend == "auction":
+        return auction_lap_fallback(body, threshold)
+    return solve_lap(augment_with_threshold(metric, threshold, row_valid,
+                                            col_valid), backend)

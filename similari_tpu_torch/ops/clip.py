@@ -1,0 +1,202 @@
+"""Rotated-box IoU and intersection with `too_far` tile skipping (mirrors
+`similari_tpu/ops/pallas_clip.py`).
+
+`clip_pairs` launches the CUDA kernel `clip_pairs_kernel`
+(`csrc/clip.cu`) for CUDA tensors and runs its plain PyTorch version,
+`pair_block_plain`, for CPU tensors.  Both take per-box clip columns
+(`clip_columns`: centre, two corner offsets, radius, area, so the pair
+work needs no trig) of detections [D, 8] and tracks [T, 8] and give the
+[D, T] rotated IoU, or the raw intersection area, by the Green's-theorem
+boundary integral of `ops/geometry.py`, with each pair recentred around
+the midpoint of its centres as vertex = offset +- half the centre delta.
+`too_far` pairs are exactly 0.  The kernel skips the clip for every
+32 x 32 tile of pairs with no pair in radius; callers feed it x-sorted
+boxes (`trackers/sort_step.py::_match_sorted`, `ops/nms.py`) so the
+in-radius pairs gather near the diagonal and most tiles skip.
+
+The result does not depend on the tile: the plain version computes every
+pair densely and zeroes the far ones.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+TILE = 32  # the kernel's tile edge: a tile is TILE x TILE (det, trk) pairs
+_F32 = torch.float32
+
+
+def clip_columns(boxes: torch.Tensor) -> torch.Tensor:
+    """vec5 [..., 5] -> clip columns [..., 8]:
+    (xc, yc, r1x, r1y, r2x, r2y, radius, area); the corners are +r1, +r2,
+    -r1, -r2 around the centre, as `geometry.box_vertices`."""
+    angle = boxes[..., 2]
+    c = torch.cos(angle)
+    s = torch.sin(angle)
+    hw = boxes[..., 3] * boxes[..., 4] * 0.5
+    hh = boxes[..., 4] * 0.5
+    r1x = -hw * c - hh * s
+    r1y = -hw * s + hh * c
+    r2x = hw * c - hh * s
+    r2y = hw * s + hh * c
+    radius = torch.sqrt(hw * hw + hh * hh)
+    area = boxes[..., 3] * boxes[..., 4] * boxes[..., 4]
+    return torch.stack([boxes[..., 0], boxes[..., 1], r1x, r1y, r2x, r2y,
+                        radius, area], dim=-1)
+
+
+def _pair_integral(ax, ay, bx, by, tie_pass: bool) -> torch.Tensor:
+    """Boundary integral of A's edges clipped to B; ax/ay, bx/by: 4-lists
+    of [D, T] vertex coordinates, already recentred per pair."""
+    total = None
+    for i in range(4):
+        sx = ax[i]
+        sy = ay[i]
+        dex = ax[(i + 1) % 4] - sx
+        dey = ay[(i + 1) % 4] - sy
+        t0 = torch.zeros_like(sx)
+        t1 = torch.ones_like(sx)
+        ok = torch.ones(sx.shape, dtype=torch.bool, device=sx.device)
+        for h in range(4):
+            px = bx[h]
+            py = by[h]
+            dx = bx[(h + 1) % 4] - px
+            dy = by[(h + 1) % 4] - py
+            a = dx * (sy - py) - dy * (sx - px)
+            b = dx * dey - dy * dex
+            tt = -a / torch.where(b == 0.0, 1.0, b)
+            t0 = torch.where(b < 0.0, torch.maximum(t0, tt), t0)
+            t1 = torch.where(b > 0.0, torch.minimum(t1, tt), t1)
+            para_out = (b == 0.0) & (a > 0.0)
+            if tie_pass:
+                same_dir = dx * dex + dy * dey >= 0.0
+                para_out = para_out | ((b == 0.0) & (a == 0.0) & same_dir)
+            ok = ok & ~para_out
+        p0x = sx + t0 * dex
+        p0y = sy + t0 * dey
+        p1x = sx + t1 * dex
+        p1y = sy + t1 * dey
+        contrib = torch.where(ok & (t1 > t0), p0x * p1y - p0y * p1x, 0.0)
+        total = contrib if total is None else total + contrib
+    return total
+
+
+def far_pairs(det8: torch.Tensor, trk8: torch.Tensor) -> torch.Tensor:
+    """[D, T] bool: pairs whose enclosing circles do not meet."""
+    ddx = det8[:, 0:1] - trk8[None, :, 0]
+    ddy = det8[:, 1:2] - trk8[None, :, 1]
+    md = det8[:, 6:7] + trk8[None, :, 6]
+    return ddx * ddx + ddy * ddy > md * md
+
+
+def tiles_to_run(far: torch.Tensor) -> torch.Tensor:
+    """Number of TILE x TILE tiles of the [D, T] pair matrix that hold a
+    pair in radius: the tiles whose clip the kernel runs."""
+    d, t = far.shape
+    dp, tp = -(-d // TILE) * TILE, -(-t // TILE) * TILE
+    padded = torch.ones((dp, tp), dtype=torch.bool, device=far.device)
+    padded[:d, :t] = far
+    near = ~padded.reshape(dp // TILE, TILE, tp // TILE, TILE)
+    return near.any(dim=3).any(dim=1).sum()
+
+
+def pair_block_plain(det8: torch.Tensor, trk8: torch.Tensor,
+                     want_iou: bool) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: det8 [D, 8], trk8 [T, 8] ->
+    [D, T] IoU (want_iou) or intersection area, 0 where empty or too far.
+    Same arithmetic and operation order as the kernel."""
+    dxc = det8[:, 0:1]
+    dyc = det8[:, 1:2]
+    darea = det8[:, 7:8]
+    txc = trk8[None, :, 0]
+    tyc = trk8[None, :, 1]
+    tarea = trk8[None, :, 7]
+    ddx = dxc - txc  # [D, T] centre delta (a - b)
+    ddy = dyc - tyc
+    far = far_pairs(det8, trk8)
+    hx = 0.5 * ddx  # a_centre - midpoint; b_centre - midpoint = -hx
+    hy = 0.5 * ddy
+    a_r1x, a_r1y, a_r2x, a_r2y = (det8[:, k:k + 1] for k in range(2, 6))
+    ax = [hx + a_r1x, hx + a_r2x, hx - a_r1x, hx - a_r2x]
+    ay = [hy + a_r1y, hy + a_r2y, hy - a_r1y, hy - a_r2y]
+    b_r1x, b_r1y, b_r2x, b_r2y = (trk8[None, :, k] for k in range(2, 6))
+    bx = [b_r1x - hx, b_r2x - hx, -b_r1x - hx, -b_r2x - hx]
+    by = [b_r1y - hy, b_r2y - hy, -b_r1y - hy, -b_r2y - hy]
+    s = (_pair_integral(ax, ay, bx, by, False)
+         + _pair_integral(bx, by, ax, ay, True))
+    inter = torch.where(far, 0.0, torch.abs(s) * 0.5)
+    if not want_iou:
+        return inter
+    # union > 0: a degenerate (zero-area) box near a real one clips to the
+    # real box's area and leaves the union at +-1 ulp of zero; in exact
+    # math inter <= union, so the guard fires only on such rows
+    union = darea + tarea - inter
+    pos = (inter > 0.0) & (union > 0.0)
+    return torch.where(pos, inter / torch.where(pos, union, 1.0), 0.0)
+
+
+def _check(det8: torch.Tensor, trk8: torch.Tensor, tiles) -> None:
+    for name, x in (("det8", det8), ("trk8", trk8)):
+        if x.dim() != 2 or x.shape[1] != 8:
+            raise ValueError(f"{name} must be [N, 8], got {tuple(x.shape)}")
+        if x.dtype != _F32:
+            raise TypeError(f"{name} must be float32, got {x.dtype}")
+    if trk8.device != det8.device:
+        raise ValueError("det8 and trk8 must be on one device")
+    if tiles is not None and (tiles.shape != (1,) or tiles.dtype != torch.int32
+                              or tiles.device != det8.device):
+        raise ValueError("tiles must be an int32 [1] tensor on the inputs' "
+                         "device")
+
+
+def clip_pairs(det8: torch.Tensor, trk8: torch.Tensor, want_iou: bool,
+               tiles=None) -> torch.Tensor:
+    """[D, T] rotated IoU (want_iou) or intersection area from clip
+    columns.  CUDA tensors launch the kernel, CPU tensors run
+    `pair_block_plain`.  `tiles`, an optional int32 [1] tensor on the same
+    device, is increased by the number of tiles whose clip ran."""
+    _check(det8, trk8, tiles)
+    if det8.device.type == "cpu":
+        out = pair_block_plain(det8, trk8, want_iou)
+        if tiles is not None:
+            tiles += tiles_to_run(far_pairs(det8, trk8)).to(torch.int32)
+        return out
+    if det8.device.type != "cuda":
+        raise ValueError(f"unsupported device {det8.device}")
+    from .._build import check, library
+
+    lib = library()
+    det8, trk8 = det8.contiguous(), trk8.contiguous()
+    d, t = det8.shape[0], trk8.shape[0]
+    out = torch.empty((d, t), dtype=_F32, device=det8.device)
+    code = lib.clip_pairs_launch(
+        ctypes.c_void_p(det8.data_ptr()), ctypes.c_void_p(trk8.data_ptr()),
+        ctypes.c_void_p(out.data_ptr()),
+        ctypes.c_void_p(None if tiles is None else tiles.data_ptr()),
+        d, t, int(want_iou),
+        ctypes.c_void_p(torch.cuda.current_stream(det8.device).cuda_stream))
+    check(code, "clip_pairs_launch")
+    clip_pairs.launches += 1
+    return out
+
+
+clip_pairs.launches = 0
+
+
+def oriented_iou_blockskip(det_box: torch.Tensor, trk_box: torch.Tensor,
+                           tiles=None):
+    """Pairwise rotated IoU det[D, 5] x trk[T, 5] -> (iou[D, T],
+    valid[D, T]).  Degenerate (zero-area) rows come out exactly 0/invalid;
+    callers still mask padded rows and columns."""
+    iou = clip_pairs(clip_columns(det_box), clip_columns(trk_box), True, tiles)
+    return iou, iou > 0.0
+
+
+def oriented_inter_blockskip(det_box: torch.Tensor, trk_box: torch.Tensor,
+                             tiles=None) -> torch.Tensor:
+    """Pairwise rotated intersection area (NMS needs inter / area_j, not
+    the IoU)."""
+    return clip_pairs(clip_columns(det_box), clip_columns(trk_box), False,
+                      tiles)

@@ -24,12 +24,11 @@ from typing import Tuple
 
 import torch
 
+from .assignment import MAX_AUCTION_ROUNDS, NEG, first_argmax
 from .kalman import KalmanSpec, KalmanState
 from ..trackers.sort_step import SortConfig
 from ..trackers.state import SortState
 
-NEG = -1e30
-MAX_AUCTION_ROUNDS = 3000
 _F32, _I32 = torch.float32, torch.int32
 
 SortTuple = Tuple[torch.Tensor, ...]
@@ -38,17 +37,6 @@ SortTuple = Tuple[torch.Tensor, ...]
 # ---------------------------------------------------------------------------
 # plain PyTorch pieces shared with ops/fused_visual.py
 # ---------------------------------------------------------------------------
-
-def first_argmax(values: torch.Tensor, dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(max, lowest index of the max) along `dim`."""
-    m = values.max(dim=dim, keepdim=True).values
-    n = values.shape[dim]
-    shape = [1] * values.dim()
-    shape[dim] = n
-    idx = torch.arange(n, device=values.device).reshape(shape)
-    first = torch.where(values >= m, idx, n).min(dim=dim).values
-    return m.squeeze(dim), first
-
 
 def forward_auction_plain(A: torch.Tensor, dvalid: torch.Tensor):
     """Jacobi forward auction on the augmented weights A[D, N] (the first D
@@ -173,8 +161,8 @@ def check_sort_scope(cfg: SortConfig) -> None:
     if cfg.method != "iou" or cfg.oriented or cfg.constraints:
         raise NotImplementedError(
             "the fused SORT kernel covers aligned-IoU matching without "
-            "constraints; the general SORT step (Mahalanobis, oriented "
-            "boxes, constraints) is ROADMAP queue 1, item 7")
+            "constraints; Mahalanobis, oriented boxes and constraints run "
+            "on the general step (trackers/sort_step.py::sort_scan)")
 
 
 def fused_sort_chunk_plain(cfg: SortConfig, state: SortTuple, box, conf,
@@ -340,8 +328,8 @@ def fused_sort_scan(cfg: SortConfig, state: SortState, det_box, det_conf,
     overflow)) with [S, D, ...] outputs."""
     if state.history != 1:
         raise NotImplementedError(
-            "the fused kernel keeps history depth 1; deeper histories need "
-            "the general SORT step (ROADMAP queue 1, item 7)")
+            "the fused kernel keeps history depth 1; deeper histories run "
+            "on the general step (trackers/sort_step.py::sort_scan)")
     steps = det_box.shape[0]
     if steps % chunk:
         raise ValueError("steps must be a multiple of the chunk size")

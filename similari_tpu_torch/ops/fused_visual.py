@@ -47,8 +47,7 @@ def check_visual_scope(cfg: VisualConfig) -> None:
     if cfg.oriented:
         raise NotImplementedError(
             "oriented boxes need the general visual step (ROADMAP queue 1, "
-            "item 8) and the rotated-IoU kernel pallas_clip._pair_block "
-            "(ROADMAP queue 2, item 4)")
+            "item 8), which will take its rotated IoU from ops/clip.py")
     gates_on = cfg.own_area_use > 0.0 or cfg.own_area_collect > 0.0
     if gates_on and cfg.own_area_backend == "device":
         raise NotImplementedError(

@@ -20,6 +20,8 @@ from typing import Optional
 
 import torch
 
+from ..device import DeviceLike, resolve_device
+
 # chi2inv(0.95, dof) table and gating bound
 CHI2INV95 = (3.8415, 5.9915, 7.8147, 9.4877, 11.070, 12.592, 14.067, 15.507, 16.919)
 CHI2_UPPER_BOUND = 100.0
@@ -124,6 +126,9 @@ def calculate_cost(distance: torch.Tensor, inverted: bool,
                        CHI2_UPPER_BOUND - distance)
 
 
-def empty_state(n: int, dim: int = 5, device=None) -> KalmanState:
-    return KalmanState(*(torch.zeros(n, dim, dtype=torch.float32,
-                                     device=device) for _ in range(5)))
+def empty_state(n: int, dim: int = 5, device: DeviceLike = None) -> KalmanState:
+    """Zero state for n rows; `device=None` means CUDA, as everywhere in
+    the port."""
+    dev = resolve_device(device)
+    return KalmanState(*(torch.zeros(n, dim, dtype=torch.float32, device=dev)
+                         for _ in range(5)))

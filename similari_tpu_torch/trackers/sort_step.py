@@ -1,22 +1,48 @@
-"""SORT configuration (mirrors the config part of
+"""The general SORT step and its scan (mirrors
 `similari_tpu/trackers/sort_step.py`).
 
-Only the static configuration is ported so far; the fused kernel
-(`ops/fused_sort.py`) runs the step.  The general (non-fused) step with
-oriented boxes, constraints and Mahalanobis matching comes later
-(ROADMAP queue 1, item 7).
+    (state, padded detections, epoch) -> (state', per-detection outputs)
+
+One step: the voting weights of every (detection, track) pair (aligned or
+oriented IoU x confidence, or inverted Mahalanobis cost / confidence, with
+the idle gate, the `too_far` prune and spatio-temporal constraints), the
+assignment on the augmented [D, D+T] voting matrix (new-track threshold on
+the diagonal), free-slot allocation in slot order, one masked Kalman
+predict/update for matched and new rows, and the state write (dropped for
+padded rows and for every row of an overflowing frame), with histories of
+depth H in ring buffers.
+
+Oriented IoU matching at T >= 512 and D >= 64 can take the sorted path
+(`_match_sorted`): x-sorted views of both axes, the rotated IoU from the
+tile-skipping clip kernel (`ops/clip.py`), the auction in sorted space.
+`oriented_block_sort="auto"` takes it when the state is on CUDA; True
+forces it on any device (on the CPU the clip's plain version runs); False
+keeps the dense path.  The fused kernel (`ops/fused_sort.py`) covers the
+aligned-IoU case of the same step for whole frame chunks.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Tuple, Union
 
+import numpy as np
+import torch
+
+from ..ops import assignment as asg
+from ..ops import clip
+from ..ops import geometry as geo
 from ..ops import kalman as kal
+from ..ops import merge as mrg
+from .constraints import allowed_distance_for_delta
+from .state import SortState
 
 MAHALANOBIS_NEW_TRACK_THRESHOLD = 1.0
 DEFAULT_SORT_IOU_THRESHOLD = 0.3
 DEFAULT_MINIMAL_SORT_CONFIDENCE = 0.05
+SORTED_MIN_TRACKS = 512  # the sorted path's gate: T >= 512 and D >= 64
+SORTED_MIN_DETECTIONS = 64
+_BIG = 3.0e38  # sort key of inactive slots and padded rows: they sort last
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,12 +57,16 @@ class SortConfig:
     constraints: Tuple[Tuple[int, float], ...] = ()
     position_weight: float = kal.DEFAULT_POSITION_WEIGHT
     velocity_weight: float = kal.DEFAULT_VELOCITY_WEIGHT
-    assignment: str = "auto"
+    # "auto": the auction on CUDA, scipy's Hungarian on the CPU
+    assignment: str = "auto"  # "auto" | "auction" | "hungarian"
+    # static flag: False uses the exact axis-aligned IoU
     oriented: bool = True
+    # > 0 asks for the radius-pruned top-k clip, not ported yet
     oriented_neighbors: int = 0
     # retire tracks idle past max_idle_epochs at the top of every step so
     # the static capacity bounds live tracks
     recycle_idle: bool = False
+    # "auto" | True | False: the sorted clip-kernel path (see module doc)
     oriented_block_sort: object = "auto"
 
     @property
@@ -50,3 +80,211 @@ class SortConfig:
     @property
     def kalman_spec(self) -> kal.KalmanSpec:
         return kal.KalmanSpec(self.position_weight, self.velocity_weight)
+
+
+@dataclasses.dataclass(frozen=True)
+class StepOutput:
+    slot: torch.Tensor  # [D] int32 store slot per detection
+    track_id: torch.Tensor  # [D] int32
+    is_new: torch.Tensor  # [D] bool (new track vs merged)
+    pred_box: torch.Tensor  # [D, 5]
+    length: torch.Tensor  # [D] int32
+    overflow: torch.Tensor  # [] bool: ran out of free slots
+
+
+def _compat(cfg: SortConfig, active, last_epoch, det_box, pred_box, epoch):
+    """[D, T] bool: tracks a detection may match (active, idle at most
+    max_idle_epochs, within the constraint for its epoch delta)."""
+    delta = epoch - last_epoch
+    compat = active & (delta <= cfg.max_idle_epochs)
+    if cfg.constraints:
+        d2r = geo.dist_in_2r(det_box[:, None, :], pred_box[None, :, :])
+        allowed = allowed_distance_for_delta(cfg.constraints, delta)
+        return compat[None, :] & (d2r <= allowed[None, :])
+    return compat[None, :].expand(det_box.shape[0], active.shape[0])
+
+
+def distance_weights(cfg: SortConfig, state: SortState, det_box: torch.Tensor,
+                     det_conf: torch.Tensor, epoch: int) -> torch.Tensor:
+    """The [D, T] voting weights (0 = no edge)."""
+    compat = _compat(cfg, state.active, state.last_epoch, det_box,
+                     state.pred_box, epoch)
+    conf = torch.clamp(det_conf, min=cfg.min_confidence)
+    if cfg.method == "iou":
+        nbrs = (cfg.oriented_neighbors
+                if cfg.oriented and state.capacity >= 4 * cfg.oriented_neighbors
+                else 0)
+        iou, valid = geo.universal_iou_matrix(
+            det_box, state.pred_box, cfg.oriented, neighbors=nbrs)
+        m = iou * conf[:, None]
+        valid = valid & (m >= cfg.iou_threshold)
+        return torch.where(compat & valid, m, 0.0)
+    d2 = cfg.kalman_spec.distance_matrix(state.kf, det_box)
+    cost = kal.calculate_cost(d2, inverted=True)
+    m = cost / conf[:, None]
+    tf = geo.too_far(det_box[:, None, :], state.pred_box[None, :, :])
+    return torch.where(compat & ~tf, m, 0.0)
+
+
+def _assign(cfg, W, det_valid, active):
+    """(matched [D], target column [D]) from the voting weights; a match
+    must also carry at least the threshold (absorbs auction slop)."""
+    d, t = W.shape
+    col = asg.solve_voting(W, cfg.new_track_threshold, det_valid, active,
+                           asg.resolve_backend(cfg.assignment, W.device))
+    tgt = torch.clamp(col - d, 0, t - 1)
+    pair_w = mrg.take_at(W, tgt)
+    return det_valid & (col >= d) & (pair_w >= cfg.new_track_threshold), tgt
+
+
+def _match_plain(cfg, state, det_box, det_conf, det_valid, epoch):
+    W = distance_weights(cfg, state, det_box, det_conf, epoch)
+    return _assign(cfg, W, det_valid, state.active)
+
+
+def _match_sorted(cfg, state, det_box, det_conf, det_valid, epoch):
+    """Oriented-IoU matching on x-sorted views of both axes.
+
+    The stable sorts (inactive slots and padded rows last) gather the
+    in-radius pairs near the diagonal, so the clip kernel skips most
+    tiles.  The auction runs in sorted space; only the [D] results go back.
+    The same LP as `_match_plain` up to near-tie resolution.
+    """
+    tkey = torch.where(state.active, state.pred_box[:, 0], _BIG)
+    tperm = torch.sort(tkey, stable=True).indices
+    pred_s = state.pred_box[tperm]
+    act_s = state.active[tperm]
+    dkey = torch.where(det_valid, det_box[:, 0], _BIG)
+    dperm = torch.sort(dkey, stable=True).indices
+    det_s = det_box[dperm]
+    dval_s = det_valid[dperm]
+
+    compat = _compat(cfg, act_s, state.last_epoch[tperm], det_s, pred_s,
+                     epoch)
+    conf = torch.clamp(det_conf[dperm], min=cfg.min_confidence)
+    iou, valid = clip.oriented_iou_blockskip(det_s, pred_s)
+    m = iou * conf[:, None]
+    valid = valid & (m >= cfg.iou_threshold)
+    W = torch.where(compat & valid, m, 0.0)
+    matched_s, tgt_s = _assign(cfg, W, dval_s, act_s)
+    matched = torch.empty_like(matched_s)
+    matched[dperm] = matched_s
+    tgt = torch.empty_like(tgt_s)
+    tgt[dperm] = tperm[tgt_s]
+    return matched, tgt
+
+
+def use_sorted_path(cfg: SortConfig, d: int, t: int,
+                    device: torch.device) -> bool:
+    """Whether `sort_step` matches on the sorted clip-kernel path."""
+    block_sort = (cfg.oriented_block_sort is True
+                  or (cfg.oriented_block_sort == "auto"
+                      and device.type == "cuda"))
+    return (cfg.method == "iou" and cfg.oriented and block_sort
+            and t >= SORTED_MIN_TRACKS and d >= SORTED_MIN_DETECTIONS)
+
+
+def sort_step(cfg: SortConfig, state: SortState, det_box: torch.Tensor,
+              det_conf: torch.Tensor, det_valid: torch.Tensor,
+              epoch: int) -> Tuple[SortState, StepOutput]:
+    """One frame: det_box f32[D, 5], det_conf f32[D], det_valid bool[D] at
+    `epoch`.  Returns the new state and the per-detection outputs."""
+    d = det_box.shape[0]
+    t = state.capacity
+    spec = cfg.kalman_spec
+    det_valid = det_valid.bool()
+
+    if cfg.recycle_idle:
+        # idle-beyond-max tracks are already incompatible, so matching is
+        # unchanged; only slot reuse differs
+        state = dataclasses.replace(
+            state, active=state.active
+            & (epoch - state.last_epoch <= cfg.max_idle_epochs))
+
+    match = (_match_sorted if use_sorted_path(cfg, d, t, state.device)
+             else _match_plain)
+    matched, tgt = match(cfg, state, det_box, det_conf, det_valid, epoch)
+
+    # slot allocation: the r-th new detection takes the r-th free slot
+    is_new = det_valid & ~matched
+    new_rank = torch.cumsum(is_new.long(), 0) - 1
+    n_new = is_new.sum()
+    n_free = (~state.active).sum()
+    overflow = n_new > n_free
+    slot = torch.where(matched, tgt, mrg.nth_free_slot(state.active, new_rank))
+    safe = det_valid & ~overflow
+
+    # one masked Kalman step for matched and new rows
+    at_slot = [mrg.take_rows(getattr(state.kf, f.name), slot)
+               for f in dataclasses.fields(kal.KalmanState)]
+    init = spec.initiate(det_box)
+    prev = kal.KalmanState(*(
+        torch.where(matched[:, None], tr, getattr(init, f.name))
+        for tr, f in zip(at_slot, dataclasses.fields(kal.KalmanState))))
+    st = spec.update(spec.predict(prev), det_box)
+    pred_box = st.mean_pos
+
+    new_length = torch.where(matched, mrg.take_rows(state.length, slot) + 1, 1)
+    new_ids = torch.where(matched, mrg.take_rows(state.track_id, slot),
+                          state.next_id + new_rank + 1).to(torch.int32)
+
+    # state write: unsafe rows go to the scratch row (ops/merge.py)
+    index = mrg.write_index(slot, safe, t)
+    written = mrg.written(index, t)
+    hix = (new_length - 1) % state.history
+    new_state = SortState(
+        kf=kal.KalmanState(*(
+            mrg.merge_rows(getattr(state.kf, f.name), getattr(st, f.name),
+                           index)
+            for f in dataclasses.fields(kal.KalmanState))),
+        pred_box=mrg.merge_rows(state.pred_box, pred_box, index),
+        obs_box=mrg.merge_rows(state.obs_box, det_box, index),
+        conf=mrg.merge_rows(state.conf, det_conf, index),
+        active=state.active | written,
+        last_epoch=torch.where(written, epoch, state.last_epoch).to(
+            torch.int32),
+        length=mrg.merge_rows(state.length, new_length, index),
+        track_id=mrg.merge_rows(state.track_id, new_ids, index),
+        hist_obs=mrg.merge_ring(state.hist_obs, det_box, hix, index),
+        hist_pred=mrg.merge_ring(state.hist_pred, pred_box, hix, index),
+        hist_conf=mrg.merge_ring(state.hist_conf, det_conf, hix, index),
+        next_id=(state.next_id + n_new).to(torch.int32),
+    )
+    out = StepOutput(
+        slot=slot.to(torch.int32),
+        track_id=new_ids,
+        is_new=is_new,
+        pred_box=pred_box,
+        length=new_length.to(torch.int32),
+        overflow=overflow,
+    )
+    return new_state, out
+
+
+def sort_scan(cfg: SortConfig, state: SortState, det_box: torch.Tensor,
+              det_conf: torch.Tensor, det_valid: torch.Tensor,
+              epoch0: Union[int, np.ndarray, torch.Tensor]
+              ) -> Tuple[SortState, StepOutput]:
+    """`sort_step` over S frames (det_box [S, D, 5], det_conf and det_valid
+    [S, D]); outputs are stacked [S, D, ...].
+
+    `epoch0` is the first epoch of consecutive frames, or the S per-frame
+    epochs (for example the frame numbers), so gaps between frames age
+    tracks as stepping every frame would.
+    """
+    steps = det_box.shape[0]
+    if isinstance(epoch0, (torch.Tensor, np.ndarray)) and np.ndim(epoch0):
+        epochs = [int(e) for e in epoch0.tolist()]
+        if len(epochs) != steps:
+            raise ValueError(f"{len(epochs)} epochs for {steps} frames")
+    else:
+        epochs = [int(epoch0) + s for s in range(steps)]
+    outs = []
+    for s, e in enumerate(epochs):
+        state, out = sort_step(cfg, state, det_box[s], det_conf[s],
+                               det_valid[s], e)
+        outs.append(out)
+    stacked = StepOutput(*(
+        torch.stack([getattr(o, f.name) for o in outs])
+        for f in dataclasses.fields(StepOutput)))
+    return state, stacked

@@ -9,7 +9,9 @@ without the JAX-configuring tests/conftest.py:
 The small streams cover what the full-width check in chip_smoke.py does
 not reach: overflow with and without recycling, all-zero padded rows,
 large-norm identities, every gallery configuration, and crowded scenes
-for the auction at every positional kind.  Integer outputs
+for the auction at every positional kind; for the clip kernel, identical,
+touching, degenerate and far-apart boxes and ragged shapes, the sorted
+SORT path and block-skip NMS.  Integer outputs
 and state must be equal; floats are held at torch_parity.RTOL/ATOL.
 """
 
@@ -17,15 +19,18 @@ import numpy as np
 import pytest
 import torch
 
+from similari_tpu_torch.ops import clip as cl
 from similari_tpu_torch.ops import fused_sort as fs
 from similari_tpu_torch.ops import fused_visual as fv
-from similari_tpu_torch.trackers.sort_step import SortConfig
+from similari_tpu_torch.ops.nms import nms_kernel
+from similari_tpu_torch.trackers.sort_step import SortConfig, sort_scan
 from similari_tpu_torch.trackers.state import new_sort_state
 from similari_tpu_torch.trackers.visual_state import new_visual_state
 from similari_tpu_torch.trackers.visual_step import VisualConfig
 
-from torch_parity import (ATOL, RTOL, VISUAL_CONFIGS, crowded_stream,
-                          large_norm_stream, sort_overflow_stream, sort_stream,
+from torch_parity import (ATOL, EXACT_BOX_COLUMNS, RTOL, VISUAL_CONFIGS,
+                          crowded_stream, large_norm_stream, oriented_stream,
+                          random_boxes, sort_overflow_stream, sort_stream,
                           visual_overflow_stream, visual_padded_stream,
                           visual_stream)
 
@@ -139,3 +144,112 @@ def test_kernel_wrapper_checks_inputs(cuda):
     with pytest.raises(RuntimeError, match="CUDA error"):
         fs.fused_sort_chunk(cfg, st, big, torch.ones(1, 2048, device=cuda),
                             torch.ones(1, 2048, device=cuda), 1)
+
+
+def _clip_boxes(case):
+    """(det boxes [D, 5], trk boxes [T, 5]) as numpy."""
+    rng = np.random.default_rng(0)
+    if case == "random":
+        return random_boxes(rng, 70, 150.0), random_boxes(rng, 45, 150.0)
+    if case == "ragged":
+        return random_boxes(rng, 1, 20.0), random_boxes(rng, 33, 20.0)
+    if case == "touching":  # shared edges and corners: intersection 0
+        a = np.array([[0.0, 0.0, 0.0, 1.0, 2.0]] * 3, np.float32)
+        b = np.array([[2.0, 0.0, 0.0, 1.0, 2.0], [2.0, 2.0, 0.0, 1.0, 2.0],
+                      [0.0, -2.0, 0.0, 1.0, 2.0]], np.float32)
+        return a, b
+    if case == "degenerate":
+        real = np.array([[5.0, 0.0, 0.3, 1.5, 30.0]], np.float32)
+        degen = np.array([[0.0, 0.0, 0.0, 0.0, 0.0],
+                          [2.0, 1.0, 0.5, 2.0, 0.0],
+                          [3.0, 0.0, 0.1, 0.0, 25.0]], np.float32)
+        return real, degen
+    if case == "far":
+        det = random_boxes(rng, 64, 200.0)
+        trk = random_boxes(rng, 96, 200.0)
+        trk[:, 0] += 1e5
+        return det, trk
+    raise KeyError(case)
+
+
+@pytest.mark.parametrize("want_iou", [True, False])
+@pytest.mark.parametrize("case", ["random", "ragged", "touching",
+                                  "degenerate", "far"])
+def test_clip_kernel_matches_plain(cuda, case, want_iou):
+    det, trk = (torch.tensor(x, device=cuda) for x in _clip_boxes(case))
+    det8, trk8 = cl.clip_columns(det), cl.clip_columns(trk)
+    tiles = torch.zeros(1, dtype=torch.int32, device=cuda)
+    before = cl.clip_pairs.launches
+    k = cl.clip_pairs(det8, trk8, want_iou, tiles)
+    assert cl.clip_pairs.launches == before + 1
+    p = cl.pair_block_plain(det8, trk8, want_iou)
+    torch.cuda.synchronize()
+    assert torch.equal(k > 0, p > 0)
+    torch.testing.assert_close(k, p, rtol=RTOL, atol=ATOL)
+    assert int(tiles) == int(cl.tiles_to_run(cl.far_pairs(det8, trk8)))
+    if case == "touching":
+        assert float(k.diagonal().abs().max()) < 1e-5
+    if case == "degenerate" and want_iou:
+        assert float(k.abs().max()) < 1e-6
+    if case == "far":
+        assert float(k.abs().max()) == 0.0 and int(tiles) == 0
+
+
+def test_clip_kernel_identical_boxes_give_exactly_one(cuda):
+    cols = torch.tensor(EXACT_BOX_COLUMNS, dtype=torch.float32, device=cuda)
+    iou = cl.clip_pairs(cols, cols, True)
+    assert torch.equal(iou.diagonal(), torch.ones(len(cols), device=cuda))
+    boxes = torch.tensor(random_boxes(np.random.default_rng(1), 100),
+                         device=cuda)
+    b8 = cl.clip_columns(boxes)
+    k = cl.clip_pairs(b8, b8, True).diagonal()
+    assert torch.equal(k, cl.pair_block_plain(b8, b8, True).diagonal())
+    assert float((k - 1.0).abs().max()) < 1e-6
+
+
+def test_clip_kernel_rejects_bad_inputs(cuda):
+    x = torch.zeros(4, 8, device=cuda)
+    with pytest.raises(ValueError):
+        cl.clip_pairs(x, x.cpu(), True)
+    with pytest.raises(ValueError, match="tiles"):
+        cl.clip_pairs(x, x, True, torch.zeros(1, dtype=torch.int32))
+
+
+def _plain_clip(det8, trk8, want_iou, tiles=None):
+    return cl.pair_block_plain(det8, trk8, want_iou)
+
+
+@pytest.mark.parametrize("block_sort", ["auto", True])
+def test_sorted_sort_path_matches_plain_clip(cuda, block_sort, monkeypatch):
+    """The general step on CUDA at the sorted path's gate (d=64, t=512)
+    launches the clip kernel once per frame and tracks exactly as the same
+    run with the plain version in the kernel's place."""
+    box, conf, valid = (torch.tensor(x, device=cuda)
+                        for x in oriented_stream(3, 6, 64, spread=2500.0))
+    cfg = SortConfig(method="iou", assignment="auction", max_idle_epochs=5,
+                     oriented=True, oriented_block_sort=block_sort)
+    st = new_sort_state(512, 1, device=cuda)
+    before = cl.clip_pairs.launches
+    sk, ok = sort_scan(cfg, st, box, conf, valid, 1)
+    assert cl.clip_pairs.launches == before + 6
+    monkeypatch.setattr(cl, "clip_pairs", _plain_clip)
+    sp, op = sort_scan(cfg, st, box, conf, valid, 1)
+    for f in ("slot", "track_id", "is_new", "length", "overflow"):
+        assert torch.equal(getattr(ok, f), getattr(op, f)), f
+    for f in ("active", "track_id", "length", "last_epoch", "next_id"):
+        assert torch.equal(getattr(sk, f), getattr(sp, f)), f
+    torch.testing.assert_close(sk.pred_box, sp.pred_box, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("n,block_skip", [(600, None), (200, True)])
+def test_block_skip_nms_matches_dense(cuda, n, block_skip):
+    rng = np.random.default_rng(5)
+    boxes = torch.tensor(random_boxes(rng, n, spread=60.0 * np.sqrt(n)),
+                         device=cuda)
+    valid = torch.tensor(rng.uniform(size=n) < 0.9, device=cuda)
+    before = cl.clip_pairs.launches
+    blk = nms_kernel(boxes, valid, 0.7, block_skip=block_skip)
+    assert cl.clip_pairs.launches == before + 1
+    dense = nms_kernel(boxes, valid, 0.7, block_skip=False)
+    assert torch.equal(blk, dense)
+    assert 0 < int(blk.sum()) < int(valid.sum())

@@ -196,7 +196,7 @@ def test_out_of_scope_configs_raise():
         jax_state_dict(jax_new_sort_state(T, 1)), CPU))
     for bad in (dict(BASE, method="maha"), dict(BASE, oriented=True),
                 dict(BASE, constraints=((1, 1.0),))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="sort_scan"):
             fused_sort_chunk(SortConfig(**bad), st, torch.tensor(box),
                              torch.ones(CHUNK, D), torch.tensor(valid), 1)
     deep = sort_state_from_numpy(jax_state_dict(jax_new_sort_state(T, 2)), CPU)

@@ -87,6 +87,20 @@ def test_no_forbidden_import_statement(path):
         assert not bad, f"{path}:{node.lineno} imports {bad}"
 
 
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")))
+def test_no_library_of_the_jax_package_is_loaded(path):
+    """The port loads only its own kernel library (`_build.py`), never the
+    JAX package's native one by file path."""
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            assert "similari_tpu/native" not in node.value, path
+        if isinstance(node, ast.Attribute) and node.attr in ("CDLL",
+                                                             "LoadLibrary"):
+            assert path.endswith("_build.py"), f"{path}:{node.lineno}"
+
+
 def test_forbidden_matches_only_the_jax_package():
     assert _forbidden("similari_tpu") and _forbidden("similari_tpu.ops")
     assert _forbidden("jax.numpy")

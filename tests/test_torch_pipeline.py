@@ -118,7 +118,7 @@ def test_helpers_match_jax():
 
 def test_out_of_scope_runner_options_raise():
     dets, feats, _ = _sequence(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="engine='step'"):
         pmot.run_sequence_device(dets, method="maha", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pmot.run_sequence_device_visual(dets, feats, device="cpu",

@@ -44,6 +44,53 @@ VISUAL_CONFIGS = {
 }
 
 
+# rotated rectangles as clip columns (xc, yc, r1x, r1y, r2x, r2y, radius,
+# area) whose corner offsets are integers (half-extent vectors along
+# Pythagorean directions, wound as geometry.box_vertices winds them), so
+# the clip is exact: each against itself has IoU exactly 1.0
+EXACT_BOX_COLUMNS = [
+    (5.5, -3.25, -11.0, 2.0, -5.0, 10.0, 125.0 ** 0.5, 200.0),
+    (812.0, 640.5, 7.0, -17.0, -17.0, -7.0, 338.0 ** 0.5, 676.0),
+    (-40.0, 90.0, -23.0, 7.0, -7.0, 23.0, 578.0 ** 0.5, 960.0),
+]
+
+
+def random_boxes(rng, n, spread=900.0):
+    """Boxes at any angle, aspect 0.4-2.5, height 15-60 px."""
+    b = np.zeros((n, 5), np.float32)
+    b[:, 0] = rng.uniform(0, spread, n)
+    b[:, 1] = rng.uniform(0, spread, n)
+    b[:, 2] = rng.uniform(0, 2 * np.pi, n)
+    b[:, 3] = rng.uniform(0.4, 2.5, n)
+    b[:, 4] = rng.uniform(15, 60, n)
+    return b
+
+
+def oriented_stream(seed, steps, d, spread=300.0, oriented=True):
+    """Random-walk boxes of 20-40 px with slowly turning angles (0 when not
+    `oriented`), confidences U(0.4, 1), two padded rows per frame and half
+    the rows of the middle frame padded."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, spread, (d, 2)).astype(np.float32)
+    wh = rng.uniform(20, 40, (d, 2)).astype(np.float32)
+    ang = rng.uniform(0, 0.6, d).astype(np.float32)
+    box = np.zeros((steps, d, 5), np.float32)
+    for s in range(steps):
+        xy += rng.uniform(-2, 2, xy.shape).astype(np.float32)
+        ang += rng.uniform(-0.03, 0.03, d).astype(np.float32)
+        box[s, :, 0] = xy[:, 0]
+        box[s, :, 1] = xy[:, 1]
+        box[s, :, 2] = ang if oriented else 0.0
+        box[s, :, 3] = wh[:, 0] / wh[:, 1]
+        box[s, :, 4] = wh[:, 1]
+    conf = rng.uniform(0.4, 1.0, (steps, d)).astype(np.float32)
+    valid = np.ones((steps, d), bool)
+    for s in range(steps):
+        valid[s, rng.integers(0, d, 2)] = False
+    valid[steps // 2, d // 2:] = False
+    return box, conf, valid
+
+
 def sort_stream(seed, steps, d, density=300.0):
     """Random-walk boxes; half the rows of the middle frame are padding."""
     rng = np.random.default_rng(seed)
