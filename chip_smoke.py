@@ -32,14 +32,34 @@ Phases:
      boxes as the dense route;
   8. Mahalanobis SORT: `run_sequence_device(engine="step", method="maha")`
      on phase 4's sequence;
-  9. one `kernels` JSON line, then the result line.
+  9. the in-place merge kernel against its plain version
+     (`lane_merge_plain`) at S=256 scenes x D=100 rows into R=600 gallery
+     lanes and R=200 history rows, F=512 in bf16, f32 and int32, and at
+     odd widths (F=3 bf16, F=129 f32): rows unique per scene, ~90% valid,
+     rows outside [0, R) with valid 0; bit-equal results written in place;
+     CUDA-event ms of the kernel, the plain version and `index_put_`;
+ 10. batched VisualSORT at bench.py's `batch_visual_256x100x512` (S=256,
+     D=100, T=200, K=3, H=1, F=512, bf16): `batched_visual_step_inplace`
+     and `batched_visual_step` from copies of one state over
+     --batch-frames frames, equal every frame and at the end, the merge
+     kernel launched twice per frame, visual matches present; scene-frames/s
+     of both forms and the device's idle share;
+ 11. the general single-scene step: `run_sequence_device_visual(engine=
+     "step")` on phase 4's sequence (--step-frames frames) gives the fused
+     engine's ids; then an oriented, own-area-gated, history-3 config at
+     D=100, T=400, K=3, F=512 over --own-area-frames frames;
+ 12. batched SORT at bench.py's `batch_sort_256x100` (S=256 scenes of 100
+     objects, T=200, aligned IoU) over --batch-frames frames;
+ 13. one `kernels` JSON line, then the result line.
 
 The fused-kernel checks take the main path's configurations from the
 runners' own builders, the other configurations and the crowded stream
 from tests/torch_parity.py.
 
 Usage: python3 chip_smoke.py [--frames N] [--main-frames N]
-                             [--oriented-frames N] [--nms-frames N] [--seed S]
+                             [--oriented-frames N] [--nms-frames N]
+                             [--batch-frames N] [--step-frames N]
+                             [--own-area-frames N] [--seed S]
 Exits non-zero, printing no result, when CUDA is missing or any phase fails.
 """
 
@@ -64,12 +84,17 @@ from similari_tpu_torch.eval.mot import (  # noqa: E402
 from similari_tpu_torch.ops import clip as cl  # noqa: E402
 from similari_tpu_torch.ops import fused_sort as fs  # noqa: E402
 from similari_tpu_torch.ops import fused_visual as fv  # noqa: E402
+from similari_tpu_torch.ops import merge_inplace as mi  # noqa: E402
 from similari_tpu_torch.ops.nms import nms_kernel, use_block_skip  # noqa: E402
+from similari_tpu_torch.ops.ownarea import own_area_shares  # noqa: E402
+from similari_tpu_torch.parallel import mesh  # noqa: E402
 from similari_tpu_torch.trackers.sort_step import (  # noqa: E402
     SortConfig, sort_scan, use_sorted_path)
-from similari_tpu_torch.trackers.state import new_sort_state  # noqa: E402
+from similari_tpu_torch.trackers.state import (  # noqa: E402
+    map_tensors, new_sort_state)
 from similari_tpu_torch.trackers.visual_state import new_visual_state  # noqa: E402
-from similari_tpu_torch.trackers.visual_step import VisualConfig  # noqa: E402
+from similari_tpu_torch.trackers.visual_step import (  # noqa: E402
+    VT_VISUAL, VisualConfig, visual_scan)
 from similari_tpu_torch.utils.pad import pad_pow2  # noqa: E402
 from torch_parity import (  # noqa: E402
     ATOL, EXACT_BOX_COLUMNS, RTOL, VISUAL_CONFIGS, crowded_stream)
@@ -86,6 +111,13 @@ MIN_CROWDED_ROUNDS = 4.0  # auction rounds per frame the crowded stream needs
 OD, OT = 500, 2000
 NMS_N, NMS_THRESHOLD = 1000, 0.8
 PARITY_FRAMES = 64  # frames of the oriented path rerun with the plain clip
+# bench.py's batch configs (`batch_visual_256x100x512`, `batch_sort_*x100`):
+# S scenes of BD objects, BT = 2 x BD slots, K=3 lanes, F=512
+BS, BD, BT = 256, 100, 200
+# the oriented own-area config: D=100 boxes, T=400, gates of
+# tools/adversarial_suite.py
+OA_D, OA_T, OA_H = 100, 400, 3
+OA_USE, OA_COLLECT = 0.4, 0.6
 # f32 operations of one in-radius pair in csrc/clip.cu, counted from the
 # source: every add, sub, mul, div, min, max, abs, negation and comparison
 # (far test 7, recentred vertices 24, first boundary pass 4 x 87, tie pass
@@ -356,7 +388,7 @@ def phase_main(args, dets, feats):
             raise AssertionError("main path outputs are not finite/complete")
     log(f"[4] VisualSORT: every object kept one id; SORT: "
         f"{sum(c == 1 for c in scount)}/{D_VALID} objects kept one id")
-    return launches
+    return launches, vout
 
 
 # ---------------------------------------------------------------------------
@@ -602,12 +634,339 @@ def phase_maha(dets, frames):
         f"{sum(c == 1 for c in count)}/{D_VALID} objects kept one id")
 
 
+# ---------------------------------------------------------------------------
+# phases 9-12: the merge kernel, batched VisualSORT, the general visual step,
+# batched SORT
+# ---------------------------------------------------------------------------
+
+MERGE_CASES = [  # (label, R, F, dtype); the first is the main path's launch
+    ("gallery bf16", BT * K, F, torch.bfloat16),
+    ("history bf16", BT * 1, F, torch.bfloat16),
+    ("gallery f32", BT * K, F, torch.float32),
+    ("gallery int32", BT * K, F, torch.int32),
+    ("odd bf16", BT * K, 3, torch.bfloat16),
+    ("odd f32", BT * K, 129, torch.float32),
+]
+
+
+def merge_inputs(dev, g, s, r, f, dtype):
+    """state [S, R, F], src [S, BD, F], rows unique per scene, ~90% valid,
+    and in each scene two rows outside [0, R) with valid 0."""
+    if dtype == torch.int32:
+        state = torch.randint(-999, 999, (s, r, f), generator=g,
+                              dtype=torch.int32)
+        src = torch.randint(-999, 999, (s, BD, f), generator=g,
+                            dtype=torch.int32)
+    else:
+        state = torch.randn((s, r, f), generator=g).to(dtype)
+        src = torch.randn((s, BD, f), generator=g).to(dtype)
+    row = torch.rand((s, r), generator=g).argsort(dim=1)[:, :BD].int()
+    valid = (torch.rand((s, BD), generator=g) < 0.9).int()
+    row[:, 0], valid[:, 0] = -1, 0
+    row[:, 1], valid[:, 1] = r + 5, 0
+    return [x.to(dev) for x in (state, src, row, valid)]
+
+
+def bits(x):
+    """The tensor's bytes, as an integer view (bit-equality of floats)."""
+    return x.view(torch.int16) if x.dtype == torch.bfloat16 else (
+        x.view(torch.int32) if x.dtype == torch.float32 else x)
+
+
+def merge_bound_ms(valid, f, itemsize):
+    """Each written row read from src and written to the state once, plus
+    the row and valid entries."""
+    nbytes = 2 * int((valid != 0).sum()) * f * itemsize + 8 * valid.numel()
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def phase_merge(args, dev):
+    """Phase 9; returns the kernel's entry for the main path's gallery
+    launch (launches filled in by phase 10)."""
+    g = torch.Generator().manual_seed(args.seed)
+    entry = None
+    for label, r, f, dtype in MERGE_CASES:
+        state, src, row, valid = merge_inputs(dev, g, args.batch_scenes, r,
+                                              f, dtype)
+        k_state, p_state = state.clone(), state.clone()
+        ptr = k_state.data_ptr()
+        out = mi.lane_merge_inplace(k_state, src, row, valid)
+        mi.lane_merge_plain(p_state, src, row, valid)
+        if out.data_ptr() != ptr:
+            raise AssertionError(f"merge[{label}]: the result is not the "
+                                 "input state")
+        if not torch.equal(bits(k_state), bits(p_state)):
+            raise AssertionError(f"merge[{label}]: kernel and plain version "
+                                 "differ")
+        if torch.equal(bits(k_state), bits(state)):
+            raise AssertionError(f"merge[{label}]: nothing was written")
+        s, r_, _ = state.shape
+        ok = valid != 0
+        sc, dd = ok.nonzero(as_tuple=True)
+        flat_rows = sc.long() * r_ + row[sc, dd].long()
+        vals = src[sc, dd]
+        flat = k_state.view(s * r_, f)
+        k_ms = time_ms(dev, lambda: mi.lane_merge_inplace(k_state, src, row,
+                                                          valid), 50)
+        p_ms = time_ms(dev, lambda: mi.lane_merge_plain(p_state, src, row,
+                                                        valid), 20)
+        lib_ms = time_ms(dev, lambda: flat.index_put_((flat_rows,), vals), 50)
+        bound = merge_bound_ms(valid, f, state.element_size())
+        log(f"[9] merge[{label}] S={s} D={BD} R={r_} F={f}: bit-equal, in "
+            f"place; kernel {k_ms:.5f} ms  plain {p_ms:.5f} ms  index_put_ "
+            f"{lib_ms:.5f} ms  bound {bound[0]:.6f} ms ({bound[1]}; "
+            f"{int(ok.sum())} valid rows)")
+        if entry is None:
+            entry = dict(name="lane_merge", route="cuda",
+                         source="similari_tpu_torch/csrc/merge.cu",
+                         replaces="similari_tpu/ops/pallas_merge.py:36",
+                         launches=0, max_abs_err=0.0, ms=k_ms, plain_ms=p_ms,
+                         bound_ms=bound[0], bound_by=bound[1],
+                         library_ms=lib_ms)
+    return entry
+
+
+def bench_visual_config(**kw):
+    """bench.py's VisualSORT bench config (`bench.py:383-388`)."""
+    return VisualConfig(**dict(dict(
+        positional_kind="iou", visual_kind="euclidean",
+        visual_threshold=100.0, visual_minimal_track_length=3,
+        max_idle_epochs=5, assignment="auction", oriented=False,
+        feature_precision="bf16"), **kw))
+
+
+def batch_stream(frames, scenes, dev):
+    """bench.py's batched stream: one random walk of scenes x BD boxes
+    (seed 42) cut into scenes, and constant per-scene features (seed 0)."""
+    boxes = box_stream(frames, scenes * BD, np.random.default_rng(42))
+    feat = np.random.default_rng(0).normal(size=(scenes, BD, F))
+    return (torch.as_tensor(boxes.reshape(frames, scenes, BD, 5), device=dev),
+            torch.as_tensor(feat.astype(np.float32), device=dev))
+
+
+def compare_states(name, a, b):
+    """Integer and boolean fields equal, gallery and feature history bit
+    for bit, other floats within RTOL/ATOL.  Returns the largest float
+    difference."""
+    err = 0.0
+    for fld in ("pred_box", "obs_box", "conf", "active", "last_epoch",
+                "length", "track_id", "next_id", "feats", "feat_quality",
+                "feat_valid", "collected", "voting_type", "hist_obs",
+                "hist_pred", "hist_conf", "hist_feat", "hist_feat_valid"):
+        x, y = getattr(a, fld), getattr(b, fld)
+        if fld in ("feats", "hist_feat") or not x.dtype.is_floating_point:
+            if not torch.equal(bits(x), bits(y)):
+                raise AssertionError(f"{name}: state.{fld} differs")
+        else:
+            err = max(err, float((x - y).abs().max()))
+            torch.testing.assert_close(x, y, rtol=RTOL, atol=ATOL)
+    for fld in ("mean_pos", "mean_vel", "cpp", "cpv", "cvv"):
+        x, y = getattr(a.kf, fld), getattr(b.kf, fld)
+        err = max(err, float((x - y).abs().max()))
+        torch.testing.assert_close(x, y, rtol=RTOL, atol=ATOL)
+    return err
+
+
+def idle_share(dev, run, seconds_per_frame, frames):
+    """The device's idle share of a frame: one minus the kernel time per
+    frame under torch.profiler over the CUDA-event time per frame of an
+    unprofiled run (`tools/profile_torch_sort.py`'s reckoning).  Returns
+    (share, device busy ms per frame, launches per frame)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e6 / frames
+    launches = sum(e.count for e in events) / frames
+    return 1.0 - busy / seconds_per_frame, busy * 1e3, launches
+
+
+def phase_batched_visual(args, dev):
+    """Phase 10; returns the merge kernel's launches on this path."""
+    s, n = args.batch_scenes, args.batch_frames
+    cfg = bench_visual_config()
+    boxes, feat = batch_stream(n, s, dev)
+    ones = torch.ones((s, BD), dtype=torch.float32, device=dev)
+    tru = ones > 0
+    st0 = mesh.new_batched_visual_state(s, BT, 1, K, F, torch.bfloat16,
+                                        device=dev)
+    plain_step = mesh.batched_visual_step(cfg)
+    inplace_step = mesh.batched_visual_step_inplace(cfg)
+
+    def run(step, st, frames):
+        outs = []
+        for i in range(frames):
+            ep = torch.full((s,), 1 + i, dtype=torch.int32, device=dev)
+            st, out = step(st, boxes[i], ones, tru, feat, tru, ones, ones, ep)
+            outs.append(out)
+        return st, outs
+
+    # a whole warm-up run of each form: the caching allocator and the
+    # auction's round count settle over the first frames
+    run(inplace_step, map_tensors(torch.clone, st0), n)
+    run(plain_step, map_tensors(torch.clone, st0), n)
+    # three runs of each form in turns: the host-bound frame time drifts
+    # between runs by more than the forms differ
+    secs = {"plain": [], "in-place": []}
+    for form in ("plain", "in-place", "in-place", "plain", "plain",
+                 "in-place"):
+        start = map_tensors(torch.clone, st0)
+        if form == "plain":
+            with DeviceTimer(dev) as timer:
+                st_pl, out_pl = run(plain_step, start, n)
+        else:
+            mi.lane_merge_inplace.launches = 0
+            with DeviceTimer(dev) as timer:
+                st_in, out_in = run(inplace_step, start, n)
+            launches = mi.lane_merge_inplace.launches
+        secs[form].append(timer.seconds)
+    t_in, t_pl = (float(np.median(secs[f])) for f in ("in-place", "plain"))
+    for i, (a, b) in enumerate(zip(out_in, out_pl)):
+        for fld in ("track_id", "voting_type", "is_new", "overflow"):
+            if not torch.equal(getattr(a, fld), getattr(b, fld)):
+                raise AssertionError(f"batched VisualSORT frame {i}: {fld} "
+                                     "differs between the in-place and the "
+                                     "plain step")
+    err = compare_states("batched VisualSORT", st_in, st_pl)
+    if launches != 2 * n:
+        raise AssertionError(f"batched VisualSORT: {launches} merge launches "
+                             f"for {n} frames")
+    vt = torch.stack([o.voting_type for o in out_in])
+    visual = int((vt[3:] == VT_VISUAL).sum())
+    if visual == 0:
+        raise AssertionError("batched VisualSORT: no visual match after "
+                             "frame 3: the gallery path never ran")
+    if bool(torch.stack([o.overflow for o in out_in]).any()):
+        raise AssertionError("batched VisualSORT overflowed its slots")
+    ids = torch.stack([o.track_id for o in out_in]).cpu().numpy()
+    kept = float(np.mean(ids == ids[:1]))
+    profile = ""
+    if dev.type == "cuda":
+        k = min(n, 8)
+        for form, step, t in (("in-place", inplace_step, t_in),
+                              ("plain", plain_step, t_pl)):
+            start = map_tensors(torch.clone, st0)
+            share, busy_ms, per_frame = idle_share(
+                dev, lambda: run(step, start, k), t / n, k)
+            profile += (f"; {form} device busy {busy_ms:.3f} ms/frame, idle "
+                        f"share {share:.3f}, {per_frame:.1f} kernel "
+                        f"launches/frame")
+    each = "; ".join(f"{f} " + ", ".join(f"{x * 1e3 / n:.3f}" for x in v)
+                     for f, v in secs.items())
+    log(f"[10] batched VisualSORT S={s} D={BD} T={BT} K={K} F={F} bf16, {n} "
+        f"frames: in-place {s * n / t_in:.1f} scene-frames/s "
+        f"({t_in * 1e3 / n:.3f} ms/frame), plain {s * n / t_pl:.1f} "
+        f"scene-frames/s ({t_pl * 1e3 / n:.3f} ms/frame) (CUDA events, "
+        f"median of three runs each in turns; ms/frame {each}); merge "
+        f"launches {launches} (2 per frame); outputs equal every frame, "
+        f"state equal (feature arrays bit for bit, max_abs_err {err:.3e}); "
+        f"{visual} visual matches after frame 3; {kept:.4f} of ids equal "
+        f"their first frame's{profile}")
+    return launches
+
+
+def phase_general_visual(args, dev, dets, feats, fused_out):
+    """Phase 11: the general step on the fused path's sequence, then the
+    oriented own-area history-3 config."""
+    n = min(args.step_frames, args.main_frames)
+    frames = sorted(dets)[:n]
+    sub_d = {f: dets[f] for f in frames}
+    sub_f = {f: feats[f] for f in frames}
+    out, fps = run_sequence_device_visual(sub_d, sub_f, capacity=T,
+                                          gallery=K, engine="step",
+                                          device=dev)
+    bad = [f for f in frames if [r[0] for r in out[f]]
+           != [r[0] for r in fused_out[f]]]
+    log(f"[11] general step (engine='step', bf16 features): {n} frames x "
+        f"{D_VALID} objects, {fps:.1f} frames/s (CUDA events); ids equal to "
+        f"the fused engine's on {n - len(bad)}/{n} frames")
+    if bad:
+        # the general step takes norms of bf16-rounded features, the fused
+        # kernel of the f32 values: compare both in f32
+        f32 = [run_sequence_device_visual(
+            sub_d, sub_f, capacity=T, gallery=K, engine=e, device=dev,
+            feature_precision="f32")[0] for e in ("step", "fused")]
+        bad32 = [f for f in frames if [r[0] for r in f32[0][f]]
+                 != [r[0] for r in f32[1][f]]]
+        log(f"[11] bf16 ids first differ at frame {bad[0]}; in f32 the two "
+            f"engines differ on {len(bad32)} frames")
+        if bad32:
+            raise AssertionError("the general step and the fused engine give "
+                                 "other ids in f32")
+    m = args.own_area_frames
+    rng = np.random.default_rng(args.seed + 7)
+    box = box_stream(m, OA_D, rng)
+    box[..., 2] = rng.uniform(0, 0.6, size=box.shape[:2])
+    ident = rng.normal(size=(OA_D, F)).astype(np.float32)
+    feat = np.broadcast_to(ident, (m, OA_D, F)).copy()
+    box, feat = (torch.as_tensor(x, device=dev) for x in (box, feat))
+    ones = torch.ones((m, OA_D), dtype=torch.float32, device=dev)
+    # the stream redraws every angle each frame, so many detections start
+    # new tracks: recycling keeps the live ones within the 400 slots
+    cfg = bench_visual_config(oriented=True, own_area_use=OA_USE,
+                              own_area_collect=OA_COLLECT, recycle_idle=True)
+    st0 = new_visual_state(OA_T, OA_H, K, F, device=dev)
+    visual_scan(cfg, st0, *(x[:2] for x in (box, ones, ones > 0, feat,
+                                            ones > 0, ones, ones)), 1)
+    with DeviceTimer(dev) as timer:
+        st, out = visual_scan(cfg, st0, box, ones, ones > 0, feat, ones > 0,
+                              ones, ones, 1)
+    shares = own_area_shares(box, ones > 0)
+    gated = float((shares < OA_USE).float().mean())
+    if not (bool(torch.isfinite(out.pred_box).all())
+            and bool(torch.isfinite(st.kf.mean_pos).all())):
+        raise AssertionError("oriented own-area run: outputs not finite")
+    if not bool((shares < 1.0).any()):
+        raise AssertionError("oriented own-area run: no box is occluded")
+    if bool(out.overflow.any()):
+        raise AssertionError("oriented own-area run overflowed")
+    vis = float((out.voting_type[3:] == VT_VISUAL).float().mean())
+    log(f"[11] oriented own-area H={OA_H}: D={OA_D} T={OA_T} K={K} F={F}, "
+        f"{m} frames, {m / timer.seconds:.1f} frames/s (CUDA events); "
+        f"shares < 1 for {float((shares < 1).float().mean()):.3f} of boxes, "
+        f"below the use gate for {gated:.3f}; {vis:.3f} of matches after "
+        f"frame 3 visual; {int(st.next_id)} ids; history rows filled "
+        f"{int(st.hist_feat_valid.sum())}")
+
+
+def phase_batched_sort(args, dev):
+    """Phase 12: bench.py's batched SORT."""
+    s, n = args.batch_scenes, args.batch_frames
+    cfg = SortConfig(method="iou", assignment="auction", max_idle_epochs=5,
+                     oriented=False)
+    boxes = box_stream(n, s * BD, np.random.default_rng(42))
+    boxes = torch.as_tensor(boxes.reshape(n, s, BD, 5), device=dev)
+    conf = torch.ones((n, s, BD), dtype=torch.float32, device=dev)
+    scan = mesh.batched_sort_scan(cfg)
+    ep0 = torch.ones(s, dtype=torch.int32, device=dev)
+    scan(mesh.new_batched_state(s, BT, 1, device=dev), boxes[:2], conf[:2],
+         conf[:2] > 0, ep0)
+    with DeviceTimer(dev) as timer:
+        st, (ids, ovf) = scan(mesh.new_batched_state(s, BT, 1, device=dev),
+                              boxes, conf, conf > 0, ep0)
+    if bool(ovf.any()) or not bool(torch.isfinite(st.pred_box).all()):
+        raise AssertionError("batched SORT overflowed or is not finite")
+    ids = ids.cpu().numpy()
+    log(f"[12] batched SORT S={s} x {BD} objects, T={BT}, aligned IoU, {n} "
+        f"frames: {s * n / timer.seconds:.1f} scene-frames/s "
+        f"({timer.seconds * 1e3 / n:.3f} ms/frame, CUDA events); "
+        f"{float(np.mean(ids == ids[:1])):.4f} of ids equal their first "
+        f"frame's")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=256)
     ap.add_argument("--main-frames", type=int, default=1024)
     ap.add_argument("--oriented-frames", type=int, default=256)
     ap.add_argument("--nms-frames", type=int, default=64)
+    ap.add_argument("--batch-frames", type=int, default=32)
+    ap.add_argument("--batch-scenes", type=int, default=BS)
+    ap.add_argument("--step-frames", type=int, default=1024)
+    ap.add_argument("--own-area-frames", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.frames % CHUNK:
@@ -619,8 +978,13 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     log(f"[1] device {kind} x{torch.cuda.device_count()}; torch "
-        f"{torch.__version__} cuda {torch.version.cuda}")
+        f"{torch.__version__} cuda {torch.version.cuda}; "
+        f"torch.backends.cuda.matmul.allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32}")
     log(gpu_line())
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 f32 products would break the gallery "
+                             "distances")
 
     t0 = time.perf_counter()
     _build.library()
@@ -633,7 +997,7 @@ def main(argv=None) -> int:
 
     kernels = [phase_sort(args, dev), phase_visual(args, dev)]
     dets, feats = synthetic_sequence(args.main_frames, args.seed + 2)
-    launches = phase_main(args, dets, feats)
+    launches, fused_out = phase_main(args, dets, feats)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     clip_entry = phase_clip(args, dev)
@@ -644,9 +1008,12 @@ def main(argv=None) -> int:
         f"NMS path {nms_launches}")
     phase_maha(dets, args.main_frames)
     kernels.append(clip_entry)
-    log(json.dumps({"kernels": kernels, "not_ported": [
-        {"replaces": "similari_tpu/ops/pallas_merge.py:36",
-         "status": "not ported"}]}))
+    merge_entry = phase_merge(args, dev)
+    merge_entry["launches"] = phase_batched_visual(args, dev)
+    kernels.append(merge_entry)
+    phase_general_visual(args, dev, dets, feats, fused_out)
+    phase_batched_sort(args, dev)
+    log(json.dumps({"kernels": kernels, "not_ported": []}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

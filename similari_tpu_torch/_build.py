@@ -21,7 +21,7 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fused_track.cu", "clip.cu")
+SOURCES = ("fused_track.cu", "clip.cu", "merge.cu")
 HEADERS = ("fused_track.cuh",)
 # --fmad=false: no multiply-add contraction, so the kernels round every
 # product and sum exactly as their plain PyTorch versions do, and the clip
@@ -42,6 +42,8 @@ VISUAL_ARGTYPES = ([_P] * (7 + 20 + 8 + 5) + [_I] * 14 + [_F] * 12
                    + [_P, _P] + [_P])
 # csrc/clip.cu: det8, trk8, out, tiles_run; d, t, want_iou; stream
 CLIP_ARGTYPES = [_P] * 4 + [_I] * 3 + [_P]
+# csrc/merge.cu: state, src, row, valid; s, d, r; row bytes; stream
+MERGE_ARGTYPES = [_P] * 4 + [_I] * 3 + [ctypes.c_longlong] + [_P]
 
 
 class _Library:
@@ -122,6 +124,8 @@ def library() -> ctypes.CDLL:
         lib.fused_visual_launch.restype = ctypes.c_int
         lib.clip_pairs_launch.argtypes = CLIP_ARGTYPES
         lib.clip_pairs_launch.restype = ctypes.c_int
+        lib.lane_merge_launch.argtypes = MERGE_ARGTYPES
+        lib.lane_merge_launch.restype = ctypes.c_int
         _LIB.lib = lib
     return _LIB.lib
 

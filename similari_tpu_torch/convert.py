@@ -4,7 +4,9 @@ The dict is keyed by the state dataclass field names (the same names the
 JAX package uses), with `kf` a nested dict of `mean_pos`, `mean_vel`,
 `cpp`, `cpv` and `cvv`.  `next_id` is a 0-d array.  Dtypes are kept as
 given, except that bfloat16 tensors leave as float32 (numpy has no
-bfloat16) and come back as float32.
+bfloat16) and come back as float32, or as `feature_dtype` for the gallery
+and feature history.  A batch of scenes crosses the same way, with the
+leading scene axis on every array (`next_id` [S]).
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ def _state_to_numpy(state) -> Dict:
     return out
 
 
-def _state_from_numpy(cls, d: Dict, device: DeviceLike):
+def _state_from_numpy(cls, d: Dict, device: DeviceLike, feature_dtype=None):
     dev = resolve_device(device)
     kw = {}
     for f in dataclasses.fields(cls):
@@ -51,6 +53,8 @@ def _state_from_numpy(cls, d: Dict, device: DeviceLike):
                 for k in _KF))
             continue
         kw[f.name] = torch.from_numpy(np.array(d[f.name])).to(dev)
+        if feature_dtype is not None and f.name in ("feats", "hist_feat"):
+            kw[f.name] = kw[f.name].to(feature_dtype)
     return cls(**kw)
 
 
@@ -66,5 +70,9 @@ def visual_state_to_numpy(state: VisualState) -> Dict:
     return _state_to_numpy(state)
 
 
-def visual_state_from_numpy(d: Dict, device: DeviceLike = None) -> VisualState:
-    return _state_from_numpy(VisualState, d, device)
+def visual_state_from_numpy(d: Dict, device: DeviceLike = None,
+                            feature_dtype=None) -> VisualState:
+    """`feature_dtype` (for example torch.bfloat16) sets the storage type
+    of the gallery and feature history; by default they keep the arrays'
+    type."""
+    return _state_from_numpy(VisualState, d, device, feature_dtype)

@@ -5,9 +5,9 @@
 SoA buffers, expand frame gaps into all-invalid frames (the fused kernels
 run consecutive epochs), and run the whole sequence through the fused SORT
 or VisualSORT kernel: on the card by default, or through the kernels'
-plain PyTorch versions when `device="cpu"`.  `run_sequence_device` also
-runs the general SORT step (`engine="step"`, per-frame epochs, every
-method and assignment).
+plain PyTorch versions when `device="cpu"`.  Both also run the general
+step (`engine="step"`: per-frame epochs, every method and assignment, and
+for VisualSORT own-area gates computed on the device).
 """
 
 from __future__ import annotations
@@ -297,23 +297,46 @@ def run_sequence_device_visual(
     feature_precision: str = "bf16",
     qualities: Optional[Dict[int, List[float]]] = None,
     device: DeviceLike = None,
+    engine: str = "fused",
     **cfg_overrides,
 ) -> Tuple[Outputs, float]:
-    """Whole-sequence VisualSORT through the fused kernel.
+    """Whole-sequence VisualSORT on the device.
 
     `features[frame][i]` aligns with `detections[frame][i]`; None entries
     fall back to positional voting for that detection.  `qualities`
     optionally carries per-detection feature quality (default 1.0).
-    Remaining keyword args override `VisualConfig` fields; only the
-    in-kernel auction assigns (`assignment="auction"`).  Own-area gating
-    needs precomputed shares, which this runner does not compute yet
-    (ROADMAP queue 1, items 10-11).  Returns (per-frame outputs, frames/s
-    of the timed run: CUDA-event time on the card).
+    Remaining keyword args override `VisualConfig` fields.
+    engine="fused" (the default here) runs the fused kernel over 16-frame
+    chunks with its in-kernel auction (`assignment="auction"`); it takes
+    no own-area gates.  engine="step" runs the general step
+    (`trackers/visual_step.py::visual_scan`) frame by frame with per-frame
+    epochs, any assignment, and own-area gates with shares computed on the
+    device (`own_area_backend="device"`); the JAX package's `engine="xla"`.
+    Host-computed shares (`own_area_backend="host"`) need the polygon
+    clipping of `utils/clipping.py`, not ported yet.  Returns (per-frame
+    outputs, frames/s of the timed run: CUDA-event time on the card).
     """
-    from ..ops.fused_visual import fused_visual_scan
     from ..trackers.visual_state import new_visual_state
 
-    _auction_only(assignment)
+    if engine not in ("fused", "step"):
+        raise ValueError(f"unknown engine {engine!r}: 'fused' or 'step'")
+    cfg = dataclasses.replace(
+        sequence_visual_config(
+            visual_kind, visual_threshold, minimal_track_length,
+            iou_threshold, max_idle_epochs, feature_precision,
+            **cfg_overrides),
+        assignment=assignment)
+    gates = cfg.own_area_use > 0.0 or cfg.own_area_collect > 0.0
+    if gates and cfg.own_area_backend == "host":
+        raise NotImplementedError(
+            "host own-area shares need utils/clipping.py, not ported yet "
+            "(ROADMAP queue 1, item 10); use own_area_backend='device'")
+    if engine == "fused":
+        if gates:
+            raise ValueError(
+                "the fused kernel takes no own-area gates; run "
+                "engine='step', which computes the shares on the device")
+        _auction_only(assignment)
     dev = resolve_device(device)
     frames = sorted(detections)
     steps = len(frames)
@@ -345,14 +368,23 @@ def run_sequence_device_visual(
             q = qualities.get(f, [])[:n]
             qual[s, : len(q)] = q
 
-    cfg = sequence_visual_config(
-        visual_kind, visual_threshold, minimal_track_length, iou_threshold,
-        max_idle_epochs, feature_precision, **cfg_overrides)
-    if cfg.own_area_use > 0.0 or cfg.own_area_collect > 0.0:
-        raise NotImplementedError(
-            "own-area gating needs the polygon own-area shares: ROADMAP "
-            "queue 1, item 10 (host shares) and item 11 (device shares)")
     state = new_visual_state(capacity, 1, gallery, fdim, device=dev)
+    if engine == "step":
+        from ..trackers.visual_step import visual_scan
+
+        args = [torch.as_tensor(a, device=dev)
+                for a in (box, conf, valid, feat, fvalid, qual, oa)]
+        with DeviceTimer(dev) as timer:
+            state, outs = visual_scan(cfg, state, *args, _epochs_of(frames))
+        fps = steps / timer.seconds
+        _check_overflow(outs.overflow.cpu().numpy(), capacity)
+        ids = outs.track_id.cpu().numpy()
+        pred = outs.pred_box.cpu().numpy()
+        return (_assemble_outputs(frames, valid, box, pred, ids,
+                                  report_observed), fps)
+
+    from ..ops.fused_visual import fused_visual_scan
+
     pos, span, chunk, arrays = _chunked(
         frames, (box, conf, valid, feat, fvalid, qual, oa))
     args = [torch.as_tensor(a, device=dev) for a in arrays]

@@ -11,7 +11,8 @@ col >= D is track col - D.
   JAX package, round for round (3 rounds, then more until every row is
   assigned or 3000 rounds ran).  Ties go to the first column and the lowest
   row.  It is tensor code on the device of its input, with one host check
-  per round after the third.
+  per round after the third.  A leading scene axis [S, D, N] solves S
+  problems at once, each with its own eps, as the JAX package's vmap does.
 * `hungarian_host`: the exact optimum by scipy's `linear_sum_assignment`;
   the matrix goes to the host and the columns come back.
 
@@ -50,32 +51,32 @@ def first_argmax(values: torch.Tensor, dim: int) -> Tuple[torch.Tensor, torch.Te
 
 
 def _second_best(values: torch.Tensor, j_best: torch.Tensor) -> torch.Tensor:
-    """Row max of `values` with each row's best column taken out."""
-    d = values.shape[0]
-    rows = torch.arange(d, device=values.device)
-    neg = torch.full((d,), NEG, dtype=values.dtype, device=values.device)
-    return values.index_put((rows, j_best), neg).max(dim=1).values
+    """Row max of values[S, D, N] with each row's best column taken out."""
+    return values.scatter(-1, j_best[..., None], NEG).max(dim=-1).values
 
 
 def _column_side(bidders, j_best, bid, prices, row_to_col, col_to_row):
     """Each column takes its highest bid (the lowest row among equal bids);
-    owners of re-auctioned columns are evicted.  Returns (prices,
-    row_to_col with -1 for evicted rows and the won column for winners,
-    col_to_row)."""
-    d = row_to_col.shape[0]
-    n = prices.shape[0]
+    owners of re-auctioned columns are evicted.  Rows [S, D], columns
+    [S, N].  Returns (prices, row_to_col with -1 for evicted rows and the
+    won column for winners, col_to_row)."""
+    s, d = row_to_col.shape
+    n = prices.shape[-1]
     cols = torch.arange(n, device=prices.device)
-    bids = torch.where(bidders[:, None] & (j_best[:, None] == cols[None, :]),
-                       bid[:, None], NEG)
-    best_bid, winner_row = first_argmax(bids, 0)
+    bids = torch.where(bidders[..., None] & (j_best[..., None] == cols),
+                       bid[..., None], NEG)
+    best_bid, winner_row = first_argmax(bids, -2)
     got = best_bid > NEG * 0.5
-    evicted = torch.zeros(d + 1, dtype=torch.bool, device=prices.device)
-    evicted[torch.where(got & (col_to_row >= 0), col_to_row, d)] = True
+    evicted = torch.zeros((s, d + 1), dtype=torch.bool, device=prices.device)
+    evicted.scatter_(-1, torch.where(got & (col_to_row >= 0), col_to_row, d),
+                     True)
     # a row bids on one column, so it wins at most one
-    won_col = torch.full((d + 1,), -1, dtype=torch.int64, device=prices.device)
-    won_col[torch.where(got, winner_row, d)] = cols
-    row_to_col = torch.where(won_col[:d] >= 0, won_col[:d],
-                             torch.where(evicted[:d], -1, row_to_col))
+    won_col = torch.full((s, d + 1), -1, dtype=torch.int64,
+                         device=prices.device)
+    won_col.scatter_(-1, torch.where(got, winner_row, d), cols.expand(s, n))
+    won_col, evicted = won_col[:, :d], evicted[:, :d]
+    row_to_col = torch.where(won_col >= 0, won_col,
+                             torch.where(evicted, -1, row_to_col))
     col_to_row = torch.where(got, winner_row, col_to_row)
     prices = torch.where(got, best_bid, prices)
     return prices, row_to_col, col_to_row
@@ -90,11 +91,12 @@ def _fb_round(carry, weights, theta, eps):
     (state -2); the others bid v_best - max(v_second, theta) + eps."""
     prices, row_to_col, col_to_row = carry
     unassigned = row_to_col == -1
-    values = weights - prices[None, :]
-    v_best, j_best = first_argmax(values, 1)
+    values = weights - prices[..., None, :]
+    v_best, j_best = first_argmax(values, -1)
     v_second = _second_best(values, j_best)
     take_fb = unassigned & (theta >= v_best)
-    bid = prices[j_best] + (v_best - torch.clamp(v_second, min=theta)) + eps
+    bid = (prices.gather(-1, j_best)
+           + (v_best - torch.clamp(v_second, min=theta)) + eps[:, None])
     prices, r2c, col_to_row = _column_side(
         unassigned & ~take_fb, j_best, bid, prices, row_to_col, col_to_row)
     return prices, torch.where(take_fb, -2, r2c), col_to_row
@@ -102,7 +104,10 @@ def _fb_round(carry, weights, theta, eps):
 
 def _run_rounds(round_fn, carry, max_iters, pending):
     """UNROLLED_ROUNDS rounds, then more while `pending(row_to_col)` has a
-    row and fewer than max_iters rounds ran."""
+    row in any scene and fewer than max_iters rounds ran.  A round changes
+    nothing in a scene with no pending row (no row bids, so no column
+    changes hands), so every scene's columns equal those of its own
+    single-scene run."""
     for _ in range(UNROLLED_ROUNDS):
         carry = round_fn(carry)
     i = UNROLLED_ROUNDS
@@ -112,20 +117,36 @@ def _run_rounds(round_fn, carry, max_iters, pending):
     return carry
 
 
+def _eps(weights: torch.Tensor, wmax: torch.Tensor) -> torch.Tensor:
+    """Per-scene bid increment span / max(4096, 64 D) of weights [S, D, N]."""
+    wmin = torch.clamp(weights.amin(dim=(-2, -1)), max=0.0)
+    span = torch.clamp(wmax - wmin, min=1e-6)
+    return span / max(4096.0, 64.0 * weights.shape[-2])
+
+
+def _scenes(weights: torch.Tensor, solve, *args) -> torch.Tensor:
+    """Run a scene-batched solver on [S, D, N] or a single [D, N]."""
+    if weights.dim() == 2:
+        return solve(weights[None], *args)[0]
+    return solve(weights, *args)
+
+
 def auction_lap_fallback(weights: torch.Tensor, theta: float,
                          max_iters: int = MAX_AUCTION_ROUNDS) -> torch.Tensor:
-    """Auction on the SORT voting LP (real-column weights [D, T], 0 = no
-    edge) with private fallback columns.  Returns per row the column in
-    the augmented convention."""
-    d, t = weights.shape
+    """Auction on the SORT voting LP (real-column weights [S?, D, T], 0 =
+    no edge) with private fallback columns.  Returns per row the column in
+    the augmented convention.  eps is per scene, as under the JAX
+    package's vmap."""
+    return _scenes(weights, _auction_lap_fallback, theta, max_iters)
+
+
+def _auction_lap_fallback(weights, theta, max_iters):
+    s, d, t = weights.shape
     dev = weights.device
-    wmax = torch.clamp(weights.max(), min=theta)
-    wmin = torch.clamp(weights.min(), max=0.0)
-    span = torch.clamp(wmax - wmin, min=1e-6)
-    eps = span / max(4096.0, 64.0 * d)
-    carry = (torch.zeros(t, dtype=weights.dtype, device=dev),
-             torch.full((d,), -1, dtype=torch.int64, device=dev),
-             torch.full((t,), -1, dtype=torch.int64, device=dev))
+    eps = _eps(weights, torch.clamp(weights.amax(dim=(-2, -1)), min=theta))
+    carry = (torch.zeros((s, t), dtype=weights.dtype, device=dev),
+             torch.full((s, d), -1, dtype=torch.int64, device=dev),
+             torch.full((s, t), -1, dtype=torch.int64, device=dev))
     _, row_to_col, _ = _run_rounds(
         lambda c: _fb_round(c, weights, theta, eps), carry, max_iters,
         lambda r2c: r2c == -1)
@@ -137,10 +158,10 @@ def _auction_round(carry, weights, eps):
     """One Jacobi round: every unassigned row bids for its best column."""
     prices, row_to_col, col_to_row = carry
     unassigned = row_to_col < 0
-    values = weights - prices[None, :]
-    v_best, j_best = first_argmax(values, 1)
+    values = weights - prices[..., None, :]
+    v_best, j_best = first_argmax(values, -1)
     v_second = _second_best(values, j_best)
-    bid = prices[j_best] + (v_best - v_second) + eps
+    bid = prices.gather(-1, j_best) + (v_best - v_second) + eps[:, None]
     return _column_side(unassigned, j_best, bid, prices, row_to_col,
                         col_to_row)
 
@@ -149,34 +170,37 @@ def _fixup_unassigned(row_to_col: torch.Tensor,
                       col_to_row: torch.Tensor) -> torch.Tensor:
     """Give rows still unassigned after the round cap the free columns in
     order (the r-th such row the r-th free column; n-1 when none is
-    left), so the result stays a matching."""
-    n = col_to_row.shape[0]
+    left), so the result stays a matching.  Rows [S, D], columns [S, N]."""
+    s, n = col_to_row.shape
     dev = col_to_row.device
     col_free = col_to_row < 0
-    order = torch.cumsum(col_free.long(), 0) - 1
+    order = torch.cumsum(col_free.long(), -1) - 1
     row_un = row_to_col < 0
-    rank = torch.cumsum(row_un.long(), 0) - 1
-    table = torch.full((n + 1,), n - 1, dtype=torch.int64, device=dev)
-    table[torch.where(col_free, order, n)] = torch.arange(n, device=dev)
-    fill = table[torch.clamp(rank, 0, n - 1)]
+    rank = torch.cumsum(row_un.long(), -1) - 1
+    table = torch.full((s, n + 1), n - 1, dtype=torch.int64, device=dev)
+    table.scatter_(-1, torch.where(col_free, order, n),
+                   torch.arange(n, device=dev).expand(s, n))
+    fill = table.gather(-1, torch.clamp(rank, 0, n - 1))
     return torch.where(row_un, fill, row_to_col)
 
 
 def auction_lap(weights: torch.Tensor,
                 max_iters: int = MAX_AUCTION_ROUNDS) -> torch.Tensor:
-    """Maximisation LAP on weights[D, N] (N >= D): one forward-auction
-    phase from zero prices.  Returns the column per row [D]."""
-    d, n = weights.shape
+    """Maximisation LAP on weights[S?, D, N] (N >= D): one forward-auction
+    phase from zero prices.  Returns the column per row [S?, D]."""
+    d, n = weights.shape[-2:]
     if n < d:
         raise ValueError("need at least as many columns as rows")
+    return _scenes(weights, _auction_lap, max_iters)
+
+
+def _auction_lap(weights, max_iters):
+    s, d, n = weights.shape
     dev = weights.device
-    wmax = weights.max()
-    wmin = torch.clamp(weights.min(), max=0.0)
-    span = torch.clamp(wmax - wmin, min=1e-6)
-    eps = span / max(4096.0, 64.0 * d)
-    carry = (torch.zeros(n, dtype=weights.dtype, device=dev),
-             torch.full((d,), -1, dtype=torch.int64, device=dev),
-             torch.full((n,), -1, dtype=torch.int64, device=dev))
+    eps = _eps(weights, weights.amax(dim=(-2, -1)))
+    carry = (torch.zeros((s, n), dtype=weights.dtype, device=dev),
+             torch.full((s, d), -1, dtype=torch.int64, device=dev),
+             torch.full((s, n), -1, dtype=torch.int64, device=dev))
     _, row_to_col, col_to_row = _run_rounds(
         lambda c: _auction_round(c, weights, eps), carry, max_iters,
         lambda r2c: r2c < 0)
@@ -198,9 +222,12 @@ def _hungarian_np(weights: np.ndarray) -> np.ndarray:
 
 
 def hungarian_host(weights: torch.Tensor) -> torch.Tensor:
-    """Exact Hungarian on the host; the columns come back to the weights'
-    device."""
-    out = _hungarian_np(weights.detach().cpu().numpy())
+    """Exact Hungarian on the host, one scene after another for [S, D, N]
+    (as the JAX package's sequential callback); the columns come back to
+    the weights' device."""
+    w = weights.detach().cpu().numpy()
+    out = (_hungarian_np(w) if w.ndim == 2
+           else np.stack([_hungarian_np(x) for x in w]))
     return torch.from_numpy(out).to(weights.device)
 
 
@@ -228,20 +255,22 @@ def augment_with_threshold(metric: torch.Tensor, threshold: float,
     padding rows too: their row is 0 elsewhere and the diagonal column is
     private, so the optimum parks them there), the masked metric beside
     it."""
-    d = metric.shape[0]
-    body = torch.where(row_valid[:, None] & col_valid[None, :], metric, 0.0)
+    d = metric.shape[-2]
+    body = torch.where(row_valid[..., :, None] & col_valid[..., None, :],
+                       metric, 0.0)
     eye = torch.eye(d, dtype=torch.bool, device=metric.device)
     diag = torch.where(eye, threshold, 0.0).to(metric.dtype)
-    return torch.cat([diag, body], dim=1)
+    return torch.cat([diag.expand(*body.shape[:-1], d), body], dim=-1)
 
 
 def solve_voting(metric: torch.Tensor, threshold: float,
                  row_valid: torch.Tensor, col_valid: torch.Tensor,
                  backend: str) -> torch.Tensor:
-    """SORT voting: per-row column in the augmented convention.  The
-    auction never builds the [D, D] diagonal block; the host solvers solve
-    the augmented matrix."""
-    body = torch.where(row_valid[:, None] & col_valid[None, :], metric, 0.0)
+    """SORT voting on metric [S?, D, T]: per-row column in the augmented
+    convention.  The auction never builds the [D, D] diagonal block; the
+    host solvers solve the augmented matrix."""
+    body = torch.where(row_valid[..., :, None] & col_valid[..., None, :],
+                       metric, 0.0)
     if backend == "auction":
         return auction_lap_fallback(body, threshold)
     return solve_lap(augment_with_threshold(metric, threshold, row_valid,

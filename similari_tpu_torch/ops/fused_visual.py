@@ -46,13 +46,13 @@ VisualTuple = Tuple[torch.Tensor, ...]
 def check_visual_scope(cfg: VisualConfig) -> None:
     if cfg.oriented:
         raise NotImplementedError(
-            "oriented boxes need the general visual step (ROADMAP queue 1, "
-            "item 8), which will take its rotated IoU from ops/clip.py")
-    gates_on = cfg.own_area_use > 0.0 or cfg.own_area_collect > 0.0
-    if gates_on and cfg.own_area_backend == "device":
+            "the fused kernel matches aligned boxes only; oriented boxes run "
+            "on the general step (trackers/visual_step.py::visual_scan)")
+    if cfg.own_area_on_device:
         raise NotImplementedError(
-            "own-area shares computed on the device are ROADMAP queue 1, "
-            "item 11; pass own_area_backend='host' with precomputed shares")
+            "the fused kernel takes precomputed own-area shares; shares "
+            "computed on the device run on the general step "
+            "(trackers/visual_step.py::visual_scan)")
     if cfg.positional_kind not in ("iou", "maha"):
         raise ValueError(f"positional_kind {cfg.positional_kind!r}")
     if cfg.visual_kind not in ("euclidean", "cosine"):
@@ -365,8 +365,8 @@ def fused_visual_scan(cfg: VisualConfig, state: VisualState, det_box,
     is_new, length, overflow)) with [S, D, ...] outputs."""
     if state.history != 1:
         raise NotImplementedError(
-            "the fused kernel keeps history depth 1; deeper histories need "
-            "the general visual step (ROADMAP queue 1, item 8)")
+            "the fused kernel keeps history depth 1; deeper histories run "
+            "on the general step (trackers/visual_step.py::visual_scan)")
     steps = det_box.shape[0]
     if steps % chunk:
         raise ValueError("steps must be a multiple of the chunk size")

@@ -180,7 +180,8 @@ def universal_iou(a: torch.Tensor, b: torch.Tensor, oriented: bool = True):
 
 def universal_iou_matrix(a: torch.Tensor, b: torch.Tensor,
                          oriented: bool = True, neighbors: int = 0):
-    """Pairwise IoU a[D, 5] x b[T, 5] -> (iou[D, T], valid[D, T])."""
-    if oriented and 0 < neighbors < b.shape[0]:
+    """Pairwise IoU a[..., D, 5] x b[..., T, 5] -> (iou[..., D, T],
+    valid[..., D, T]); leading dims (a scene axis) broadcast."""
+    if oriented and 0 < neighbors < b.shape[-2]:
         raise NotImplementedError(TOPK_NOT_PORTED)
-    return universal_iou(a[:, None, :], b[None, :, :], oriented)
+    return universal_iou(a[..., :, None, :], b[..., None, :, :], oriented)

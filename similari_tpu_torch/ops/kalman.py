@@ -103,14 +103,15 @@ class KalmanSpec:
 
     def distance_matrix(self, s: KalmanState, z: torch.Tensor,
                         s_floor: Optional[float] = None) -> torch.Tensor:
-        """Squared Mahalanobis distance, states [T, 5] x boxes [D, 5] ->
-        [D, T], summed component by component in index order."""
+        """Squared Mahalanobis distance, states [..., T, 5] x boxes
+        [..., D, 5] -> [..., D, T], summed component by component in index
+        order; leading dims (a scene axis) broadcast."""
         mean_proj, S = self.project(s, s_floor)
-        d2 = torch.zeros(z.shape[0], mean_proj.shape[0], dtype=z.dtype,
-                         device=z.device)
+        d2 = torch.zeros(z.shape[:-1] + mean_proj.shape[-2:-1],
+                         dtype=z.dtype, device=z.device)
         for k in range(5):
-            nu = z[:, k:k + 1] - mean_proj[None, :, k]
-            d2 = d2 + nu * nu / S[None, :, k]
+            nu = z[..., :, k:k + 1] - mean_proj[..., None, :, k]
+            d2 = d2 + nu * nu / S[..., None, :, k]
         return d2
 
 

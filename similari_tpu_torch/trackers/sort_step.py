@@ -12,12 +12,19 @@ predict/update for matched and new rows, and the state write (dropped for
 padded rows and for every row of an overflowing frame), with histories of
 depth H in ring buffers.
 
+`sort_step` takes an optional leading scene axis: a state whose tensors
+carry [S, ...], detections [S, D, ...] and per-scene epochs int[S] run S
+independent scenes in one pass of the same tensor code, with every
+reduction (auction eps, new-track count, overflow, next id, free-slot
+ranks) per scene.  The single-scene call is the S = 1 case.
+
 Oriented IoU matching at T >= 512 and D >= 64 can take the sorted path
 (`_match_sorted`): x-sorted views of both axes, the rotated IoU from the
 tile-skipping clip kernel (`ops/clip.py`), the auction in sorted space.
 `oriented_block_sort="auto"` takes it when the state is on CUDA; True
 forces it on any device (on the CPU the clip's plain version runs); False
-keeps the dense path.  The fused kernel (`ops/fused_sort.py`) covers the
+keeps the dense path; it matches one scene, so the batched steps
+(`parallel/mesh.py`) turn it off.  The fused kernel (`ops/fused_sort.py`) covers the
 aligned-IoU case of the same step for whole frame chunks.
 """
 
@@ -35,7 +42,7 @@ from ..ops import geometry as geo
 from ..ops import kalman as kal
 from ..ops import merge as mrg
 from .constraints import allowed_distance_for_delta
-from .state import SortState
+from .state import SortState, map_tensors
 
 MAHALANOBIS_NEW_TRACK_THRESHOLD = 1.0
 DEFAULT_SORT_IOU_THRESHOLD = 0.3
@@ -84,29 +91,38 @@ class SortConfig:
 
 @dataclasses.dataclass(frozen=True)
 class StepOutput:
-    slot: torch.Tensor  # [D] int32 store slot per detection
-    track_id: torch.Tensor  # [D] int32
-    is_new: torch.Tensor  # [D] bool (new track vs merged)
-    pred_box: torch.Tensor  # [D, 5]
-    length: torch.Tensor  # [D] int32
-    overflow: torch.Tensor  # [] bool: ran out of free slots
+    slot: torch.Tensor  # [S?, D] int32 store slot per detection
+    track_id: torch.Tensor  # [S?, D] int32
+    is_new: torch.Tensor  # [S?, D] bool (new track vs merged)
+    pred_box: torch.Tensor  # [S?, D, 5]
+    length: torch.Tensor  # [S?, D] int32
+    overflow: torch.Tensor  # [S?] bool: ran out of free slots
+
+
+def scene_epochs(epoch, scenes: int, device: torch.device) -> torch.Tensor:
+    """The epoch of each of `scenes` scenes as an int tensor [S]: a scalar
+    is shared, a sequence or tensor gives one per scene."""
+    e = torch.as_tensor(epoch, device=device)
+    return e.expand(scenes) if e.dim() == 0 else e
 
 
 def _compat(cfg: SortConfig, active, last_epoch, det_box, pred_box, epoch):
-    """[D, T] bool: tracks a detection may match (active, idle at most
+    """[S?, D, T] bool: tracks a detection may match (active, idle at most
     max_idle_epochs, within the constraint for its epoch delta)."""
-    delta = epoch - last_epoch
+    delta = epoch[..., None] - last_epoch
     compat = active & (delta <= cfg.max_idle_epochs)
     if cfg.constraints:
-        d2r = geo.dist_in_2r(det_box[:, None, :], pred_box[None, :, :])
+        d2r = geo.dist_in_2r(det_box[..., :, None, :],
+                             pred_box[..., None, :, :])
         allowed = allowed_distance_for_delta(cfg.constraints, delta)
-        return compat[None, :] & (d2r <= allowed[None, :])
-    return compat[None, :].expand(det_box.shape[0], active.shape[0])
+        return compat[..., None, :] & (d2r <= allowed[..., None, :])
+    return compat[..., None, :].expand(*det_box.shape[:-1],
+                                       active.shape[-1])
 
 
 def distance_weights(cfg: SortConfig, state: SortState, det_box: torch.Tensor,
-                     det_conf: torch.Tensor, epoch: int) -> torch.Tensor:
-    """The [D, T] voting weights (0 = no edge)."""
+                     det_conf: torch.Tensor, epoch) -> torch.Tensor:
+    """The [S?, D, T] voting weights (0 = no edge)."""
     compat = _compat(cfg, state.active, state.last_epoch, det_box,
                      state.pred_box, epoch)
     conf = torch.clamp(det_conf, min=cfg.min_confidence)
@@ -116,20 +132,20 @@ def distance_weights(cfg: SortConfig, state: SortState, det_box: torch.Tensor,
                 else 0)
         iou, valid = geo.universal_iou_matrix(
             det_box, state.pred_box, cfg.oriented, neighbors=nbrs)
-        m = iou * conf[:, None]
+        m = iou * conf[..., :, None]
         valid = valid & (m >= cfg.iou_threshold)
         return torch.where(compat & valid, m, 0.0)
     d2 = cfg.kalman_spec.distance_matrix(state.kf, det_box)
     cost = kal.calculate_cost(d2, inverted=True)
-    m = cost / conf[:, None]
-    tf = geo.too_far(det_box[:, None, :], state.pred_box[None, :, :])
+    m = cost / conf[..., :, None]
+    tf = geo.too_far(det_box[..., :, None, :], state.pred_box[..., None, :, :])
     return torch.where(compat & ~tf, m, 0.0)
 
 
 def _assign(cfg, W, det_valid, active):
-    """(matched [D], target column [D]) from the voting weights; a match
-    must also carry at least the threshold (absorbs auction slop)."""
-    d, t = W.shape
+    """(matched [S?, D], target column [S?, D]) from the voting weights; a
+    match must also carry at least the threshold (absorbs auction slop)."""
+    d, t = W.shape[-2:]
     col = asg.solve_voting(W, cfg.new_track_threshold, det_valid, active,
                            asg.resolve_backend(cfg.assignment, W.device))
     tgt = torch.clamp(col - d, 0, t - 1)
@@ -186,10 +202,26 @@ def use_sorted_path(cfg: SortConfig, d: int, t: int,
 
 def sort_step(cfg: SortConfig, state: SortState, det_box: torch.Tensor,
               det_conf: torch.Tensor, det_valid: torch.Tensor,
-              epoch: int) -> Tuple[SortState, StepOutput]:
-    """One frame: det_box f32[D, 5], det_conf f32[D], det_valid bool[D] at
-    `epoch`.  Returns the new state and the per-detection outputs."""
-    d = det_box.shape[0]
+              epoch) -> Tuple[SortState, StepOutput]:
+    """One frame: det_box f32[S?, D, 5], det_conf f32[S?, D], det_valid
+    bool[S?, D] at `epoch` (an int, or int[S] per scene).  With the scene
+    axis the state carries it too.  Returns the new state and the
+    per-detection outputs."""
+    if det_box.dim() == 2:
+        st, out = _sort_step(
+            cfg, map_tensors(lambda a: a[None], state), det_box[None],
+            det_conf[None], det_valid[None],
+            scene_epochs(epoch, 1, state.device))
+        return (map_tensors(lambda a: a[0], st),
+                map_tensors(lambda a: a[0], out))
+    return _sort_step(cfg, state, det_box, det_conf, det_valid,
+                      scene_epochs(epoch, det_box.shape[0], state.device))
+
+
+def _sort_step(cfg: SortConfig, state: SortState, det_box, det_conf,
+               det_valid, epoch: torch.Tensor):
+    """`sort_step` on [S, ...] tensors with epochs [S]."""
+    s, d = det_box.shape[:2]
     t = state.capacity
     spec = cfg.kalman_spec
     det_valid = det_valid.bool()
@@ -199,50 +231,59 @@ def sort_step(cfg: SortConfig, state: SortState, det_box: torch.Tensor,
         # unchanged; only slot reuse differs
         state = dataclasses.replace(
             state, active=state.active
-            & (epoch - state.last_epoch <= cfg.max_idle_epochs))
+            & (epoch[:, None] - state.last_epoch <= cfg.max_idle_epochs))
 
-    match = (_match_sorted if use_sorted_path(cfg, d, t, state.device)
-             else _match_plain)
-    matched, tgt = match(cfg, state, det_box, det_conf, det_valid, epoch)
+    if use_sorted_path(cfg, d, t, state.device):
+        if s != 1:
+            raise ValueError("the sorted path matches one scene; batched "
+                             "steps need oriented_block_sort=False")
+        matched, tgt = _match_sorted(
+            cfg, map_tensors(lambda a: a[0], state), det_box[0], det_conf[0],
+            det_valid[0], epoch[0])
+        matched, tgt = matched[None], tgt[None]
+    else:
+        matched, tgt = _match_plain(cfg, state, det_box, det_conf, det_valid,
+                                    epoch)
 
     # slot allocation: the r-th new detection takes the r-th free slot
     is_new = det_valid & ~matched
-    new_rank = torch.cumsum(is_new.long(), 0) - 1
-    n_new = is_new.sum()
-    n_free = (~state.active).sum()
+    new_rank = torch.cumsum(is_new.long(), -1) - 1
+    n_new = is_new.sum(-1)
+    n_free = (~state.active).sum(-1)
     overflow = n_new > n_free
     slot = torch.where(matched, tgt, mrg.nth_free_slot(state.active, new_rank))
-    safe = det_valid & ~overflow
+    safe = det_valid & ~overflow[:, None]
 
     # one masked Kalman step for matched and new rows
-    at_slot = [mrg.take_rows(getattr(state.kf, f.name), slot)
-               for f in dataclasses.fields(kal.KalmanState)]
+    kf_fields = [f.name for f in dataclasses.fields(kal.KalmanState)]
     init = spec.initiate(det_box)
     prev = kal.KalmanState(*(
-        torch.where(matched[:, None], tr, getattr(init, f.name))
-        for tr, f in zip(at_slot, dataclasses.fields(kal.KalmanState))))
+        torch.where(matched[..., None],
+                    mrg.take_rows(getattr(state.kf, f), slot),
+                    getattr(init, f))
+        for f in kf_fields))
     st = spec.update(spec.predict(prev), det_box)
     pred_box = st.mean_pos
 
     new_length = torch.where(matched, mrg.take_rows(state.length, slot) + 1, 1)
     new_ids = torch.where(matched, mrg.take_rows(state.track_id, slot),
-                          state.next_id + new_rank + 1).to(torch.int32)
+                          state.next_id[:, None] + new_rank + 1).to(
+                              torch.int32)
 
-    # state write: unsafe rows go to the scratch row (ops/merge.py)
+    # state write: unsafe rows go to their scene's scratch row
     index = mrg.write_index(slot, safe, t)
     written = mrg.written(index, t)
     hix = (new_length - 1) % state.history
     new_state = SortState(
         kf=kal.KalmanState(*(
-            mrg.merge_rows(getattr(state.kf, f.name), getattr(st, f.name),
-                           index)
-            for f in dataclasses.fields(kal.KalmanState))),
+            mrg.merge_rows(getattr(state.kf, f), getattr(st, f), index)
+            for f in kf_fields)),
         pred_box=mrg.merge_rows(state.pred_box, pred_box, index),
         obs_box=mrg.merge_rows(state.obs_box, det_box, index),
         conf=mrg.merge_rows(state.conf, det_conf, index),
         active=state.active | written,
-        last_epoch=torch.where(written, epoch, state.last_epoch).to(
-            torch.int32),
+        last_epoch=torch.where(written, epoch[:, None],
+                               state.last_epoch).to(torch.int32),
         length=mrg.merge_rows(state.length, new_length, index),
         track_id=mrg.merge_rows(state.track_id, new_ids, index),
         hist_obs=mrg.merge_ring(state.hist_obs, det_box, hix, index),

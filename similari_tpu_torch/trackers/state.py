@@ -3,6 +3,8 @@
 
 A fixed-capacity struct of tensors per scene: slots are recycled through
 the `active` mask, and the fused kernels read and write it by slot index.
+A batch of scenes is the same struct with a leading scene axis on every
+tensor (`next_id` becomes [S]).
 """
 
 from __future__ import annotations
@@ -34,15 +36,23 @@ class SortState:
 
     @property
     def capacity(self) -> int:
-        return self.active.shape[0]
+        return self.active.shape[-1]
 
     @property
     def history(self) -> int:
-        return self.hist_obs.shape[1]
+        return self.hist_obs.shape[-2]
 
     @property
     def device(self) -> torch.device:
         return self.active.device
+
+
+def map_tensors(fn, obj):
+    """The dataclass `obj` (a state, its Kalman state, a step output) with
+    `fn` applied to every tensor, nested dataclasses included."""
+    return type(obj)(**{
+        f.name: (map_tensors(fn, v) if dataclasses.is_dataclass(v) else fn(v))
+        for f in dataclasses.fields(obj) for v in (getattr(obj, f.name),)})
 
 
 def new_sort_state(capacity: int, history: int, next_id: int = 0,

@@ -1,7 +1,8 @@
 """SoA state for the VisualSORT tracker (mirrors
 `similari_tpu/trackers/visual_state.py`): the SORT columns plus a fixed-K
 ReID gallery per track, kept as (feats, quality, valid) lanes with
-quality-sorted eviction.
+quality-sorted eviction.  A batch of scenes carries a leading scene axis on
+every tensor.
 """
 
 from __future__ import annotations
@@ -40,19 +41,19 @@ class VisualState:
 
     @property
     def capacity(self) -> int:
-        return self.active.shape[0]
+        return self.active.shape[-1]
 
     @property
     def history(self) -> int:
-        return self.hist_obs.shape[1]
+        return self.hist_obs.shape[-2]
 
     @property
     def gallery_size(self) -> int:
-        return self.feats.shape[1]
+        return self.feats.shape[-2]
 
     @property
     def feature_dim(self) -> int:
-        return self.feats.shape[2]
+        return self.feats.shape[-1]
 
     @property
     def device(self) -> torch.device:

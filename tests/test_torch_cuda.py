@@ -11,9 +11,13 @@ not reach: overflow with and without recycling, all-zero padded rows,
 large-norm identities, every gallery configuration, and crowded scenes
 for the auction at every positional kind; for the clip kernel, identical,
 touching, degenerate and far-apart boxes and ragged shapes, the sorted
-SORT path and block-skip NMS.  Integer outputs
-and state must be equal; floats are held at torch_parity.RTOL/ATOL.
+SORT path and block-skip NMS; for the merge kernel, every dtype, odd
+widths, invalid and out-of-range rows, and the in-place batched step.
+Integer outputs and state must be equal; floats are held at
+torch_parity.RTOL/ATOL; the merge kernel is a copy and must be bit-equal.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -22,11 +26,13 @@ import torch
 from similari_tpu_torch.ops import clip as cl
 from similari_tpu_torch.ops import fused_sort as fs
 from similari_tpu_torch.ops import fused_visual as fv
+from similari_tpu_torch.ops import merge_inplace as mi
 from similari_tpu_torch.ops.nms import nms_kernel
+from similari_tpu_torch.parallel import mesh as pmesh
 from similari_tpu_torch.trackers.sort_step import SortConfig, sort_scan
-from similari_tpu_torch.trackers.state import new_sort_state
+from similari_tpu_torch.trackers.state import map_tensors, new_sort_state
 from similari_tpu_torch.trackers.visual_state import new_visual_state
-from similari_tpu_torch.trackers.visual_step import VisualConfig
+from similari_tpu_torch.trackers.visual_step import VT_VISUAL, VisualConfig
 
 from torch_parity import (ATOL, EXACT_BOX_COLUMNS, RTOL, VISUAL_CONFIGS,
                           crowded_stream, large_norm_stream, oriented_stream,
@@ -253,3 +259,87 @@ def test_block_skip_nms_matches_dense(cuda, n, block_skip):
     dense = nms_kernel(boxes, valid, 0.7, block_skip=False)
     assert torch.equal(blk, dense)
     assert 0 < int(blk.sum()) < int(valid.sum())
+
+
+@pytest.mark.parametrize("dtype,f", [
+    (torch.bfloat16, 512), (torch.float32, 512), (torch.int32, 512),
+    (torch.bfloat16, 3), (torch.float32, 129), (torch.bfloat16, 1)])
+def test_merge_kernel_matches_plain(cuda, dtype, f):
+    """Bit-equal to the plain version; rows outside [0, R) and rows with
+    valid 0 never write; the state is written in place."""
+    g = torch.Generator().manual_seed(f)
+    s, r, d = 7, 60, 20
+    if dtype == torch.int32:
+        state = torch.randint(-99, 99, (s, r, f), generator=g,
+                              dtype=torch.int32)
+        src = torch.randint(-99, 99, (s, d, f), generator=g,
+                            dtype=torch.int32)
+    else:
+        state = torch.randn((s, r, f), generator=g).to(dtype)
+        src = torch.randn((s, d, f), generator=g).to(dtype)
+    row = torch.stack([torch.randperm(r, generator=g)[:d]
+                       for _ in range(s)]).int()
+    valid = (torch.rand((s, d), generator=g) < 0.8).int()
+    row[:, 0], valid[:, 0] = -3, 0
+    row[:, 1], valid[:, 1] = r, 0
+    state, src, row, valid = (x.to(cuda) for x in (state, src, row, valid))
+    kernel, plain = state.clone(), state.clone()
+    before = mi.lane_merge_inplace.launches
+    out = mi.lane_merge_inplace(kernel, src, row, valid)
+    assert mi.lane_merge_inplace.launches == before + 1
+    assert out.data_ptr() == kernel.data_ptr()
+    mi.lane_merge_plain(plain, src, row, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(kernel.view(torch.int8 if dtype == torch.bfloat16
+                                   else dtype),
+                       plain.view(torch.int8 if dtype == torch.bfloat16
+                                  else dtype))
+    assert not torch.equal(kernel, state)
+
+
+def test_merge_kernel_rejects_bad_inputs(cuda):
+    state = torch.zeros(2, 8, 4, device=cuda)
+    src = torch.zeros(2, 3, 4, device=cuda)
+    row = torch.zeros(2, 3, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        mi.lane_merge_inplace(state[:, ::2], src, row, row)
+    with pytest.raises(ValueError, match="one device"):
+        mi.lane_merge_inplace(state, src.cpu(), row, row)
+    with pytest.raises(TypeError):
+        mi.lane_merge_inplace(state, src.bfloat16(), row, row)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_inplace_batched_step_matches_plain_step(cuda, dtype):
+    """The in-place batched step launches the merge kernel twice per frame
+    and tracks exactly as the plain batched step, from copies of one
+    start state."""
+    cfg = VisualConfig(**dict(VISUAL_CONFIGS["euclid_iou"],
+                              recycle_idle=True))
+    s, n, d, t, f = 3, 8, 8, 32, 16
+    arrs = [np.stack([x[i] for x in (visual_stream(k, n, d, f)
+                                     for k in range(s))], axis=1)
+            for i in range(7)]
+    ref = pmesh.new_batched_visual_state(s, t, 2, 3, f, dtype, device=cuda)
+    alt = map_tensors(torch.clone, ref)
+    vstep = pmesh.batched_visual_step(cfg)
+    istep = pmesh.batched_visual_step_inplace(cfg)
+    before = mi.lane_merge_inplace.launches
+    for i in range(n):
+        args = [torch.tensor(a[i], device=cuda) for a in arrs]
+        ep = torch.full((s,), i + 1, device=cuda)
+        ref, out_r = vstep(ref, *args, ep)
+        alt, out_i = istep(alt, *args, ep)
+        for name in ("track_id", "voting_type", "is_new", "overflow"):
+            assert torch.equal(getattr(out_r, name), getattr(out_i, name))
+    assert mi.lane_merge_inplace.launches == before + 2 * n
+    for fld in dataclasses.fields(ref):
+        if fld.name != "kf":
+            assert torch.equal(getattr(ref, fld.name),
+                               getattr(alt, fld.name)), fld.name
+    assert (out_i.voting_type == VT_VISUAL).any()
+
+
+def test_f32_products_are_not_tf32(cuda):
+    """The gallery distances take their f32 products in full f32."""
+    assert torch.backends.cuda.matmul.allow_tf32 is False

@@ -188,8 +188,9 @@ def test_large_norm_euclidean_identities(refs):
 
 
 def test_visual_step_and_scan_run_the_kernel_path(refs):
-    """`visual_step` (one frame per launch) and `visual_scan` reproduce the
-    fused scan's outputs frame by frame."""
+    """`visual_step` and `visual_scan` run the general step, which gives
+    the fused kernel's ids, voting types and is_new flags frame by frame
+    (f32 features), as the JAX package's two paths do."""
     _, oj, _, _ = _config_run(refs, "euclid_iou", 0)
     cfg = VisualConfig(**VISUAL_CONFIGS["euclid_iou"])
     stream = [torch.tensor(x) for x in visual_stream(0, STEPS, D, F)]
@@ -210,17 +211,28 @@ def test_visual_step_and_scan_run_the_kernel_path(refs):
 @pytest.mark.parametrize("bad", [
     dict(oriented=True), dict(own_area_use=0.5, own_area_backend="device")])
 def test_out_of_scope_configs_raise(bad):
+    """The fused scan refuses oriented boxes and device own-area shares,
+    naming the general step; `visual_scan` (the general step) runs them."""
     cfg = VisualConfig(**dict(VISUAL_CONFIGS["euclid_iou"], **bad))
     stream = [torch.tensor(x) for x in visual_stream(0, CHUNK, D, F)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        visual_scan(cfg, new_visual_state(T, 1, K, F, device=CPU), *stream, 1)
+    with pytest.raises(NotImplementedError, match="general step"):
+        fused_visual_scan(cfg, new_visual_state(T, 1, K, F, device=CPU),
+                          *stream, 1, CHUNK)
+    _, out = visual_scan(cfg, new_visual_state(T, 1, K, F, device=CPU),
+                         *stream, 1)
+    assert out.track_id.shape == (CHUNK, D) and not out.overflow.any()
 
 
 def test_history_other_than_one_raises():
+    """The fused scan keeps history depth 1; `visual_scan` runs depth 2."""
     cfg = VisualConfig(**VISUAL_CONFIGS["euclid_iou"])
     stream = [torch.tensor(x) for x in visual_stream(0, CHUNK, D, F)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        visual_scan(cfg, new_visual_state(T, 2, K, F, device=CPU), *stream, 1)
+    with pytest.raises(NotImplementedError, match="general step"):
+        fused_visual_scan(cfg, new_visual_state(T, 2, K, F, device=CPU),
+                          *stream, 1, CHUNK)
+    st, _ = visual_scan(cfg, new_visual_state(T, 2, K, F, device=CPU),
+                        *stream, 1)
+    assert st.hist_obs.shape == (T, 2, 5) and st.hist_feat_valid.any()
 
 
 def test_config_defaults_match_jax():

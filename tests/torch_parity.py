@@ -149,6 +149,21 @@ def visual_stream(seed, steps, d, f, density=300.0):
     return box, conf, valid, feat, fvalid, qual, oa
 
 
+def oriented_visual_stream(seed, steps, d, f, spread=300.0):
+    """`oriented_stream`'s turning boxes (two padded rows per frame, half
+    the middle frame padded) with per-object identities plus noise, some
+    rows without features and qualities U(0.3, 1)."""
+    box, conf, valid = oriented_stream(seed, steps, d, spread)
+    rng = np.random.default_rng(seed + 100)
+    ident = rng.normal(size=(d, f)).astype(np.float32)
+    feat = (ident[None] + 0.05 * rng.normal(size=(steps, d, f))).astype(
+        np.float32)
+    fvalid = rng.uniform(size=(steps, d)) < 0.85
+    qual = rng.uniform(0.3, 1.0, (steps, d)).astype(np.float32)
+    return box, conf, valid, feat, fvalid, qual, np.ones((steps, d),
+                                                         np.float32)
+
+
 def visual_overflow_stream(steps, d, f, seed=7):
     """Far-apart fresh objects with random features every frame."""
     rng = np.random.default_rng(seed)
