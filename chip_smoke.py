@@ -37,17 +37,21 @@ Phases:
      lanes and R=200 history rows, F=512 in bf16, f32 and int32, and at
      odd widths (F=3 bf16, F=129 f32): rows unique per scene, ~90% valid,
      rows outside [0, R) with valid 0; bit-equal results written in place;
-     CUDA-event ms of the kernel, the plain version and `index_put_`;
+     CUDA-event ms of the kernel, the plain version and `index_put_` in a
+     loop of repeats;
  10. batched VisualSORT at bench.py's `batch_visual_256x100x512` (S=256,
      D=100, T=200, K=3, H=1, F=512, bf16): `batched_visual_step_inplace`
      and `batched_visual_step` from copies of one state over
      --batch-frames frames, equal every frame and at the end, the merge
      kernel launched twice per frame, visual matches present; scene-frames/s
-     of both forms and the device's idle share;
+     of both forms and, from `torch.profiler` over a whole run of each, the
+     device's idle share and the merge kernel's device time per launch on
+     this path (the `kernels` line's `ms`), beside the kernel, its plain
+     version and `index_put_` timed in a loop on one frame's launch inputs;
  11. the general single-scene step: `run_sequence_device_visual(engine=
      "step")` on phase 4's sequence (--step-frames frames) gives the fused
      engine's ids; then an oriented, own-area-gated, history-3 config at
-     D=100, T=400, K=3, F=512 over --own-area-frames frames;
+     D=100, T=400, K=3, F=512 over 64 frames;
  12. batched SORT at bench.py's `batch_sort_256x100` (S=256 scenes of 100
      objects, T=200, aligned IoU) over --batch-frames frames;
  13. one `kernels` JSON line, then the result line.
@@ -59,7 +63,7 @@ from tests/torch_parity.py.
 Usage: python3 chip_smoke.py [--frames N] [--main-frames N]
                              [--oriented-frames N] [--nms-frames N]
                              [--batch-frames N] [--step-frames N]
-                             [--own-area-frames N] [--seed S]
+                             [--seed S]
 Exits non-zero, printing no result, when CUDA is missing or any phase fails.
 """
 
@@ -116,7 +120,7 @@ PARITY_FRAMES = 64  # frames of the oriented path rerun with the plain clip
 BS, BD, BT = 256, 100, 200
 # the oriented own-area config: D=100 boxes, T=400, gates of
 # tools/adversarial_suite.py
-OA_D, OA_T, OA_H = 100, 400, 3
+OA_D, OA_T, OA_H, OA_FRAMES = 100, 400, 3, 64
 OA_USE, OA_COLLECT = 0.4, 0.6
 # f32 operations of one in-radius pair in csrc/clip.cu, counted from the
 # source: every add, sub, mul, div, min, max, abs, negation and comparison
@@ -677,17 +681,32 @@ def merge_bound_ms(valid, f, itemsize):
     """Each written row read from src and written to the state once, plus
     the row and valid entries."""
     nbytes = 2 * int((valid != 0).sum()) * f * itemsize + 8 * valid.numel()
-    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def merge_loop_ms(dev, state, src, row, valid):
+    """CUDA-event ms per call, in a loop of repeats on the same inputs, of
+    the kernel, its plain version and `index_put_` (each on its own copy
+    of the state)."""
+    k_state, p_state, l_state = state.clone(), state.clone(), state.clone()
+    s, r, f = state.shape
+    sc, dd = (valid != 0).nonzero(as_tuple=True)
+    flat_rows = sc.long() * r + row[sc, dd].long()
+    vals = src[sc, dd]
+    flat = l_state.view(s * r, f)
+    return (time_ms(dev, lambda: mi.lane_merge_inplace(k_state, src, row,
+                                                       valid), 50),
+            time_ms(dev, lambda: mi.lane_merge_plain(p_state, src, row,
+                                                     valid), 20),
+            time_ms(dev, lambda: flat.index_put_((flat_rows,), vals), 50))
 
 
 def phase_merge(args, dev):
-    """Phase 9; returns the kernel's entry for the main path's gallery
-    launch (launches filled in by phase 10)."""
+    """Phase 9: the kernel bit-equal to its plain version at every dtype
+    and width, written in place."""
     g = torch.Generator().manual_seed(args.seed)
-    entry = None
     for label, r, f, dtype in MERGE_CASES:
-        state, src, row, valid = merge_inputs(dev, g, args.batch_scenes, r,
-                                              f, dtype)
+        state, src, row, valid = merge_inputs(dev, g, BS, r, f, dtype)
         k_state, p_state = state.clone(), state.clone()
         ptr = k_state.data_ptr()
         out = mi.lane_merge_inplace(k_state, src, row, valid)
@@ -700,30 +719,12 @@ def phase_merge(args, dev):
                                  "differ")
         if torch.equal(bits(k_state), bits(state)):
             raise AssertionError(f"merge[{label}]: nothing was written")
-        s, r_, _ = state.shape
-        ok = valid != 0
-        sc, dd = ok.nonzero(as_tuple=True)
-        flat_rows = sc.long() * r_ + row[sc, dd].long()
-        vals = src[sc, dd]
-        flat = k_state.view(s * r_, f)
-        k_ms = time_ms(dev, lambda: mi.lane_merge_inplace(k_state, src, row,
-                                                          valid), 50)
-        p_ms = time_ms(dev, lambda: mi.lane_merge_plain(p_state, src, row,
-                                                        valid), 20)
-        lib_ms = time_ms(dev, lambda: flat.index_put_((flat_rows,), vals), 50)
+        k_ms, p_ms, lib_ms = merge_loop_ms(dev, state, src, row, valid)
         bound = merge_bound_ms(valid, f, state.element_size())
-        log(f"[9] merge[{label}] S={s} D={BD} R={r_} F={f}: bit-equal, in "
-            f"place; kernel {k_ms:.5f} ms  plain {p_ms:.5f} ms  index_put_ "
-            f"{lib_ms:.5f} ms  bound {bound[0]:.6f} ms ({bound[1]}; "
-            f"{int(ok.sum())} valid rows)")
-        if entry is None:
-            entry = dict(name="lane_merge", route="cuda",
-                         source="similari_tpu_torch/csrc/merge.cu",
-                         replaces="similari_tpu/ops/pallas_merge.py:36",
-                         launches=0, max_abs_err=0.0, ms=k_ms, plain_ms=p_ms,
-                         bound_ms=bound[0], bound_by=bound[1],
-                         library_ms=lib_ms)
-    return entry
+        log(f"[9] merge[{label}] S={BS} D={BD} R={r} F={f}: bit-equal, in "
+            f"place; in a loop of repeats: kernel {k_ms:.5f} ms  plain "
+            f"{p_ms:.5f} ms  index_put_ {lib_ms:.5f} ms  bound {bound:.6f} "
+            f"ms (bytes; {int((valid != 0).sum())} valid rows)")
 
 
 def bench_visual_config(**kw):
@@ -767,26 +768,30 @@ def compare_states(name, a, b):
     return err
 
 
-def idle_share(dev, run, seconds_per_frame, frames):
-    """The device's idle share of a frame: one minus the kernel time per
-    frame under torch.profiler over the CUDA-event time per frame of an
-    unprofiled run (`tools/profile_torch_sort.py`'s reckoning).  Returns
-    (share, device busy ms per frame, launches per frame)."""
+def device_profile(run, frames):
+    """torch.profiler over one call of `run` (a run of `frames` frames).
+    Returns (device busy ms per frame, kernel launches per frame, the
+    device events in launch order).  The idle share of a frame is one
+    minus the busy time over the CUDA-event frame time of unprofiled runs
+    of the same frames (`tools/profile_torch_sort.py`'s reckoning)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         run()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in events) / 1e6 / frames
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.key_averages() if e.device_type == cuda]
+    busy = sum(e.self_device_time_total for e in events) / 1e3 / frames
     launches = sum(e.count for e in events) / frames
-    return 1.0 - busy / seconds_per_frame, busy * 1e3, launches
+    kernels = sorted((e for e in prof.events() if e.device_type == cuda),
+                     key=lambda e: e.time_range.start)
+    return busy, launches, kernels
 
 
 def phase_batched_visual(args, dev):
-    """Phase 10; returns the merge kernel's launches on this path."""
-    s, n = args.batch_scenes, args.batch_frames
+    """Phase 10; returns the merge kernel's `kernels` entry, its time and
+    launches taken on this path."""
+    s, n = BS, args.batch_frames
     cfg = bench_visual_config()
     boxes, feat = batch_stream(n, s, dev)
     ones = torch.ones((s, BD), dtype=torch.float32, device=dev)
@@ -805,8 +810,23 @@ def phase_batched_visual(args, dev):
         return st, outs
 
     # a whole warm-up run of each form: the caching allocator and the
-    # auction's round count settle over the first frames
-    run(inplace_step, map_tensors(torch.clone, st0), n)
+    # auction's round count settle over the first frames.  The in-place
+    # one records each merge launch's bound and keeps copies of the last
+    # frame's two launch inputs (gallery, history) for the loop timings.
+    merge, bounds, last = mesh.lane_merge_inplace, [], []
+
+    def recording(state, src, row, valid):
+        bounds.append(merge_bound_ms(valid, state.shape[2],
+                                     state.element_size()))
+        last[:] = last[-1:] + [tuple(x.clone()
+                                     for x in (state, src, row, valid))]
+        return merge(state, src, row, valid)
+
+    mesh.lane_merge_inplace = recording
+    try:
+        run(inplace_step, map_tensors(torch.clone, st0), n)
+    finally:
+        mesh.lane_merge_inplace = merge
     run(plain_step, map_tensors(torch.clone, st0), n)
     # three runs of each form in turns: the host-bound frame time drifts
     # between runs by more than the forms differ
@@ -843,17 +863,32 @@ def phase_batched_visual(args, dev):
         raise AssertionError("batched VisualSORT overflowed its slots")
     ids = torch.stack([o.track_id for o in out_in]).cpu().numpy()
     kept = float(np.mean(ids == ids[:1]))
+    loop = [merge_loop_ms(dev, *x) for x in last]
+    loop_k, loop_p, loop_lib = (float(np.mean(x)) for x in zip(*loop))
+    entry = dict(name="lane_merge", route="cuda",
+                 source="similari_tpu_torch/csrc/merge.cu",
+                 replaces="similari_tpu/ops/pallas_merge.py:36",
+                 launches=launches, max_abs_err=0.0, ms=None,
+                 plain_ms=loop_p, bound_ms=float(np.mean(bounds)),
+                 bound_by="bytes", library_ms=loop_lib)
     profile = ""
     if dev.type == "cuda":
-        k = min(n, 8)
         for form, step, t in (("in-place", inplace_step, t_in),
                               ("plain", plain_step, t_pl)):
             start = map_tensors(torch.clone, st0)
-            share, busy_ms, per_frame = idle_share(
-                dev, lambda: run(step, start, k), t / n, k)
+            busy_ms, per_frame, kernels = device_profile(
+                lambda: run(step, start, n), n)
             profile += (f"; {form} device busy {busy_ms:.3f} ms/frame, idle "
-                        f"share {share:.3f}, {per_frame:.1f} kernel "
-                        f"launches/frame")
+                        f"share {1.0 - busy_ms / (t * 1e3 / n):.3f}, "
+                        f"{per_frame:.1f} kernel launches/frame")
+            if form == "in-place":
+                path = [e.time_range.elapsed_us() / 1e3 for e in kernels
+                        if "lane_merge_kernel" in e.name]
+                if len(path) != 2 * n:
+                    raise AssertionError(f"batched VisualSORT profile: "
+                                         f"{len(path)} merge kernels for "
+                                         f"{n} frames")
+                entry["ms"] = float(np.mean(path))
     each = "; ".join(f"{f} " + ", ".join(f"{x * 1e3 / n:.3f}" for x in v)
                      for f, v in secs.items())
     log(f"[10] batched VisualSORT S={s} D={BD} T={BT} K={K} F={F} bf16, {n} "
@@ -865,12 +900,21 @@ def phase_batched_visual(args, dev):
         f"state equal (feature arrays bit for bit, max_abs_err {err:.3e}); "
         f"{visual} visual matches after frame 3; {kept:.4f} of ids equal "
         f"their first frame's{profile}")
-    return launches
+    if entry["ms"] is not None:
+        log(f"[10] merge kernel on this path: {entry['ms']:.5f} ms per launch "
+            f"(profiler device time, mean of {2 * n}: gallery "
+            f"{float(np.mean(path[0::2])):.5f}, history "
+            f"{float(np.mean(path[1::2])):.5f}); bound {entry['bound_ms']:.6f} "
+            f"ms (bytes, mean over the path's launches)")
+    log(f"[10] the last frame's merge inputs in a loop of repeats (mean of "
+        f"gallery and history): kernel {loop_k:.5f} ms  plain {loop_p:.5f} "
+        f"ms  index_put_ {loop_lib:.5f} ms")
+    return entry
 
 
 def phase_general_visual(args, dev, dets, feats, fused_out):
-    """Phase 11: the general step on the fused path's sequence, then the
-    oriented own-area history-3 config."""
+    """Phase 11, first half: the general step on the fused path's
+    sequence."""
     n = min(args.step_frames, args.main_frames)
     frames = sorted(dets)[:n]
     sub_d = {f: dets[f] for f in frames}
@@ -896,16 +940,23 @@ def phase_general_visual(args, dev, dets, feats, fused_out):
         if bad32:
             raise AssertionError("the general step and the fused engine give "
                                  "other ids in f32")
-    m = args.own_area_frames
+
+
+def phase_own_area(args, dev):
+    """Phase 11, second half: the oriented own-area history-3 config on
+    bench's random walk, each box keeping its angle U(0, 0.6) over the
+    frames (as `tests/torch_parity.py::oriented_stream`)."""
+    m = OA_FRAMES
     rng = np.random.default_rng(args.seed + 7)
     box = box_stream(m, OA_D, rng)
-    box[..., 2] = rng.uniform(0, 0.6, size=box.shape[:2])
+    box[..., 2] = rng.uniform(0, 0.6, size=OA_D)
     ident = rng.normal(size=(OA_D, F)).astype(np.float32)
     feat = np.broadcast_to(ident, (m, OA_D, F)).copy()
     box, feat = (torch.as_tensor(x, device=dev) for x in (box, feat))
     ones = torch.ones((m, OA_D), dtype=torch.float32, device=dev)
-    # the stream redraws every angle each frame, so many detections start
-    # new tracks: recycling keeps the live ones within the 400 slots
+    # a box whose own-area share is below the use gate (~6% here) cannot
+    # match a track past the minimal length visually, so ~15 detections a
+    # frame start new tracks: recycling keeps the live ones within 400 slots
     cfg = bench_visual_config(oriented=True, own_area_use=OA_USE,
                               own_area_collect=OA_COLLECT, recycle_idle=True)
     st0 = new_visual_state(OA_T, OA_H, K, F, device=dev)
@@ -924,17 +975,20 @@ def phase_general_visual(args, dev, dets, feats, fused_out):
     if bool(out.overflow.any()):
         raise AssertionError("oriented own-area run overflowed")
     vis = float((out.voting_type[3:] == VT_VISUAL).float().mean())
+    ids = out.track_id.cpu().numpy()
+    kept = sum(len(set(ids[:, i].tolist())) == 1 for i in range(OA_D))
     log(f"[11] oriented own-area H={OA_H}: D={OA_D} T={OA_T} K={K} F={F}, "
         f"{m} frames, {m / timer.seconds:.1f} frames/s (CUDA events); "
         f"shares < 1 for {float((shares < 1).float().mean()):.3f} of boxes, "
         f"below the use gate for {gated:.3f}; {vis:.3f} of matches after "
-        f"frame 3 visual; {int(st.next_id)} ids; history rows filled "
+        f"frame 3 visual; {int(st.next_id)} ids, {kept}/{OA_D} objects "
+        f"kept one id; history rows filled "
         f"{int(st.hist_feat_valid.sum())}")
 
 
 def phase_batched_sort(args, dev):
     """Phase 12: bench.py's batched SORT."""
-    s, n = args.batch_scenes, args.batch_frames
+    s, n = BS, args.batch_frames
     cfg = SortConfig(method="iou", assignment="auction", max_idle_epochs=5,
                      oriented=False)
     boxes = box_stream(n, s * BD, np.random.default_rng(42))
@@ -964,9 +1018,7 @@ def main(argv=None) -> int:
     ap.add_argument("--oriented-frames", type=int, default=256)
     ap.add_argument("--nms-frames", type=int, default=64)
     ap.add_argument("--batch-frames", type=int, default=32)
-    ap.add_argument("--batch-scenes", type=int, default=BS)
     ap.add_argument("--step-frames", type=int, default=1024)
-    ap.add_argument("--own-area-frames", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.frames % CHUNK:
@@ -1008,10 +1060,10 @@ def main(argv=None) -> int:
         f"NMS path {nms_launches}")
     phase_maha(dets, args.main_frames)
     kernels.append(clip_entry)
-    merge_entry = phase_merge(args, dev)
-    merge_entry["launches"] = phase_batched_visual(args, dev)
-    kernels.append(merge_entry)
+    phase_merge(args, dev)
+    kernels.append(phase_batched_visual(args, dev))
     phase_general_visual(args, dev, dets, feats, fused_out)
+    phase_own_area(args, dev)
     phase_batched_sort(args, dev)
     log(json.dumps({"kernels": kernels, "not_ported": []}))
     log(json.dumps({"ok": True, "device": {

@@ -15,7 +15,8 @@
 // warps.  Each warp loads its own `valid` and `row` (this replaces the
 // TPU's scalar prefetch), and its 32 lanes copy the row with the widest
 // word both bases and the row size allow: 16 bytes, else 4, else 2 (bf16
-// rows of odd width), else 1.  Nothing is staged in shared memory, and no
+// rows of odd width; every admitted dtype is at least 2 bytes wide and
+// PyTorch aligns data to the item size).  Nothing is staged in shared memory, and no
 // row that is not written is read: untouched rows of the state never
 // move, which is the point of the in-place form.
 //
@@ -83,11 +84,8 @@ extern "C" int lane_merge_launch(void* state, const void* src, const int* row,
     launch<int4>(out, in, row, valid, n_rows, d, r, row_bytes, stream);
   } else if (aligned(state, row_bytes, 4) && aligned(src, row_bytes, 4)) {
     launch<int>(out, in, row, valid, n_rows, d, r, row_bytes, stream);
-  } else if (aligned(state, row_bytes, 2) && aligned(src, row_bytes, 2)) {
-    launch<short>(out, in, row, valid, n_rows, d, r, row_bytes, stream);
   } else {
-    launch<unsigned char>(out, in, row, valid, n_rows, d, r, row_bytes,
-                          stream);
+    launch<short>(out, in, row, valid, n_rows, d, r, row_bytes, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }
