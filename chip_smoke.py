@@ -314,6 +314,32 @@ def visual_configs():
     return cfgs
 
 
+def phase_split(cfg, state, inputs):
+    """One extra run of the stream with the scan kernel's phase stamps:
+    ms per frame in each phase (`fv.PHASES`), the mean over the frames,
+    and the whole frame."""
+    stamps = []
+
+    def profiled(cfg, st, *xs):
+        prof = torch.zeros((CHUNK, len(fv.PHASES) + 1), dtype=torch.int64,
+                           device=xs[0].device)
+        stamps.append(prof)
+        return fv.fused_visual_chunk(cfg, st, *xs, prof=prof)
+
+    run_chunks(profiled, cfg, state, inputs)
+    st = torch.cat(stamps).cpu().numpy()
+    per_phase = np.diff(st, axis=1).mean(0) / 1e6
+    return per_phase, float((st[:, -1] - st[:, 0]).mean() / 1e6)
+
+
+def log_split(label, split):
+    per_phase, frame = split
+    log(f"[3] {label} phase split (ms/frame, global timer, one profiled run):"
+        f" " + ", ".join(f"{n} {x:.4f}" for n, x in zip(fv.PHASES,
+                                                        per_phase))
+        + f"; frame {frame:.4f}")
+
+
 def phase_visual(args, dev):
     st0 = fv.state_to_tuple(new_visual_state(T, 1, K, F, device=dev))
     random_walk = [torch.as_tensor(x, device=dev)
@@ -332,6 +358,8 @@ def phase_visual(args, dev):
             st0, inputs)
         errs.append(err)
         log_check(label, k_ms, p_ms, err, stats)
+        if name == "main_path" and dev.type == "cuda":
+            log_split(label, phase_split(cfg, st0, inputs))
         if stream == "crowded":
             check_crowded("fused_visual", stats)
         elif name == "main_path":

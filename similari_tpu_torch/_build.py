@@ -36,10 +36,11 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 # argument lists of the C launchers in csrc/fused_track.cu
-# (inputs, state, outputs, scratch pointers; ints; floats; stream)
+# (inputs, state, outputs, scratch pointers; ints; floats; constraint
+# tables and, for the visual kernel, the phase stamps; stream)
 SORT_ARGTYPES = [_P] * (3 + 13 + 5 + 1) + [_I] * 6 + [_F] * 6 + [_P]
 VISUAL_ARGTYPES = ([_P] * (7 + 20 + 8 + 5) + [_I] * 14 + [_F] * 12
-                   + [_P, _P] + [_P])
+                   + [_P, _P, _P] + [_P])
 # csrc/clip.cu: det8, trk8, out, tiles_run; d, t, want_iou; stream
 CLIP_ARGTYPES = [_P] * 4 + [_I] * 3 + [_P]
 # csrc/merge.cu: state, src, row, valid; s, d, r; row bytes; stream

@@ -266,6 +266,7 @@ struct VisualArgs {
   float* wd;  // [K, D, T] gallery distances (gated pairs only)
   unsigned char* okb;  // [K, D, T] metric passed (gated pairs only)
   float* Wm;  // [D, T] best-fit weights
+  long long* prof;  // [C, NSTAMP] phase stamps, or null
   int C, D, T, K, F, epoch0, max_idle, recycle, min_track_len, min_votes;
   int maha, euclid, bf16, n_cons;
   float thr, pos_min_conf, vis_thr, min_area, q_use, q_collect, oa_use,
@@ -340,6 +341,25 @@ struct VisualSmem {
   }
 };
 
+// Phase boundaries of a VisualSORT frame, stamped from %globaltimer (ns)
+// into VisualArgs::prof[s * NSTAMP + k] when prof is not null.  A stamp
+// first waits for the whole block, so a profiled launch runs each phase
+// on its own; an unprofiled launch (prof null) runs no extra barrier.
+enum {
+  ST_START, ST_ROWS, ST_LISTS, ST_POS, ST_NORMS, ST_DIST, ST_VOTES,
+  ST_ARGMAX, ST_AUCTION, ST_SLOTS, ST_WRITE, NSTAMP
+};
+
+__device__ __forceinline__ void stamp(long long* prof, int s, int k) {
+  if (prof == nullptr) return;  // uniform across the block
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    prof[s * NSTAMP + k] = t;
+  }
+}
+
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
@@ -369,6 +389,7 @@ __global__ void __launch_bounds__(NT, 1) fused_visual_kernel(VisualArgs a) {
     const int epoch = a.epoch0 + s;
     const int nid0 = *a.nid;
     const float* feat = a.feat + (size_t)s * D * F;
+    stamp(a.prof, s, ST_START);
     // ---- rows: sanitized boxes, candidate feature gates ----------------
     if (tid < D) {
       const int i = s * D + tid;
@@ -411,6 +432,7 @@ __global__ void __launch_bounds__(NT, 1) fused_visual_kernel(VisualArgs a) {
     }
     if (tid == 0) *sm.npairs = 0;
     __syncthreads();
+    stamp(a.prof, s, ST_ROWS);
     // ---- candidate / gallery-lane lists --------------------------------
     if (w == 0) {
       warp_compact(D, [&](int r) { return sm.use[r] != 0; }, sm.lr,
@@ -421,6 +443,7 @@ __global__ void __launch_bounds__(NT, 1) fused_visual_kernel(VisualArgs a) {
         return sm.tg[t] && ((sm.gvbits[t] >> i) & 1) && sm.compat[t];
       }, sm.lt + i * T, &sm.counts[1 + i]);
     }
+    stamp(a.prof, s, ST_LISTS);
     // ---- positional weights + compatibility with constraints -----------
     for (int idx = tid; idx < D * T; idx += NT) {
       const int r = idx / T, t = idx - r * T;
@@ -464,6 +487,7 @@ __global__ void __launch_bounds__(NT, 1) fused_visual_kernel(VisualArgs a) {
       a.P[idx] = pv ? m : 0.0f;
     }
     __syncthreads();
+    stamp(a.prof, s, ST_POS);
     const int nlr = sm.counts[0];
     // ---- feature norms (f32 values) -------------------------------------
     for (int k = w; k < nlr; k += NW) {
@@ -484,6 +508,7 @@ __global__ void __launch_bounds__(NT, 1) fused_visual_kernel(VisualArgs a) {
         if (lane == 0) sm.gn[i * T + t] = acc;
       }
     }
+    stamp(a.prof, s, ST_NORMS);
     // ---- gallery distances on the gated (candidate, lane) pairs --------
     float lmax = NEG;
     int npairs = 0;
@@ -535,6 +560,7 @@ __global__ void __launch_bounds__(NT, 1) fused_visual_kernel(VisualArgs a) {
     }
     if (npairs) atomicAdd(sm.npairs, npairs);
     const float max_dist = block_max(lmax, sm.redf);
+    stamp(a.prof, s, ST_DIST);
     // ---- votes and best-fit weights -------------------------------------
     for (int idx = tid; idx < D * T; idx += NT) {
       const int r = idx / T, t = idx - r * T;
@@ -552,6 +578,7 @@ __global__ void __launch_bounds__(NT, 1) fused_visual_kernel(VisualArgs a) {
       a.Wm[idx] = (votes >= a.min_votes && sm.valid[r]) ? weight : NEG;
     }
     __syncthreads();
+    stamp(a.prof, s, ST_VOTES);
     // best track per candidate (first max) and heaviest candidate per track
     for (int r = w; r < D; r += NW) {
       float v = -INFINITY;
@@ -580,6 +607,7 @@ __global__ void __launch_bounds__(NT, 1) fused_visual_kernel(VisualArgs a) {
       sm.rowopen[tid] = sm.valid[tid] && !sm.hasany[tid];
     }
     __syncthreads();
+    stamp(a.prof, s, ST_ARGMAX);
     // ---- positional auction on the remainder ----------------------------
     lmax = diag_max(tid, D, sm.valid, a.thr);
     for (int idx = tid; idx < D * T; idx += NT) {
@@ -605,6 +633,7 @@ __global__ void __launch_bounds__(NT, 1) fused_visual_kernel(VisualArgs a) {
       sm.nr[tid] = sm.valid[tid] && !m;
     }
     __syncthreads();
+    stamp(a.prof, s, ST_AUCTION);
     int n_new, n_free;
     allocate_slots(sm.freef, sm.frank, sm.flist, T, sm.nr, D, sm.redi,
                    &n_new, &n_free);
@@ -649,6 +678,7 @@ __global__ void __launch_bounds__(NT, 1) fused_visual_kernel(VisualArgs a) {
       for (int j = 0; j < 5; ++j) a.o_pred[(s * D + tid) * 5 + j] = u[j].mp;
     }
     __syncthreads();
+    stamp(a.prof, s, ST_SLOTS);
     // ---- state write (dropped on overflow) ------------------------------
     if (a.recycle)
       for (int t = tid; t < T; t += NT) a.active[t] = sm.act[t];
@@ -687,6 +717,7 @@ __global__ void __launch_bounds__(NT, 1) fused_visual_kernel(VisualArgs a) {
       a.o_stats[s * 3 + 2] = *sm.npairs;
     }
     __syncthreads();
+    stamp(a.prof, s, ST_WRITE);
   }
 }
 
@@ -747,7 +778,7 @@ extern "C" int fused_visual_launch(
     float thr, float pos_min_conf, float vis_thr, float min_area, float q_use,
     float q_collect, float oa_use, float oa_collect, float pw2, float pw1,
     float vw10, float vw1,
-    const int* cons_dd, const float* cons_md,
+    const int* cons_dd, const float* cons_md, void* prof,
     void* stream) {
   if (D < 1 || D > NT || T < 1 || C < 1 || K < 1 || K > 31 || F < 1 ||
       n_cons < 0 || n_cons > MAX_CONSTRAINTS)
@@ -777,6 +808,7 @@ extern "C" int fused_visual_launch(
   a.o_len = (int*)o_len; a.o_ovf = (int*)o_ovf; a.o_stats = (int*)o_stats;
   a.P = (float*)P; a.cdt = (unsigned char*)cdt; a.wd = (float*)wd;
   a.okb = (unsigned char*)okb; a.Wm = (float*)Wm;
+  a.prof = (long long*)prof;
   a.C = C; a.D = D; a.T = T; a.K = K; a.F = F; a.epoch0 = epoch0;
   a.max_idle = max_idle; a.recycle = recycle; a.min_track_len = min_track_len;
   a.min_votes = min_votes; a.maha = maha; a.euclid = euclid; a.bf16 = bf16;

@@ -42,6 +42,13 @@ _BIG = 3.0e38
 
 VisualTuple = Tuple[torch.Tensor, ...]
 
+# the phases of a frame in `fused_visual_kernel`, in order; a profiled
+# launch stamps the start of the frame and the end of each into an int64
+# [C, len(PHASES) + 1] buffer (`csrc/fused_track.cu::ST_*`)
+PHASES = ("rows and tracks", "lists", "positional pass", "norms",
+          "gallery distances", "votes", "argmaxes", "auction",
+          "slots and KF", "state write")
+
 
 def check_visual_scope(cfg: VisualConfig) -> None:
     if cfg.oriented:
@@ -250,7 +257,8 @@ def visual_state_shapes(t: int, k: int, f: int):
 
 
 def fused_visual_chunk(cfg: VisualConfig, state: VisualTuple, box, conf,
-                       valid, feat, fvalid, qual, oa, epoch0: int):
+                       valid, feat, fvalid, qual, oa, epoch0: int,
+                       prof=None):
     """C frames of VisualSORT from `state` (not modified).
 
     box f32[C,D,5], conf f32[C,D], valid bool/int[C,D], feat f32[C,D,F],
@@ -261,6 +269,8 @@ def fused_visual_chunk(cfg: VisualConfig, state: VisualTuple, box, conf,
     (candidate, gallery lane) pairs per frame, the pairs whose distance
     the kernel computes.
     CUDA tensors launch the kernel; CPU tensors run the plain version.
+    `prof`, an int64 [C, len(PHASES) + 1] CUDA tensor, receives the
+    kernel's phase stamps (ns of the device's global timer).
     """
     check_visual_scope(cfg)
     valid, fvalid = valid.to(_I32), fvalid.to(_I32)
@@ -280,6 +290,12 @@ def fused_visual_chunk(cfg: VisualConfig, state: VisualTuple, box, conf,
                                         fvalid, qual, oa, epoch0)
     if box.device.type != "cuda":
         raise ValueError(f"unsupported device {box.device}")
+    if prof is not None and (prof.shape != (c, len(PHASES) + 1)
+                             or prof.dtype != torch.int64
+                             or prof.device != box.device
+                             or not prof.is_contiguous()):
+        raise ValueError(f"prof must be a contiguous int64 [{c}, "
+                         f"{len(PHASES) + 1}] tensor on {box.device}")
     from .._build import check, library
 
     lib = library()
@@ -314,6 +330,7 @@ def fused_visual_chunk(cfg: VisualConfig, state: VisualTuple, box, conf,
         cfg.own_area_use, cfg.own_area_collect,
         2.0 * pw, 1.0 * pw, 10.0 * vw, 1.0 * vw,
         ctypes.cast(dd, ctypes.c_void_p), ctypes.cast(md, ctypes.c_void_p),
+        None if prof is None else prof.data_ptr(),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     check(code, "fused_visual_launch")
     fused_visual_chunk.launches += 1
