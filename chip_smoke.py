@@ -3,18 +3,27 @@
 
 Phases:
   1. the device, and `nvidia-smi` name and power limit;
-  2. the nvcc build of the CUDA kernels, timed;
+  2. the nvcc build of the CUDA kernels, timed, and the count of tensor-core
+     instructions (HMMA/HGMMA) in each form of `gallery_dots_kernel`
+     (`cuobjdump -sass`): the bf16 forms must have them;
   3. each fused kernel against its plain PyTorch version on the card at
      the main path's launch shape (D=128 rows for 100 objects, T=512, the
      runners' chunk of C=16 frames; K=3, F=512 for the visual kernel):
      ids, slots, voting types, is_new, lengths, overflow flags and
      auction statistics equal, floats within tests/torch_parity.py's
-     RTOL/ATOL; CUDA-event times of both.  Two streams: random-walk
-     objects, as on the main path, and a crowded scene whose auction must
-     run several rounds per frame;
+     RTOL/ATOL; CUDA-event times of both (for VisualSORT the chunk's two
+     launches: the gallery product, then the scan).  Two streams:
+     random-walk objects, as on the main path, and a crowded scene whose
+     auction must run several rounds per frame; on both, one extra
+     profiled run of the main-path config gives the scan kernel's phase
+     split.  Then `gallery_dots_kernel` against `gallery_dots_plain` at
+     the main path's launch shape, bf16 and f32, timed beside
+     `torch.matmul` of the same operands in f32;
   4. the main path: `run_sequence_device_visual`, then `run_sequence_device`,
      on a synthetic 1024-frame sequence of 100 random-walk objects with
      512-d identities, the launch counters zeroed before and read after;
+     then `torch.profiler` over the visual path's first 256 frames for
+     each of its kernels' device time per launch;
   5. the rotated-box clip kernel against its plain version
      (`pair_block_plain`): IoU at D=500, T=2000 on the x-sorted views of
      one frame of the oriented SORT stream (most tiles skip) and on the
@@ -71,6 +80,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -88,6 +99,7 @@ from similari_tpu_torch.eval.mot import (  # noqa: E402
 from similari_tpu_torch.ops import clip as cl  # noqa: E402
 from similari_tpu_torch.ops import fused_sort as fs  # noqa: E402
 from similari_tpu_torch.ops import fused_visual as fv  # noqa: E402
+from similari_tpu_torch.ops import gallery_dots as gd  # noqa: E402
 from similari_tpu_torch.ops import merge_inplace as mi  # noqa: E402
 from similari_tpu_torch.ops.nms import nms_kernel, use_block_skip  # noqa: E402
 from similari_tpu_torch.ops.ownarea import own_area_shares  # noqa: E402
@@ -127,6 +139,7 @@ OA_USE, OA_COLLECT = 0.4, 0.6
 # (far test 7, recentred vertices 24, first boundary pass 4 x 87, tie pass
 # 4 x 107, area 3, IoU 5)
 CLIP_FLOPS = 815
+PROFILED_FRAMES = 256  # frames of the main path under torch.profiler
 
 
 def log(*a):
@@ -314,6 +327,22 @@ def visual_configs():
     return cfgs
 
 
+def mma_counts():
+    """{(bf16, vectorised copies): HMMA/HGMMA instructions} for each form
+    of `gallery_dots_kernel` in the built library (`cuobjdump -sass`)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_build.build())],
+                          capture_output=True, text=True, check=True).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        m = re.search(r"gallery_dots_kernelILb([01])ELb([01])E",
+                      part.split("\n", 1)[0])
+        if m:
+            counts[(m.group(1) == "1", m.group(2) == "1")] = len(
+                re.findall(r"\bHG?MMA\.", part))
+    return counts
+
+
 def phase_split(cfg, state, inputs):
     """One extra run of the stream with the scan kernel's phase stamps:
     ms per frame in each phase (`fv.PHASES`), the mean over the frames,
@@ -338,6 +367,62 @@ def log_split(label, split):
         f" " + ", ".join(f"{n} {x:.4f}" for n, x in zip(fv.PHASES,
                                                         per_phase))
         + f"; frame {frame:.4f}")
+
+
+def dots_bound_ms(n, m, needed, bf16):
+    """The chunk rows and lanes read once, the needed products and the
+    norms written once; 2F operations per needed product (bf16 or f32
+    rate) and per norm (f32)."""
+    by_bytes = ((n + m) * F * 4 + needed * 4 + (n + m) * 4) / HBM_BYTES_PER_S
+    by_ops = (needed * 2 * F / (BF16_OPS_PER_S if bf16 else F32_OPS_PER_S)
+              + (n + m) * 2 * F / F32_OPS_PER_S)
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def check_gallery_dots(dev, feat):
+    """`gallery_dots_kernel` against `gallery_dots_plain` at the main
+    path's launch shape: the stream's first chunk (N = 16 x 128 rows)
+    against T*K = 1536 lanes holding rows of its next chunk, bf16 and
+    f32.  Every entry the scan reads within rtol 1e-5 and 1e-4 x |q| |g|,
+    norms within 1e-5.  Returns the bf16 (main path) `parts` entry."""
+    x = feat[:CHUNK].reshape(CHUNK * D, F)
+    g = feat[CHUNK:2 * CHUNK].reshape(-1, F)[:T * K].contiguous()
+    n, m = x.shape[0], g.shape[0]
+    need = gd.needed_columns(n, m, D, dev)
+    cols = torch.cat([g, x])
+    scale = x.norm(dim=1)[:, None] * cols.norm(dim=1)[None, :]
+    entry = None
+    for bf16 in (True, False):
+        label = f"gallery_dots[{'bf16' if bf16 else 'f32'}]"
+        dots, norms = gd.gallery_dots(x, g, bf16, D)
+        p_dots, p_norms = gd.gallery_dots_plain(x, g, bf16)
+        err = (dots - p_dots).abs()
+        bad = need & ~(err <= 1e-5 * p_dots.abs() + 1e-4 * scale)
+        if bool(bad.any()):
+            raise AssertionError(f"{label}: products differ at "
+                                 f"{bad.nonzero()[:5].tolist()}")
+        torch.testing.assert_close(norms, p_norms, rtol=1e-5, atol=1e-5)
+        max_err = float(err[need].max())
+        rel = float((err / scale.clamp(min=1e-30))[need].max())
+        k_ms = time_ms(dev, lambda: gd.gallery_dots(x, g, bf16, D), 50)
+        p_ms = time_ms(dev, lambda: gd.gallery_dots_plain(x, g, bf16), 10)
+        lib_ms = time_ms(dev, lambda: torch.matmul(x, cols.T), 50)
+        needed = int(need.sum())
+        bound = dots_bound_ms(n, m, needed, bf16)
+        log(f"[3] {label} N={n} M={m} F={F}: max_abs_err {max_err:.3e} "
+            f"(max {rel:.2e} x |q| |g|) over {needed} needed products; in a "
+            f"loop of repeats: kernel {k_ms:.5f} ms  plain {p_ms:.5f} ms  "
+            f"torch.matmul f32 (TF32 off) {lib_ms:.5f} ms  bound "
+            f"{bound[0]:.6f} ms ({bound[1]})")
+        if bf16:
+            entry = dict(name="gallery_dots", route="cuda",
+                         source="similari_tpu_torch/csrc/gallery_dots.cu",
+                         replaces="similari_tpu/ops/pallas_visual.py:245",
+                         launches=0, max_abs_err=max_err, ms=k_ms,
+                         plain_ms=p_ms, bound_ms=bound[0], bound_by=bound[1],
+                         library_ms=lib_ms)
+    return entry
 
 
 def phase_visual(args, dev):
@@ -368,6 +453,7 @@ def phase_visual(args, dev):
                 p_ms, visual_bound_ms(CHUNK, per_launch(stats),
                                       cfg.feature_precision == "bf16"))
     entry["max_abs_err"] = max(errs)
+    entry["parts"] = [check_gallery_dots(dev, random_walk[3])]
     return entry
 
 
@@ -393,13 +479,35 @@ def ids_per_object(out):
     return [len(set(ids[:, i].tolist())) for i in range(ids.shape[1])], ids
 
 
+def visual_device_ms(dets, feats):
+    """torch.profiler over `run_sequence_device_visual` on the first
+    PROFILED_FRAMES frames: {kernel: (device ms per launch, launches)} for
+    the fused visual path's two kernels."""
+    frames = sorted(dets)[:PROFILED_FRAMES]
+    sub_d = {f: dets[f] for f in frames}
+    sub_f = {f: feats[f] for f in frames}
+    _, _, kernels = device_profile(lambda: run_sequence_device_visual(
+        sub_d, sub_f, capacity=T, gallery=K), len(frames))
+    out = {}
+    for name in ("gallery_dots_kernel", "fused_visual_kernel"):
+        times = [e.time_range.elapsed_us() / 1e3 for e in kernels
+                 if name in e.name]
+        if len(times) != len(frames) // CHUNK:
+            raise AssertionError(f"profile of the main path: {len(times)} "
+                                 f"{name} launches for {len(frames)} frames")
+        out[name] = (float(np.mean(times)), len(times))
+    return out
+
+
 def phase_main(args, dets, feats):
     fs.fused_sort_chunk.launches = 0
     fv.fused_visual_chunk.launches = 0
+    gd.gallery_dots.launches = 0
     vout, vfps = run_sequence_device_visual(dets, feats, capacity=T,
                                             gallery=K)
     sout, sfps = run_sequence_device(dets, capacity=T)
     launches = {"fused_visual": fv.fused_visual_chunk.launches,
+                "gallery_dots": gd.gallery_dots.launches,
                 "fused_sort": fs.fused_sort_chunk.launches}
     log(f"[4] main path: {args.main_frames} frames x {D_VALID} objects; "
         f"run_sequence_device_visual {vfps:.1f} frames/s, "
@@ -420,7 +528,13 @@ def phase_main(args, dets, feats):
             raise AssertionError("main path outputs are not finite/complete")
     log(f"[4] VisualSORT: every object kept one id; SORT: "
         f"{sum(c == 1 for c in scount)}/{D_VALID} objects kept one id")
-    return launches, vout
+    dev_ms = visual_device_ms(dets, feats)
+    (g_ms, n), (s_ms, _) = (dev_ms[k] for k in ("gallery_dots_kernel",
+                                                "fused_visual_kernel"))
+    log(f"[4] VisualSORT device ms per launch (torch.profiler, first {n} "
+        f"chunks): gallery_dots_kernel {g_ms:.5f}, fused_visual_kernel "
+        f"{s_ms:.5f}, both {g_ms + s_ms:.5f} per {CHUNK}-frame chunk")
+    return launches, vout, dev_ms
 
 
 # ---------------------------------------------------------------------------
@@ -1072,14 +1186,25 @@ def main(argv=None) -> int:
     log(f"[2] nvcc build {secs:.2f} s (load {time.perf_counter() - t0:.2f} s); "
         f"flags {' '.join(_build.NVCC_FLAGS)}")
     for line in build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if any(w in line for w in ("Compiling entry", "registers", "spill",
+                                   "error")):
             log("    " + line.strip())
+    mma = mma_counts()
+    log("[2] HMMA/HGMMA instructions in gallery_dots_kernel: " + ", ".join(
+        f"{'bf16' if b else 'f32'}{' vec' if v else ''} {n}"
+        for (b, v), n in sorted(mma.items())))
+    if len(mma) != 4 or not all(n > 0 for (b, _), n in mma.items() if b):
+        raise AssertionError("the bf16 gallery product does not run on the "
+                             "tensor cores")
 
     kernels = [phase_sort(args, dev), phase_visual(args, dev)]
     dets, feats = synthetic_sequence(args.main_frames, args.seed + 2)
-    launches, fused_out = phase_main(args, dets, feats)
+    launches, fused_out, dev_ms = phase_main(args, dets, feats)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    part = kernels[1]["parts"][0]
+    part["launches"] = launches["gallery_dots"]
+    part["ms"] = dev_ms["gallery_dots_kernel"][0]
     clip_entry = phase_clip(args, dev)
     clip_entry["launches"], err = phase_oriented_sort(args, dev)
     clip_entry["max_abs_err"] = max(clip_entry["max_abs_err"], err)

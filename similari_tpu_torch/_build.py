@@ -21,7 +21,7 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fused_track.cu", "clip.cu", "merge.cu")
+SOURCES = ("fused_track.cu", "gallery_dots.cu", "clip.cu", "merge.cu")
 HEADERS = ("fused_track.cuh",)
 # --fmad=false: no multiply-add contraction, so the kernels round every
 # product and sum exactly as their plain PyTorch versions do, and the clip
@@ -39,8 +39,10 @@ _F = ctypes.c_float
 # (inputs, state, outputs, scratch pointers; ints; floats; constraint
 # tables and, for the visual kernel, the phase stamps; stream)
 SORT_ARGTYPES = [_P] * (3 + 13 + 5 + 1) + [_I] * 6 + [_F] * 6 + [_P]
-VISUAL_ARGTYPES = ([_P] * (7 + 20 + 8 + 5) + [_I] * 14 + [_F] * 12
+VISUAL_ARGTYPES = ([_P] * (7 + 20 + 8 + 5 + 2) + [_I] * 13 + [_F] * 12
                    + [_P, _P, _P] + [_P])
+# csrc/gallery_dots.cu: x, g, dots, norms; n, m, f, d, bf16; stream
+DOTS_ARGTYPES = [_P] * 4 + [_I] * 5 + [_P]
 # csrc/clip.cu: det8, trk8, out, tiles_run; d, t, want_iou; stream
 CLIP_ARGTYPES = [_P] * 4 + [_I] * 3 + [_P]
 # csrc/merge.cu: state, src, row, valid; s, d, r; row bytes; stream
@@ -123,6 +125,8 @@ def library() -> ctypes.CDLL:
         lib.fused_sort_launch.restype = ctypes.c_int
         lib.fused_visual_launch.argtypes = VISUAL_ARGTYPES
         lib.fused_visual_launch.restype = ctypes.c_int
+        lib.gallery_dots_launch.argtypes = DOTS_ARGTYPES
+        lib.gallery_dots_launch.restype = ctypes.c_int
         lib.clip_pairs_launch.argtypes = CLIP_ARGTYPES
         lib.clip_pairs_launch.restype = ctypes.c_int
         lib.lane_merge_launch.argtypes = MERGE_ARGTYPES

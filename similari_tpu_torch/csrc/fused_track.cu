@@ -3,7 +3,8 @@
 // fused_sort_kernel replaces `similari_tpu/ops/pallas_sort.py::_kernel`
 // (with `forward_auction`, `_row_argmax`, `_cumsum_rows`);
 // fused_visual_kernel replaces `similari_tpu/ops/pallas_visual.py::_kernel`
-// (with `_col_argmax` and the same helpers).
+// (with `_col_argmax` and the same helpers), together with
+// gallery_dots.cu, which computes its gallery product.
 //
 // Each launch runs C consecutive frames of one sequence on ONE thread block
 // of 1024 threads: a loop over frames inside the kernel, __syncthreads()
@@ -11,28 +12,39 @@
 // memory (it stays L2-resident: 4.2 MB at T=512, K=3, F=512), per-row and
 // per-track vectors in shared memory, and the [D, T] matrices in global
 // scratch buffers the wrapper allocates.  The TPU's one-hot matmul
-// scatters and gathers become indexed loads and stores.
+// scatters and gathers become indexed loads and stores.  The frame loop is
+// sequential (frame s matches against the gallery that frames < s left),
+// so it stays on one block, one SM of 132.
+//
+// The gallery product leaves the loop.  The scan writes a gallery lane only
+// by copying a candidate row of the chunk into it, so every lane a frame-s
+// candidate meets holds its launch-start value or a chunk row of an earlier
+// frame.  gallery_dots_kernel, launched on the same stream just before,
+// computes every such dot product (and the rows' norms) on the whole card,
+// bf16 on the tensor cores; the scan keeps a lane-source table src[T*K] in
+// shared memory (lane -> column of that product, updated where a row
+// enters a lane) and, for each gated (candidate, lane) pair, gathers the
+// dot and both norms through it.
 //
 // Bound at the main-path shapes (D=128 after pad_pow2(100), T=512, K=3,
-// F=512): the gallery product is at most 2*D*T*K*F = 201 MFLOP per frame
-// (it only runs on pairs that pass the candidate/track gates, about
-// 100 x 100 x 3 on a clean stream: 31 MFLOP), and the state moves about
-// 8.4 MB per launch (read + write), 1.3 us each way at 3.35 TB/s.  Neither
-// is the limit of this design: the serial auction rounds (each a few block
-// barriers) and the single block, which uses one SM of 132, make latency
-// the limit.  What the design does about it: unassigned rows only are
-// re-scanned each auction round; the gallery product runs on compacted
-// (candidate, track) lists in 32x32 shared-memory tiles; nothing leaves the
-// block between phases except through L2.  A grid or cluster for the
-// distance phase, wgmma for the gallery product and shared-memory staging
-// of the state are left for later.
+// F=512): the state moves about 8.4 MB per launch (read + write), 1.3 us
+// each way at 3.35 TB/s, and the ~30,000 gated pairs per frame are L2
+// gathers.  Neither is the limit: the single block's serial phases are.
+// On an H100 (PERF.md section 5, from the `prof` phase stamps) a frame
+// takes ~0.22 ms: the [D, T] votes, positional and argmax passes ~60%,
+// the auction rounds (each a few block barriers) ~15%, the state write
+// ~12%, the gallery gather ~10%; the product adds ~0.06 ms per chunk.
+// What the design does about it: unassigned rows only are re-scanned each
+// auction round; gallery pairs are listed once per frame from compacted
+// (candidate, lane) lists; nothing leaves the block between phases except
+// through L2.  Shared-memory staging of the state and a cluster for the
+// [D, T] passes are left for later.
 //
 // Ids must match the reference exactly: ties go to the lowest index
 // everywhere, the r-th new detection takes the r-th free slot, and on
 // overflow (n_new > n_free) the frame writes nothing while next_id still
 // advances.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "fused_track.cuh"
@@ -266,9 +278,11 @@ struct VisualArgs {
   float* wd;  // [K, D, T] gallery distances (gated pairs only)
   unsigned char* okb;  // [K, D, T] metric passed (gated pairs only)
   float* Wm;  // [D, T] best-fit weights
+  const float* dots;  // [C*D, T*K + C*D] gallery_dots.cu's products
+  const float* norms;  // [T*K + C*D] their rows' sums of squares
   long long* prof;  // [C, NSTAMP] phase stamps, or null
   int C, D, T, K, F, epoch0, max_idle, recycle, min_track_len, min_votes;
-  int maha, euclid, bf16, n_cons;
+  int maha, euclid, n_cons;
   float thr, pos_min_conf, vis_thr, min_area, q_use, q_collect, oa_use,
       oa_collect;
   KalmanWeights kw;
@@ -284,7 +298,7 @@ struct VisualSmem {
   float* rtrk;
   int* lt;  // [K, T]
   float* gn;  // [K, T]
-  float *qs, *gs;  // [32 * 33] tiles
+  int* src;  // [T*K] lane -> column of `dots` holding its value
   float* redf;
   int* redi;
   int* counts;  // [1 + K]: rows listed, tracks listed per plane
@@ -325,8 +339,7 @@ struct VisualSmem {
     rtrk = c.take<float>(T);
     lt = c.take<int>((size_t)K * T);
     gn = c.take<float>((size_t)K * T);
-    qs = c.take<float>(32 * 33);
-    gs = c.take<float>(32 * 33);
+    src = c.take<int>((size_t)T * K);
     redf = c.take<float>(NW);
     redi = c.take<int>(NW);
     counts = c.take<int>(1 + K);
@@ -360,10 +373,6 @@ __device__ __forceinline__ void stamp(long long* prof, int s, int k) {
   }
 }
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
 // One warp lists the indices i < n with flag(i) in ascending order.
 template <class Flag>
 __device__ void warp_compact(int n, Flag flag, int* out, int* count) {
@@ -383,8 +392,12 @@ __global__ void __launch_bounds__(NT, 1) fused_visual_kernel(VisualArgs a) {
   extern __shared__ __align__(16) char smem[];
   VisualSmem sm;
   sm.carve(smem, a.D, a.T, a.K);
-  const int D = a.D, T = a.T, K = a.K, F = a.F;
+  const int D = a.D, T = a.T, K = a.K, F = a.F, TK = T * K;
+  const size_t W = (size_t)TK + (size_t)a.C * D;  // columns of a.dots
   const int tid = threadIdx.x, lane = lane_id(), w = warp_id();
+  // every lane starts as its launch-start value, column t*K + i
+  for (int j = tid; j < TK; j += NT) sm.src[j] = j;
+  __syncthreads();
   for (int s = 0; s < a.C; ++s) {
     const int epoch = a.epoch0 + s;
     const int nid0 = *a.nid;
@@ -489,73 +502,47 @@ __global__ void __launch_bounds__(NT, 1) fused_visual_kernel(VisualArgs a) {
     __syncthreads();
     stamp(a.prof, s, ST_POS);
     const int nlr = sm.counts[0];
-    // ---- feature norms (f32 values) -------------------------------------
-    for (int k = w; k < nlr; k += NW) {
-      const float* q = feat + (size_t)sm.lr[k] * F;
-      float acc = 0.0f;
-      for (int f = lane; f < F; f += 32) acc = acc + q[f] * q[f];
-      acc = warp_sum(acc);
-      if (lane == 0) sm.qn[sm.lr[k]] = acc;
-    }
+    // ---- norms of this frame's rows and of the listed lanes -------------
+    if (tid < D) sm.qn[tid] = a.norms[TK + s * D + tid];
     for (int i = 0; i < K; ++i) {
       const int nt = sm.counts[1 + i];
-      for (int k = w; k < nt; k += NW) {
+      for (int k = tid; k < nt; k += NT) {
         const int t = sm.lt[i * T + k];
-        const float* g = a.gf + ((size_t)t * K + i) * F;
-        float acc = 0.0f;
-        for (int f = lane; f < F; f += 32) acc = acc + g[f] * g[f];
-        acc = warp_sum(acc);
-        if (lane == 0) sm.gn[i * T + t] = acc;
+        sm.gn[i * T + t] = a.norms[sm.src[t * K + i]];
       }
     }
+    __syncthreads();
     stamp(a.prof, s, ST_NORMS);
     // ---- gallery distances on the gated (candidate, lane) pairs --------
+    // (the dot of row r and lane (t, i) is dots[s*D + r, src[t*K + i]])
+    const float* drow = a.dots + (size_t)s * D * W;
     float lmax = NEG;
     int npairs = 0;
     for (int i = 0; i < K; ++i) {
       const int nt = sm.counts[1 + i];
       const int* Lt = sm.lt + i * T;
-      for (int rb = 0; rb < nlr; rb += 32) {
-        for (int tb = 0; tb < nt; tb += 32) {
-          float acc = 0.0f;
-          for (int fc = 0; fc < F; fc += 32) {
-            __syncthreads();
-            float qv = 0.0f, gvv = 0.0f;
-            if (rb + w < nlr && fc + lane < F)
-              qv = feat[(size_t)sm.lr[rb + w] * F + fc + lane];
-            if (tb + w < nt && fc + lane < F)
-              gvv = a.gf[((size_t)Lt[tb + w] * K + i) * F + fc + lane];
-            if (a.bf16) { qv = round_bf16(qv); gvv = round_bf16(gvv); }
-            sm.qs[w * 33 + lane] = qv;
-            sm.gs[w * 33 + lane] = gvv;
-            __syncthreads();
-            const int kmax = min(32, F - fc);
-            for (int kk = 0; kk < kmax; ++kk)
-              acc = acc + sm.qs[w * 33 + kk] * sm.gs[lane * 33 + kk];
-          }
-          if (rb + w < nlr && tb + lane < nt) {
-            const int r = sm.lr[rb + w], t = Lt[tb + lane];
-            if (a.cdt[r * T + t]) {
-              const float qn = sm.qn[r], gn = sm.gn[i * T + t];
-              float wv;
-              bool ok;
-              if (a.euclid) {
-                wv = sqrtf(fmaxf(qn + gn - 2.0f * acc, 0.0f));
-                ok = wv <= a.vis_thr;
-              } else {
-                const float den = sqrtf(qn) * sqrtf(gn);
-                const float sim = acc / (den > 0.0f ? den : 1.0f);
-                ok = sim >= a.vis_thr;
-                wv = 1.0f - sim;
-              }
-              const size_t o = ((size_t)i * D + r) * T + t;
-              a.wd[o] = wv;
-              a.okb[o] = ok;
-              if (ok) lmax = fmaxf(lmax, wv);
-              ++npairs;
-            }
-          }
+      for (int idx = tid; idx < nlr * nt; idx += NT) {
+        const int k = idx / nt;
+        const int r = sm.lr[k], t = Lt[idx - k * nt];
+        if (!a.cdt[r * T + t]) continue;
+        const float acc = drow[(size_t)r * W + sm.src[t * K + i]];
+        const float qn = sm.qn[r], gn = sm.gn[i * T + t];
+        float wv;
+        bool ok;
+        if (a.euclid) {
+          wv = sqrtf(fmaxf(qn + gn - 2.0f * acc, 0.0f));
+          ok = wv <= a.vis_thr;
+        } else {
+          const float den = sqrtf(qn) * sqrtf(gn);
+          const float sim = acc / (den > 0.0f ? den : 1.0f);
+          ok = sim >= a.vis_thr;
+          wv = 1.0f - sim;
         }
+        const size_t o = ((size_t)i * D + r) * T + t;
+        a.wd[o] = wv;
+        a.okb[o] = ok;
+        if (ok) lmax = fmaxf(lmax, wv);
+        ++npairs;
       }
     }
     if (npairs) atomicAdd(sm.npairs, npairs);
@@ -688,8 +675,12 @@ __global__ void __launch_bounds__(NT, 1) fused_visual_kernel(VisualArgs a) {
                          new_len, new_id);
       const int nl = sm.newlane[tid];
       for (int i = 0; i < K; ++i) {
-        // quality and validity of every lane are rewritten for the slot
-        if ((nl >> i) & 1) a.gq[sl * K + i] = sm.qual[tid];
+        // quality and validity of every lane are rewritten for the slot;
+        // the lane this row enters now holds chunk row s*D + tid
+        if ((nl >> i) & 1) {
+          a.gq[sl * K + i] = sm.qual[tid];
+          sm.src[sl * K + i] = TK + s * D + tid;
+        }
         a.gv[sl * K + i] = (finalv >> i) & 1;
       }
       a.coll[sl] = collected;
@@ -772,9 +763,9 @@ extern "C" int fused_visual_launch(
     void* o_ids, void* o_slots, void* o_pred, void* o_vt, void* o_new,
     void* o_len, void* o_ovf, void* o_stats,
     void* P, void* cdt, void* wd, void* okb, void* Wm,
+    const void* dots, const void* norms,
     int C, int D, int T, int K, int F, int epoch0, int max_idle, int recycle,
-    int min_track_len, int min_votes, int maha, int euclid, int bf16,
-    int n_cons,
+    int min_track_len, int min_votes, int maha, int euclid, int n_cons,
     float thr, float pos_min_conf, float vis_thr, float min_area, float q_use,
     float q_collect, float oa_use, float oa_collect, float pw2, float pw1,
     float vw10, float vw1,
@@ -808,10 +799,11 @@ extern "C" int fused_visual_launch(
   a.o_len = (int*)o_len; a.o_ovf = (int*)o_ovf; a.o_stats = (int*)o_stats;
   a.P = (float*)P; a.cdt = (unsigned char*)cdt; a.wd = (float*)wd;
   a.okb = (unsigned char*)okb; a.Wm = (float*)Wm;
+  a.dots = (const float*)dots; a.norms = (const float*)norms;
   a.prof = (long long*)prof;
   a.C = C; a.D = D; a.T = T; a.K = K; a.F = F; a.epoch0 = epoch0;
   a.max_idle = max_idle; a.recycle = recycle; a.min_track_len = min_track_len;
-  a.min_votes = min_votes; a.maha = maha; a.euclid = euclid; a.bf16 = bf16;
+  a.min_votes = min_votes; a.maha = maha; a.euclid = euclid;
   a.n_cons = n_cons;
   a.thr = thr; a.pos_min_conf = pos_min_conf; a.vis_thr = vis_thr;
   a.min_area = min_area; a.q_use = q_use; a.q_collect = q_collect;

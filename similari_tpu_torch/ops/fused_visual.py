@@ -2,10 +2,12 @@
 state update for a chunk of C frames per launch (mirrors
 `similari_tpu/ops/pallas_visual.py`).
 
-`fused_visual_chunk` launches the CUDA kernel `fused_visual_kernel`
-(`csrc/fused_track.cu`) for CUDA tensors and runs its plain PyTorch
-version, `fused_visual_chunk_plain`, for CPU tensors.  Per frame both
-compute: the positional metric (aligned IoU, or Mahalanobis against the
+`fused_visual_chunk` launches two CUDA kernels for CUDA tensors: the
+chunk's gallery products (`ops/gallery_dots.py::gallery_dots`), then the
+frame loop `fused_visual_kernel` (`csrc/fused_track.cu`), which gathers
+each gated pair's dot product and norms from them.  For CPU tensors it
+runs the plain PyTorch version, `fused_visual_chunk_plain`.  Per frame
+both compute: the positional metric (aligned IoU, or Mahalanobis against the
 stored Kalman state) with spatio-temporal constraints; K per-lane gallery
 distances (euclidean or cosine, f32 or bf16-rounded inputs) gated by
 quality, area, own-area share and track maturity; the greedy best-fit claim
@@ -33,6 +35,7 @@ from .fused_sort import (NEG, aligned_iou, allocate_slots, augmented,
                          check_chunk_inputs, first_argmax,
                          forward_auction_plain, kalman_rows, pointers,
                          sanitize_boxes, sort_state_shapes, write_rows)
+from .gallery_dots import f32_dots, gallery_dots, round_bf16
 from .kalman import KalmanState, calculate_cost
 from ..trackers.visual_state import VisualState
 from ..trackers.visual_step import VisualConfig
@@ -70,37 +73,26 @@ def check_visual_scope(cfg: VisualConfig) -> None:
         raise ValueError("at most 8 spatio-temporal constraints")
 
 
-def _round_bf16(x: torch.Tensor) -> torch.Tensor:
-    return x.to(torch.bfloat16).to(_F32)
-
-
 def _gallery_distances(cfg: VisualConfig, feat, gf):
     """[K] lists of (w[D,T], ok[D,T]) for every pair."""
     bf16 = cfg.feature_precision == "bf16"
     qn = (feat * feat).sum(dim=1)
-    q_in = _round_bf16(feat) if bf16 else feat
+    q_in = round_bf16(feat) if bf16 else feat
     out = []
-    # plain f32 products: TF32 would round the gallery product to ~3 digits
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        for i in range(gf.shape[1]):
-            g = gf[:, i, :]
-            gn = (g * g).sum(dim=1)
-            g_in = _round_bf16(g) if bf16 else g
-            dot = q_in @ g_in.T
-            if cfg.visual_kind == "euclidean":
-                w = torch.sqrt(torch.clamp(qn[:, None] + gn[None, :]
-                                           - 2.0 * dot, min=0.0))
-                ok = w <= cfg.visual_threshold
-            else:
-                den = torch.sqrt(qn)[:, None] * torch.sqrt(gn)[None, :]
-                sim = dot / torch.where(den > 0, den, 1.0)
-                ok = sim >= cfg.visual_threshold
-                w = 1.0 - sim
-            out.append((w, ok))
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for i in range(gf.shape[1]):
+        g = gf[:, i, :]
+        gn = (g * g).sum(dim=1)
+        dot = f32_dots(q_in, round_bf16(g) if bf16 else g)
+        if cfg.visual_kind == "euclidean":
+            w = torch.sqrt(torch.clamp(qn[:, None] + gn[None, :]
+                                       - 2.0 * dot, min=0.0))
+            ok = w <= cfg.visual_threshold
+        else:
+            den = torch.sqrt(qn)[:, None] * torch.sqrt(gn)[None, :]
+            sim = dot / torch.where(den > 0, den, 1.0)
+            ok = sim >= cfg.visual_threshold
+            w = 1.0 - sim
+        out.append((w, ok))
     return out
 
 
@@ -267,8 +259,8 @@ def fused_visual_chunk(cfg: VisualConfig, state: VisualTuple, box, conf,
     type, is_new, length (i32[C,D] each), overflow bool[C], stats i32[C,3])
     where stats holds the auction rounds, the bids made and the gated
     (candidate, gallery lane) pairs per frame, the pairs whose distance
-    the kernel computes.
-    CUDA tensors launch the kernel; CPU tensors run the plain version.
+    the kernel scores.
+    CUDA tensors launch the kernels; CPU tensors run the plain version.
     `prof`, an int64 [C, len(PHASES) + 1] CUDA tensor, receives the
     kernel's phase stamps (ns of the device's global timer).
     """
@@ -285,17 +277,19 @@ def fused_visual_chunk(cfg: VisualConfig, state: VisualTuple, box, conf,
             raise ValueError("fvalid, qual and oa must be [C, D]")
     if qual.dtype != _F32 or oa.dtype != _F32:
         raise TypeError("qual and oa must be float32")
+    if prof is not None and (box.device.type != "cuda"
+                             or prof.shape != (c, len(PHASES) + 1)
+                             or prof.dtype != torch.int64
+                             or prof.device != box.device
+                             or not prof.is_contiguous()):
+        raise ValueError(f"prof must be a contiguous int64 [{c}, "
+                         f"{len(PHASES) + 1}] tensor on the inputs' CUDA "
+                         "device")
     if box.device.type == "cpu":
         return fused_visual_chunk_plain(cfg, state, box, conf, valid, feat,
                                         fvalid, qual, oa, epoch0)
     if box.device.type != "cuda":
         raise ValueError(f"unsupported device {box.device}")
-    if prof is not None and (prof.shape != (c, len(PHASES) + 1)
-                             or prof.dtype != torch.int64
-                             or prof.device != box.device
-                             or not prof.is_contiguous()):
-        raise ValueError(f"prof must be a contiguous int64 [{c}, "
-                         f"{len(PHASES) + 1}] tensor on {box.device}")
     from .._build import check, library
 
     lib = library()
@@ -312,18 +306,20 @@ def fused_visual_chunk(cfg: VisualConfig, state: VisualTuple, box, conf,
     scratch = [empty((d, t), _F32), empty((d, t), torch.uint8),
                empty((k, d, t), _F32), empty((k, d, t), torch.uint8),
                empty((d, t), _F32)]
+    # every product the chunk can need, from the launch-start gallery
+    dots, norms = gallery_dots(ins[3].view(c * d, f), st[12].view(t * k, f),
+                               cfg.feature_precision == "bf16", d)
     cons = sorted(cfg.constraints)
     n_cons = len(cons)
     dd = (ctypes.c_int * max(n_cons, 1))(*[int(a) for a, _ in cons])
     md = (ctypes.c_float * max(n_cons, 1))(*[float(b) for _, b in cons])
     pw, vw = cfg.position_weight, cfg.velocity_weight
     code = lib.fused_visual_launch(
-        *pointers(*ins, *st, *outs, *scratch),
+        *pointers(*ins, *st, *outs, *scratch, dots, norms),
         c, d, t, k, f, int(epoch0), cfg.max_idle_epochs,
         int(cfg.recycle_idle), cfg.visual_minimal_track_length,
         cfg.visual_min_votes, int(cfg.positional_kind == "maha"),
-        int(cfg.visual_kind == "euclidean"),
-        int(cfg.feature_precision == "bf16"), n_cons,
+        int(cfg.visual_kind == "euclidean"), n_cons,
         cfg.new_track_threshold, cfg.positional_min_confidence,
         cfg.visual_threshold, cfg.visual_minimal_area,
         cfg.visual_minimal_quality_use, cfg.visual_minimal_quality_collect,

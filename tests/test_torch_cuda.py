@@ -26,6 +26,7 @@ import torch
 from similari_tpu_torch.ops import clip as cl
 from similari_tpu_torch.ops import fused_sort as fs
 from similari_tpu_torch.ops import fused_visual as fv
+from similari_tpu_torch.ops import gallery_dots as gd
 from similari_tpu_torch.ops import merge_inplace as mi
 from similari_tpu_torch.ops.nms import nms_kernel
 from similari_tpu_torch.parallel import mesh as pmesh
@@ -128,9 +129,35 @@ def test_fused_visual_kernel_matches_plain(cuda, case):
     inputs = [torch.tensor(x, device=cuda) for x in stream]
     st = fv.state_to_tuple(new_visual_state(t, 1, 3, stream[3].shape[2],
                                             device=cuda))
+    before = gd.gallery_dots.launches
     k = _chunks(fv.fused_visual_chunk, cfg, st, inputs, len(stream[0]))
+    assert gd.gallery_dots.launches == before + len(stream[0]) // CHUNK
     p = _chunks(fv.fused_visual_chunk_plain, cfg, st, inputs, len(stream[0]))
     _assert_same(k, p)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("f", [16, 129, 512])
+def test_gallery_dots_kernel_matches_plain(cuda, f, bf16):
+    """Every entry the scan reads (all launch-start lanes, chunk rows of
+    earlier frames) within rtol 1e-5 and 1e-4 x |q| |g| of the plain
+    product; the norms of the unrounded rows within 1e-5.  Ragged against
+    the 64 x 64 tiles; F = 129 takes the 4-byte copies."""
+    g = torch.Generator().manual_seed(f)
+    c, d, m = 5, 24, 70
+    x = torch.randn((c * d, f), generator=g).to(cuda)
+    gal = (3.0 * torch.randn((m, f), generator=g)).to(cuda)
+    before = gd.gallery_dots.launches
+    dots, norms = gd.gallery_dots(x, gal, bf16, d)
+    assert gd.gallery_dots.launches == before + 1
+    p_dots, p_norms = gd.gallery_dots_plain(x, gal, bf16)
+    torch.cuda.synchronize()
+    need = gd.needed_columns(c * d, m, d, cuda)
+    cols = torch.cat([gal, x])
+    scale = x.norm(dim=1)[:, None] * cols.norm(dim=1)[None, :]
+    err = (dots - p_dots).abs()
+    assert bool((err <= 1e-5 * p_dots.abs() + 1e-4 * scale)[need].all())
+    torch.testing.assert_close(norms, p_norms, rtol=1e-5, atol=1e-5)
 
 
 def test_kernel_wrapper_checks_inputs(cuda):

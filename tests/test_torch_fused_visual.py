@@ -20,9 +20,14 @@ from similari_tpu.trackers.visual_state import new_visual_state as jax_new_state
 from similari_tpu.trackers.visual_step import VisualConfig as JaxVisualConfig
 from similari_tpu_torch.convert import (visual_state_from_numpy,
                                         visual_state_to_numpy)
-from similari_tpu_torch.ops.fused_visual import (fused_visual_chunk,
+from similari_tpu_torch.ops.fused_visual import (_gallery_distances,
+                                                 fused_visual_chunk,
+                                                 fused_visual_chunk_plain,
                                                  fused_visual_scan,
                                                  state_to_tuple)
+from similari_tpu_torch.ops.gallery_dots import (gallery_dots,
+                                                 gallery_dots_plain,
+                                                 needed_columns)
 from similari_tpu_torch.trackers.visual_state import new_visual_state
 from similari_tpu_torch.trackers.visual_step import (VisualConfig,
                                                      visual_scan, visual_step)
@@ -244,3 +249,179 @@ def test_config_defaults_match_jax():
     for kind in ("iou", "maha"):
         assert (VisualConfig(positional_kind=kind).new_track_threshold
                 == JaxVisualConfig(positional_kind=kind).new_track_threshold)
+
+
+def _np_bf16(a):
+    """float32 -> the nearest bfloat16 (ties to even), as float32."""
+    bits = a.astype(np.float32).view(np.uint32).astype(np.uint64)
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    return bits.astype(np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("f", [16, 129])
+def test_gallery_dots_plain_matches_numpy(f, bf16):
+    """Chunk rows against launch-start lanes and against each other, norms
+    of the unrounded rows; the entries the scan reads are the lanes and
+    the rows of earlier frames (a block triangle)."""
+    rng = np.random.default_rng(f)
+    c, d, m = 3, 4, 10
+    x = rng.normal(size=(c * d, f)).astype(np.float32)
+    g = rng.normal(size=(m, f)).astype(np.float32) * 3.0
+    dots, norms = gallery_dots_plain(torch.tensor(x), torch.tensor(g), bf16)
+    cols = np.concatenate([g, x]).astype(np.float64)
+    rx, rc = (_np_bf16(a).astype(np.float64) if bf16 else a.astype(np.float64)
+              for a in (x, cols))
+    scale = np.linalg.norm(x, axis=1)[:, None] * np.linalg.norm(cols, axis=1)
+    err = np.abs(dots.numpy() - rx @ rc.T)
+    assert (err <= 1e-5 * scale + 1e-6).all()
+    np.testing.assert_allclose(norms.numpy(), (cols * cols).sum(1), rtol=1e-5)
+    assert torch.equal(gallery_dots(torch.tensor(x), torch.tensor(g), bf16,
+                                    d)[0], dots)
+    need = needed_columns(c * d, m, d).numpy()
+    frame = np.arange(c * d) // d
+    assert need.shape == (c * d, m + c * d) and need[:, :m].all()
+    np.testing.assert_array_equal(need[:, m:], frame[:, None] > frame[None])
+
+
+def _lane_entered(cfg, st, out, valid, box, fvalid, qual, oa, k):
+    """(slot, lane) entered by each detection row of one frame, or None:
+    the rule by which `fused_visual_kernel` keeps its lane-source table
+    (evict the lowest-quality lane of a full matched track, the lowest
+    index first; enter the lowest free lane; a new track's first feature
+    skips the collect gate; an overflowing frame enters nothing)."""
+    _, slots, _, _, is_new, _, ovf = (x[0] for x in out[:7])
+    if bool(ovf):
+        return [None] * len(slots)
+    gv, gq = st[14] > 0, st[13]
+    area_ok = box[:, 3] * box[:, 4] * box[:, 4] >= cfg.visual_minimal_area
+    collect = ((fvalid > 0) & (qual >= cfg.visual_minimal_quality_collect)
+               & (oa >= cfg.own_area_collect) & area_ok)
+    entered = []
+    for r, sl in enumerate(slots.tolist()):
+        new = bool(is_new[r])
+        if not (valid[r] > 0 and fvalid[r] > 0 and (new or collect[r])):
+            entered.append(None)
+            continue
+        live = [False] * k if new else gv[sl].tolist()
+        if sum(live) >= k:
+            q = gq[sl].tolist()
+            live[min(range(k), key=lambda i: (q[i], i))] = False
+        entered.append((sl, live.index(False) if False in live else 0))
+    return entered
+
+
+def _replay_with_sources(cfg, stream, t, k, warm, chunk):
+    """Frames [warm, warm + chunk) of `stream` as one chunk, replayed one
+    frame at a time through `fused_visual_chunk_plain` from the state the
+    first `warm` frames leave, with a lane-source table kept by the
+    kernel's rule.  Checks at every frame that each valid lane holds the
+    value its table entry names, and that the distances gathered from
+    `gallery_dots_plain` through the table equal `_gallery_distances`.
+    Returns (launch-start-lane reads, in-chunk-row reads, lanes entered
+    twice or more)."""
+    box, conf, valid, feat, fvalid, qual, oa = (torch.tensor(x)
+                                                for x in stream)
+    d, f = feat.shape[1:]
+    st = state_to_tuple(new_visual_state(t, 1, k, f, device=CPU))
+    if warm:
+        st = fused_visual_chunk_plain(
+            cfg, st, *(x[:warm] for x in (box, conf, valid, feat, fvalid,
+                                          qual, oa)), 1)[0]
+    m = t * k
+    x = feat[warm:warm + chunk].reshape(chunk * d, f)
+    cols = torch.cat([st[12].reshape(m, f), x])
+    bf16 = cfg.feature_precision == "bf16"
+    dots, norms = gallery_dots_plain(x, st[12].reshape(m, f), bf16)
+    src = torch.arange(m)
+    reads, entered_count = [0, 0], torch.zeros(m, dtype=torch.int64)
+    for s in range(chunk):
+        e = warm + s
+        lanes = st[14].reshape(m) > 0
+        assert torch.equal(st[12].reshape(m, f)[lanes], cols[src[lanes]])
+        ref = _gallery_distances(cfg, feat[e], st[12])
+        for i, (w_ref, _) in enumerate(ref):
+            col = src.reshape(t, k)[:, i]
+            dot = dots[s * d:(s + 1) * d][:, col]
+            qn, gn = norms[m + s * d + torch.arange(d)], norms[col]
+            if cfg.visual_kind == "euclidean":
+                w = torch.sqrt(torch.clamp(qn[:, None] + gn[None, :]
+                                           - 2.0 * dot, min=0.0))
+            else:
+                den = torch.sqrt(qn)[:, None] * torch.sqrt(gn)[None, :]
+                w = 1.0 - dot / torch.where(den > 0, den, 1.0)
+            live = st[14][:, i] > 0
+            torch.testing.assert_close(w[:, live], w_ref[:, live],
+                                       rtol=1e-5, atol=1e-5)
+            reads[0] += int((live & (col < m)).sum())
+            reads[1] += int((live & (col >= m)).sum())
+        frame = [y[e:e + 1] for y in (box, conf, valid, feat, fvalid, qual,
+                                      oa)]
+        before = st
+        st, *out = fused_visual_chunk_plain(cfg, st, *frame, 1 + e)
+        for r, lane in enumerate(_lane_entered(
+                cfg, before, out, valid[e], box[e], fvalid[e], qual[e], oa[e],
+                k)):
+            if lane is not None:
+                src[lane[0] * k + lane[1]] = m + s * d + r
+                entered_count[lane[0] * k + lane[1]] += 1
+    lanes = st[14].reshape(m) > 0
+    assert torch.equal(st[12].reshape(m, f)[lanes], cols[src[lanes]])
+    return reads[0], reads[1], int((entered_count >= 2).sum())
+
+
+REPLAY_CASES = {
+    # (config, stream, T, warm-up frames, chunk)
+    "stream": (VISUAL_CONFIGS["euclid_iou"],
+               lambda: visual_stream(2, 12, D, F), T, 4, 8),
+    "padded": (dict(VISUAL_CONFIGS["cosine_gates"], feature_precision="bf16"),
+               lambda: visual_padded_stream(12, 16, F), 64, 4, 8),
+    "overflow": (dict(VISUAL_CONFIGS["euclid_iou"], max_idle_epochs=2),
+                 lambda: visual_overflow_stream(8, 8, F), 8, 0, 8),
+    "overflow_recycle": (dict(VISUAL_CONFIGS["euclid_iou"], max_idle_epochs=2,
+                              recycle_idle=True),
+                         lambda: visual_overflow_stream(8, 8, F), 8, 0, 8),
+    "crowded": (dict(VISUAL_CONFIGS["euclid_iou"], feature_precision="bf16"),
+                lambda: crowded_stream(0, 8, 16, 12, F, 133.0, noise=0.3,
+                                       copies=1), 64, 2, 6),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REPLAY_CASES))
+def test_lane_sources_name_every_lane_and_distance(case):
+    """The invariant the CUDA design rests on: within a chunk every valid
+    lane holds its launch-start value or a chunk row of an earlier frame,
+    and a table kept as the kernel keeps it names which, so one product
+    computed before the chunk gives every frame's gallery distances."""
+    kw, make, t, warm, chunk = REPLAY_CASES[case]
+    start, inchunk, twice = _replay_with_sources(
+        VisualConfig(**kw), make(), t, 3, warm, chunk)
+    if warm:
+        assert start > 0
+    if case in ("stream", "padded", "crowded"):
+        assert inchunk > 0
+    if case == "stream":
+        assert twice > 0  # a lane evicted and refilled twice in the chunk
+
+
+def test_phase_stamps_need_the_cuda_kernel():
+    """Phase stamps come from the CUDA kernel: CPU inputs refuse them."""
+    cfg = VisualConfig(**VISUAL_CONFIGS["euclid_iou"])
+    stream = [torch.tensor(x) for x in visual_stream(0, CHUNK, D, F)]
+    st = state_to_tuple(new_visual_state(T, 1, K, F, device=CPU))
+    with pytest.raises(ValueError, match="prof"):
+        fused_visual_chunk(cfg, st, *stream, 1,
+                           prof=torch.zeros((CHUNK, 11), dtype=torch.int64))
+
+
+@pytest.mark.parametrize("x,g,d,err", [
+    ((6, 4), (5, 3), 2, ValueError),  # widths differ
+    ((6, 4), (5, 4), 4, ValueError),  # rows not whole frames
+    ((6, 4), (0, 4), 2, ValueError),  # no lanes
+    ((6, 4), (5, 4), 2, TypeError),  # float64
+])
+def test_gallery_dots_rejects_bad_inputs(x, g, d, err):
+    dtype = torch.float64 if err is TypeError else torch.float32
+    with pytest.raises(err):
+        gallery_dots(torch.zeros(x, dtype=dtype), torch.zeros(g, dtype=dtype),
+                     False, d)

@@ -45,6 +45,7 @@ def test_import_leaves_jax_out_of_sys_modules():
     assert res.returncode == 0, res.stderr
     loaded = res.stdout.split()
     for m in ("similari_tpu_torch.ops.fused_visual",
+              "similari_tpu_torch.ops.gallery_dots",
               "similari_tpu_torch.ops.merge_inplace",
               "similari_tpu_torch.ops.ownarea",
               "similari_tpu_torch.parallel.mesh"):
