@@ -17,7 +17,9 @@ from similari_tpu.ops.nms import nms_kernel as jax_nms
 from similari_tpu_torch.ops import clip as cl
 from similari_tpu_torch.ops.nms import nms_kernel, use_block_skip
 
-from torch_parity import EXACT_BOX_COLUMNS, random_boxes
+from torch_parity import EXACT_BOX_COLUMNS, one_cpu_thread, random_boxes
+
+one_cpu_thread()
 
 TOL = 2e-4
 

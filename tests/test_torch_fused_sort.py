@@ -27,7 +27,10 @@ from similari_tpu_torch.trackers.sort_step import SortConfig
 
 from torch_parity import (ATOL, RTOL, assert_state_dicts_match,
                           crowded_stream, jax_state_dict,
-                          sort_overflow_stream, sort_stream)
+                          one_cpu_thread, sort_overflow_stream,
+                          sort_stream)
+
+one_cpu_thread()
 
 CPU = torch.device("cpu")
 STEPS, D, T, CHUNK = 8, 8, 32, 4

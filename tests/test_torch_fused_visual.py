@@ -34,8 +34,10 @@ from similari_tpu_torch.trackers.visual_step import (VisualConfig,
 
 from torch_parity import (ATOL, RTOL, VISUAL_CONFIGS, assert_state_dicts_match,
                           crowded_stream, jax_state_dict, large_norm_stream,
-                          visual_overflow_stream, visual_padded_stream,
-                          visual_stream)
+                          one_cpu_thread, visual_overflow_stream,
+                          visual_padded_stream, visual_stream)
+
+one_cpu_thread()
 
 CPU = torch.device("cpu")
 CHUNK = 4

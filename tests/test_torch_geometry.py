@@ -17,7 +17,9 @@ import torch
 from similari_tpu.ops import geometry as G
 from similari_tpu_torch.ops import geometry as PG
 
-from torch_parity import random_boxes
+from torch_parity import one_cpu_thread, random_boxes
+
+one_cpu_thread()
 
 TOL = 2e-4
 

@@ -21,6 +21,10 @@ from similari_tpu.utils.clipping import (
 from similari_tpu_torch.ops import geometry as geo
 from similari_tpu_torch.ops import ownarea as own
 
+from torch_parity import one_cpu_thread
+
+one_cpu_thread()
+
 SHARE_TOL = 1e-5
 ORACLE_TOL = 2e-3
 

@@ -38,9 +38,11 @@ from similari_tpu_torch.trackers.visual_step import (VT_VISUAL, VisualConfig,
 
 from torch_parity import (ATOL, RTOL, VISUAL_CONFIGS,
                           assert_state_dicts_match, crowded_stream,
-                          jax_state_dict, oriented_stream,
+                          jax_state_dict, one_cpu_thread, oriented_stream,
                           sort_overflow_stream, visual_overflow_stream,
                           visual_stream)
+
+one_cpu_thread()
 
 CPU = torch.device("cpu")
 S, N, D, T, K, F = 3, 8, 16, 32, 3, 16

@@ -17,6 +17,10 @@ from similari_tpu_torch import resolve_device
 from similari_tpu_torch.eval import mot as pmot
 from similari_tpu_torch.trackers.state import new_sort_state
 
+from torch_parity import one_cpu_thread
+
+one_cpu_thread()
+
 # frame numbers with gaps of 1 and 3 missing frames
 FRAMES = [1, 2, 3, 5, 6, 10, 11, 12, 13, 14, 15]
 N_OBJ, FDIM = 6, 8

@@ -38,8 +38,10 @@ from similari_tpu_torch.trackers.sort_step import (SortConfig, StepOutput,
 from similari_tpu_torch.trackers.state import new_sort_state
 
 from torch_parity import (ATOL, RTOL, assert_state_dicts_match,
-                          crowded_stream, jax_state_dict, oriented_stream,
-                          sort_overflow_stream)
+                          crowded_stream, jax_state_dict, one_cpu_thread,
+                          oriented_stream, sort_overflow_stream)
+
+one_cpu_thread()
 
 CPU = torch.device("cpu")
 OUTPUTS = ("slot", "track_id", "is_new", "length", "overflow")

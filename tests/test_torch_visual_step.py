@@ -36,9 +36,11 @@ from similari_tpu_torch.trackers.visual_step import (VT_VISUAL, VisualConfig,
 
 from torch_parity import (ATOL, GALLERY_TOL, RTOL, VISUAL_CONFIGS,
                           assert_state_dicts_match, crowded_stream,
-                          jax_state_dict, large_norm_stream,
+                          jax_state_dict, large_norm_stream, one_cpu_thread,
                           oriented_visual_stream, visual_overflow_stream,
                           visual_padded_stream, visual_stream)
+
+one_cpu_thread()
 
 CPU = torch.device("cpu")
 OUTPUTS = ("slot", "track_id", "is_new", "length", "voting_type", "overflow")

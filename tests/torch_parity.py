@@ -55,6 +55,16 @@ EXACT_BOX_COLUMNS = [
 ]
 
 
+def one_cpu_thread() -> None:
+    """Run PyTorch's CPU ops on one intra-op thread.  The suite runs
+    several pytest workers on few cores, and an oversubscribed thread pool
+    slows the parity tests' many small ops by an order of magnitude or
+    more (the auction's price war on a contested matrix above all)."""
+    import torch
+
+    torch.set_num_threads(1)
+
+
 def random_boxes(rng, n, spread=900.0):
     """Boxes at any angle, aspect 0.4-2.5, height 15-60 px."""
     b = np.zeros((n, 5), np.float32)
