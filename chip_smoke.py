@@ -229,11 +229,12 @@ def compare(name, k_state, k_outs, p_state, p_outs):
 
 
 def check_kernel(name, kernel, plain, cfg, state, inputs):
-    """Warm up, run the stream through the kernel and its plain version
-    from the same state, compare.  Returns (kernel ms per launch, plain ms
-    per launch, max_abs_err, per-frame stats [S, 3] as numpy: auction
-    rounds, bids, gallery pairs)."""
-    kernel(cfg, state, *(x[:CHUNK] for x in inputs), 1)
+    """Warm up on the whole stream (one chunk left the script's first
+    timed kernel at twice its time), run the stream through the kernel
+    and its plain version from the same state, compare.  Returns
+    (kernel ms per launch, plain ms per launch, max_abs_err, per-frame
+    stats [S, 3] as numpy: auction rounds, bids, gallery pairs)."""
+    run_chunks(kernel, cfg, state, inputs)
     ks, ko, k_ms = run_chunks(kernel, cfg, state, inputs)
     ps, po, p_ms = run_chunks(plain, cfg, state, inputs)
     err = compare(name, ks, ko, ps, po)
