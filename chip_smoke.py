@@ -308,6 +308,9 @@ def phase_sort(args, dev):
             fs.fused_sort_chunk_plain, cfg, st0, inputs)
         errs.append(err)
         log_check(f"fused_sort[{stream}]", k_ms, p_ms, err, stats)
+        if dev.type == "cuda":
+            log_split(f"fused_sort[{stream}]", fs.PHASES, phase_split(
+                fs.fused_sort_chunk, fs.PHASES, cfg, st0, inputs))
         if stream == "crowded":
             check_crowded("fused_sort", stats)
         else:
@@ -344,17 +347,18 @@ def mma_counts():
     return counts
 
 
-def phase_split(cfg, state, inputs):
-    """One extra run of the stream with the scan kernel's phase stamps:
-    ms per frame in each phase (`fv.PHASES`), the mean over the frames,
+def phase_split(chunk_fn, phases, cfg, state, inputs):
+    """One extra run of the stream through a fused kernel's wrapper
+    (`fs.fused_sort_chunk` or `fv.fused_visual_chunk`) with its phase
+    stamps: ms per frame in each of `phases`, the mean over the frames,
     and the whole frame."""
     stamps = []
 
     def profiled(cfg, st, *xs):
-        prof = torch.zeros((CHUNK, len(fv.PHASES) + 1), dtype=torch.int64,
+        prof = torch.zeros((CHUNK, len(phases) + 1), dtype=torch.int64,
                            device=xs[0].device)
         stamps.append(prof)
-        return fv.fused_visual_chunk(cfg, st, *xs, prof=prof)
+        return chunk_fn(cfg, st, *xs, prof=prof)
 
     run_chunks(profiled, cfg, state, inputs)
     st = torch.cat(stamps).cpu().numpy()
@@ -362,11 +366,10 @@ def phase_split(cfg, state, inputs):
     return per_phase, float((st[:, -1] - st[:, 0]).mean() / 1e6)
 
 
-def log_split(label, split):
+def log_split(label, phases, split):
     per_phase, frame = split
     log(f"[3] {label} phase split (ms/frame, global timer, one profiled run):"
-        f" " + ", ".join(f"{n} {x:.4f}" for n, x in zip(fv.PHASES,
-                                                        per_phase))
+        f" " + ", ".join(f"{n} {x:.4f}" for n, x in zip(phases, per_phase))
         + f"; frame {frame:.4f}")
 
 
@@ -445,7 +448,8 @@ def phase_visual(args, dev):
         errs.append(err)
         log_check(label, k_ms, p_ms, err, stats)
         if name == "main_path" and dev.type == "cuda":
-            log_split(label, phase_split(cfg, st0, inputs))
+            log_split(label, fv.PHASES, phase_split(
+                fv.fused_visual_chunk, fv.PHASES, cfg, st0, inputs))
         if stream == "crowded":
             check_crowded("fused_visual", stats)
         elif name == "main_path":

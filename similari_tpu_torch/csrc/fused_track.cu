@@ -85,6 +85,7 @@ struct SortArgs {
   int* o_ovf;  // [C]
   int* o_stats;  // [C, 3] auction rounds, bids, gallery pairs
   float* W;  // [D, T] scratch
+  long long* prof;  // [C, NSORT] phase stamps, or null
   int C, D, T, epoch0, max_idle, recycle;
   float thr, min_conf;
   KalmanWeights kw;
@@ -121,6 +122,27 @@ struct SortSmem {
     a.win = c.take<int>(D);
     return c.off;
   }
+};
+
+// A phase boundary, from %globaltimer (ns), into prof[i] when prof is not
+// null.  A stamp first waits for the whole block, so a profiled launch
+// runs each phase on its own; an unprofiled launch (prof null) runs no
+// extra barrier.
+__device__ __forceinline__ void stamp(long long* prof, int i) {
+  if (prof == nullptr) return;  // uniform across the block
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    prof[i] = t;
+  }
+}
+
+// Phase boundaries of a SORT frame, stamped into SortArgs::prof[s * NSORT
+// + k].
+enum {
+  SS_START, SS_ROWS, SS_WEIGHTS, SS_SPAN, SS_AUCTION, SS_MATCH, SS_SLOTS,
+  SS_KALMAN, SS_WRITE, NSORT
 };
 
 // max of the augmented matrix's diagonal block as seen by one thread
@@ -170,6 +192,8 @@ __global__ void __launch_bounds__(NT, 1) fused_sort_kernel(SortArgs a) {
   for (int s = 0; s < a.C; ++s) {
     const int epoch = a.epoch0 + s;
     const int nid0 = *a.nid;
+    long long* const pf = a.prof ? a.prof + s * NSORT : nullptr;
+    stamp(pf, SS_START);
     // ---- rows and tracks ------------------------------------------------
     if (tid < D) {
       const int v = a.valid[s * D + tid] > 0;
@@ -188,6 +212,7 @@ __global__ void __launch_bounds__(NT, 1) fused_sort_kernel(SortArgs a) {
       sm.freef[t] = !act;
     }
     __syncthreads();
+    stamp(pf, SS_ROWS);
     // ---- weights: aligned IoU x confidence, gated -----------------------
     float lmax = diag_max(tid, D, sm.valid, a.thr);
     for (int idx = tid; idx < D * T; idx += NT) {
@@ -199,10 +224,13 @@ __global__ void __launch_bounds__(NT, 1) fused_sort_kernel(SortArgs a) {
       a.W[idx] = w;
       lmax = fmaxf(lmax, w);
     }
+    stamp(pf, SS_WEIGHTS);
     const float span = fmaxf(block_max(lmax, sm.redf), 1e-6f);
     const float eps = span / (float)fmax(4096.0, 64.0 * D);
+    stamp(pf, SS_SPAN);
     int rounds = 0, bids = 0;
     forward_auction(a.W, D, T, a.thr, sm.valid, eps, sm.a, &rounds, &bids);
+    stamp(pf, SS_AUCTION);
     // ---- match --------------------------------------------------------
     if (tid < D) {
       const int c = sm.a.r2c[tid];
@@ -213,10 +241,12 @@ __global__ void __launch_bounds__(NT, 1) fused_sort_kernel(SortArgs a) {
       sm.nr[tid] = sm.valid[tid] && !m;
     }
     __syncthreads();
+    stamp(pf, SS_MATCH);
     int n_new, n_free;
     allocate_slots(sm.freef, sm.frank, sm.flist, T, sm.nr, D, sm.redi,
                    &n_new, &n_free);
     const bool ovf = n_new > n_free;
+    stamp(pf, SS_SLOTS);
     // ---- Kalman step, ids, outputs (reads state at the slot) -----------
     KFRow u[5];
     int sl = 0, new_len = 0, new_id = 0;
@@ -231,6 +261,7 @@ __global__ void __launch_bounds__(NT, 1) fused_sort_kernel(SortArgs a) {
       for (int j = 0; j < 5; ++j) a.o_pred[(s * D + tid) * 5 + j] = u[j].mp;
     }
     __syncthreads();
+    stamp(pf, SS_KALMAN);
     // ---- state write (dropped on overflow) ------------------------------
     if (a.recycle)
       for (int t = tid; t < T; t += NT) a.active[t] = sm.act[t];
@@ -248,6 +279,7 @@ __global__ void __launch_bounds__(NT, 1) fused_sort_kernel(SortArgs a) {
       a.o_stats[s * 3 + 2] = 0;
     }
     __syncthreads();
+    stamp(pf, SS_WRITE);
   }
 }
 
@@ -354,24 +386,12 @@ struct VisualSmem {
   }
 };
 
-// Phase boundaries of a VisualSORT frame, stamped from %globaltimer (ns)
-// into VisualArgs::prof[s * NSTAMP + k] when prof is not null.  A stamp
-// first waits for the whole block, so a profiled launch runs each phase
-// on its own; an unprofiled launch (prof null) runs no extra barrier.
+// Phase boundaries of a VisualSORT frame, stamped into
+// VisualArgs::prof[s * NSTAMP + k] (see `stamp`).
 enum {
   ST_START, ST_ROWS, ST_LISTS, ST_POS, ST_NORMS, ST_DIST, ST_VOTES,
   ST_ARGMAX, ST_AUCTION, ST_SLOTS, ST_WRITE, NSTAMP
 };
-
-__device__ __forceinline__ void stamp(long long* prof, int s, int k) {
-  if (prof == nullptr) return;  // uniform across the block
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    long long t;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    prof[s * NSTAMP + k] = t;
-  }
-}
 
 // One warp lists the indices i < n with flag(i) in ascending order.
 template <class Flag>
@@ -402,7 +422,7 @@ __global__ void __launch_bounds__(NT, 1) fused_visual_kernel(VisualArgs a) {
     const int epoch = a.epoch0 + s;
     const int nid0 = *a.nid;
     const float* feat = a.feat + (size_t)s * D * F;
-    stamp(a.prof, s, ST_START);
+    stamp(a.prof, s * NSTAMP + ST_START);
     // ---- rows: sanitized boxes, candidate feature gates ----------------
     if (tid < D) {
       const int i = s * D + tid;
@@ -445,7 +465,7 @@ __global__ void __launch_bounds__(NT, 1) fused_visual_kernel(VisualArgs a) {
     }
     if (tid == 0) *sm.npairs = 0;
     __syncthreads();
-    stamp(a.prof, s, ST_ROWS);
+    stamp(a.prof, s * NSTAMP + ST_ROWS);
     // ---- candidate / gallery-lane lists --------------------------------
     if (w == 0) {
       warp_compact(D, [&](int r) { return sm.use[r] != 0; }, sm.lr,
@@ -456,7 +476,7 @@ __global__ void __launch_bounds__(NT, 1) fused_visual_kernel(VisualArgs a) {
         return sm.tg[t] && ((sm.gvbits[t] >> i) & 1) && sm.compat[t];
       }, sm.lt + i * T, &sm.counts[1 + i]);
     }
-    stamp(a.prof, s, ST_LISTS);
+    stamp(a.prof, s * NSTAMP + ST_LISTS);
     // ---- positional weights + compatibility with constraints -----------
     for (int idx = tid; idx < D * T; idx += NT) {
       const int r = idx / T, t = idx - r * T;
@@ -500,7 +520,7 @@ __global__ void __launch_bounds__(NT, 1) fused_visual_kernel(VisualArgs a) {
       a.P[idx] = pv ? m : 0.0f;
     }
     __syncthreads();
-    stamp(a.prof, s, ST_POS);
+    stamp(a.prof, s * NSTAMP + ST_POS);
     const int nlr = sm.counts[0];
     // ---- norms of this frame's rows and of the listed lanes -------------
     if (tid < D) sm.qn[tid] = a.norms[TK + s * D + tid];
@@ -512,7 +532,7 @@ __global__ void __launch_bounds__(NT, 1) fused_visual_kernel(VisualArgs a) {
       }
     }
     __syncthreads();
-    stamp(a.prof, s, ST_NORMS);
+    stamp(a.prof, s * NSTAMP + ST_NORMS);
     // ---- gallery distances on the gated (candidate, lane) pairs --------
     // (the dot of row r and lane (t, i) is dots[s*D + r, src[t*K + i]])
     const float* drow = a.dots + (size_t)s * D * W;
@@ -547,7 +567,7 @@ __global__ void __launch_bounds__(NT, 1) fused_visual_kernel(VisualArgs a) {
     }
     if (npairs) atomicAdd(sm.npairs, npairs);
     const float max_dist = block_max(lmax, sm.redf);
-    stamp(a.prof, s, ST_DIST);
+    stamp(a.prof, s * NSTAMP + ST_DIST);
     // ---- votes and best-fit weights -------------------------------------
     for (int idx = tid; idx < D * T; idx += NT) {
       const int r = idx / T, t = idx - r * T;
@@ -565,7 +585,7 @@ __global__ void __launch_bounds__(NT, 1) fused_visual_kernel(VisualArgs a) {
       a.Wm[idx] = (votes >= a.min_votes && sm.valid[r]) ? weight : NEG;
     }
     __syncthreads();
-    stamp(a.prof, s, ST_VOTES);
+    stamp(a.prof, s * NSTAMP + ST_VOTES);
     // best track per candidate (first max) and heaviest candidate per track
     for (int r = w; r < D; r += NW) {
       float v = -INFINITY;
@@ -594,7 +614,7 @@ __global__ void __launch_bounds__(NT, 1) fused_visual_kernel(VisualArgs a) {
       sm.rowopen[tid] = sm.valid[tid] && !sm.hasany[tid];
     }
     __syncthreads();
-    stamp(a.prof, s, ST_ARGMAX);
+    stamp(a.prof, s * NSTAMP + ST_ARGMAX);
     // ---- positional auction on the remainder ----------------------------
     lmax = diag_max(tid, D, sm.valid, a.thr);
     for (int idx = tid; idx < D * T; idx += NT) {
@@ -620,7 +640,7 @@ __global__ void __launch_bounds__(NT, 1) fused_visual_kernel(VisualArgs a) {
       sm.nr[tid] = sm.valid[tid] && !m;
     }
     __syncthreads();
-    stamp(a.prof, s, ST_AUCTION);
+    stamp(a.prof, s * NSTAMP + ST_AUCTION);
     int n_new, n_free;
     allocate_slots(sm.freef, sm.frank, sm.flist, T, sm.nr, D, sm.redi,
                    &n_new, &n_free);
@@ -665,7 +685,7 @@ __global__ void __launch_bounds__(NT, 1) fused_visual_kernel(VisualArgs a) {
       for (int j = 0; j < 5; ++j) a.o_pred[(s * D + tid) * 5 + j] = u[j].mp;
     }
     __syncthreads();
-    stamp(a.prof, s, ST_SLOTS);
+    stamp(a.prof, s * NSTAMP + ST_SLOTS);
     // ---- state write (dropped on overflow) ------------------------------
     if (a.recycle)
       for (int t = tid; t < T; t += NT) a.active[t] = sm.act[t];
@@ -708,7 +728,7 @@ __global__ void __launch_bounds__(NT, 1) fused_visual_kernel(VisualArgs a) {
       a.o_stats[s * 3 + 2] = *sm.npairs;
     }
     __syncthreads();
-    stamp(a.prof, s, ST_WRITE);
+    stamp(a.prof, s * NSTAMP + ST_WRITE);
   }
 }
 
@@ -726,7 +746,7 @@ extern "C" int fused_sort_launch(
     void* W,
     int C, int D, int T, int epoch0, int max_idle, int recycle,
     float thr, float min_conf, float pw2, float pw1, float vw10, float vw1,
-    void* stream) {
+    void* prof, void* stream) {
   if (D < 1 || D > NT || T < 1 || C < 1) return (int)cudaErrorInvalidValue;
   SortSmem probe;
   const size_t bytes = probe.carve(nullptr, D, T);
@@ -745,7 +765,7 @@ extern "C" int fused_sort_launch(
   a.tid = (int*)tid; a.nid = (int*)nid;
   a.o_ids = (int*)o_ids; a.o_slots = (int*)o_slots;
   a.o_pred = (float*)o_pred; a.o_ovf = (int*)o_ovf;
-  a.o_stats = (int*)o_stats; a.W = (float*)W;
+  a.o_stats = (int*)o_stats; a.W = (float*)W; a.prof = (long long*)prof;
   a.C = C; a.D = D; a.T = T; a.epoch0 = epoch0; a.max_idle = max_idle;
   a.recycle = recycle; a.thr = thr; a.min_conf = min_conf;
   a.kw = KalmanWeights{pw2, pw1, vw10, vw1};

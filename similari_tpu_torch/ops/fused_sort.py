@@ -33,6 +33,12 @@ _F32, _I32 = torch.float32, torch.int32
 
 SortTuple = Tuple[torch.Tensor, ...]
 
+# the phases of a frame in `fused_sort_kernel`, in order; a profiled launch
+# stamps the start of the frame and the end of each into an int64
+# [C, len(PHASES) + 1] buffer (`csrc/fused_track.cu::SS_*`)
+PHASES = ("rows and tracks", "weights", "span", "auction", "match", "slots",
+          "Kalman", "state write")
+
 
 # ---------------------------------------------------------------------------
 # plain PyTorch pieces shared with ops/fused_visual.py
@@ -238,6 +244,18 @@ def check_chunk_inputs(state, box, conf, valid, t_shapes, extra=()):
                 f"{shape} {dtype}")
 
 
+def check_prof(prof, box, width):
+    """Raise unless `prof` is None or a contiguous int64 [C, width] tensor
+    on the inputs' CUDA device."""
+    if prof is not None and (box.device.type != "cuda"
+                             or prof.shape != (box.shape[0], width)
+                             or prof.dtype != torch.int64
+                             or prof.device != box.device
+                             or not prof.is_contiguous()):
+        raise ValueError(f"prof must be a contiguous int64 [{box.shape[0]}, "
+                         f"{width}] tensor on the inputs' CUDA device")
+
+
 def pointers(*tensors):
     """Device addresses for the C launchers."""
     return [ctypes.c_void_p(x.data_ptr()) for x in tensors]
@@ -249,7 +267,8 @@ def sort_state_shapes(t: int):
 
 
 def fused_sort_chunk(cfg: SortConfig, state: SortTuple, box: torch.Tensor,
-                     conf: torch.Tensor, valid: torch.Tensor, epoch0: int):
+                     conf: torch.Tensor, valid: torch.Tensor, epoch0: int,
+                     prof=None):
     """C frames of SORT from `state` (not modified).
 
     box f32[C,D,5], conf f32[C,D], valid bool/int[C,D]; frame s runs at
@@ -257,11 +276,14 @@ def fused_sort_chunk(cfg: SortConfig, state: SortTuple, box: torch.Tensor,
     pred f32[C,D,5], overflow bool[C], stats i32[C,3]) where stats holds
     the auction rounds, the bids made and (0) per frame.
     CUDA tensors launch the kernel; CPU tensors run the plain version.
+    `prof`, an int64 [C, len(PHASES) + 1] CUDA tensor, receives the
+    kernel's phase stamps (ns of the device's global timer).
     """
     check_sort_scope(cfg)
     valid = valid.to(_I32)
     check_chunk_inputs(state, box, conf, valid,
                        sort_state_shapes(state[0].shape[0]))
+    check_prof(prof, box, len(PHASES) + 1)
     if box.device.type == "cpu":
         return fused_sort_chunk_plain(cfg, state, box, conf, valid, epoch0)
     if box.device.type != "cuda":
@@ -285,7 +307,8 @@ def fused_sort_chunk(cfg: SortConfig, state: SortTuple, box: torch.Tensor,
         *pointers(box, conf, valid, *st, ids, slots, pred, ovf, stats, W),
         c, d, t, int(epoch0), cfg.max_idle_epochs, int(cfg.recycle_idle),
         cfg.iou_threshold, cfg.min_confidence, 2.0 * pw, 1.0 * pw, 10.0 * vw,
-        1.0 * vw, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        1.0 * vw, None if prof is None else prof.data_ptr(),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     check(code, "fused_sort_launch")
     fused_sort_chunk.launches += 1
     return st, ids, slots, pred, ovf > 0, stats

@@ -32,7 +32,7 @@ from typing import Tuple
 import torch
 
 from .fused_sort import (NEG, aligned_iou, allocate_slots, augmented,
-                         check_chunk_inputs, first_argmax,
+                         check_chunk_inputs, check_prof, first_argmax,
                          forward_auction_plain, kalman_rows, pointers,
                          sanitize_boxes, sort_state_shapes, write_rows)
 from .gallery_dots import f32_dots, gallery_dots, round_bf16
@@ -277,14 +277,7 @@ def fused_visual_chunk(cfg: VisualConfig, state: VisualTuple, box, conf,
             raise ValueError("fvalid, qual and oa must be [C, D]")
     if qual.dtype != _F32 or oa.dtype != _F32:
         raise TypeError("qual and oa must be float32")
-    if prof is not None and (box.device.type != "cuda"
-                             or prof.shape != (c, len(PHASES) + 1)
-                             or prof.dtype != torch.int64
-                             or prof.device != box.device
-                             or not prof.is_contiguous()):
-        raise ValueError(f"prof must be a contiguous int64 [{c}, "
-                         f"{len(PHASES) + 1}] tensor on the inputs' CUDA "
-                         "device")
+    check_prof(prof, box, len(PHASES) + 1)
     if box.device.type == "cpu":
         return fused_visual_chunk_plain(cfg, state, box, conf, valid, feat,
                                         fvalid, qual, oa, epoch0)
