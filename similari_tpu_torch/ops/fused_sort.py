@@ -172,9 +172,11 @@ def check_sort_scope(cfg: SortConfig) -> None:
 
 
 def fused_sort_chunk_plain(cfg: SortConfig, state: SortTuple, box, conf,
-                           valid, epoch0: int):
+                           valid, epoch0: int, cluster: int = 0):
     """Plain PyTorch version of the fused SORT chunk (same outputs as
-    `fused_sort_chunk`), on any device."""
+    `fused_sort_chunk`), on any device.  `cluster` = G > 0 replays the
+    kernel's split of the auction and the slot allocation over G blocks
+    (`cluster_auction_replay`, `cluster_slots_replay`; tests only)."""
     st = [x.clone() for x in state]
     c, d = box.shape[:2]
     t = st[0].shape[0]
@@ -193,13 +195,15 @@ def fused_sort_chunk_plain(cfg: SortConfig, state: SortTuple, box, conf,
         iou, inter = aligned_iou(bx, st[5])
         m = iou * torch.clamp(conf[s], min=cfg.min_confidence)[:, None]
         W = torch.where(compat[None, :] & (inter > 0) & (m >= thr), m, 0.0)
-        r2c, rounds, bids = forward_auction_plain(augmented(W, dvalid, thr),
-                                                  dvalid)
+        A = augmented(W, dvalid, thr)
+        r2c, rounds, bids = (cluster_auction_replay(A, dvalid, cluster)
+                             if cluster else forward_auction_plain(A, dvalid))
         tgt = torch.clamp(r2c - d, 0, t - 1)
         matched = dvalid & (r2c >= d) & (W[rows, tgt] >= thr)
         is_new = dvalid & ~matched
-        slot, new_rank, n_new, overflow = allocate_slots(
-            is_new, matched, tgt, ~active)
+        slot, new_rank, n_new, overflow = (
+            cluster_slots_replay if cluster else allocate_slots)(
+            is_new, matched, tgt, ~active, *([cluster] if cluster else []))
         u = kalman_rows(spec, st, slot, matched, bx)
         new_len = torch.where(matched, st[10][slot] + 1, 1)
         new_ids = torch.where(matched, st[11][slot], st[12][0] + new_rank)
@@ -218,6 +222,117 @@ def fused_sort_chunk_plain(cfg: SortConfig, state: SortTuple, box, conf,
     return (tuple(st), torch.stack(ids), torch.stack(slots),
             torch.stack(preds), torch.stack(ovfs),
             torch.stack(stats).to(box.device))
+
+
+# ---------------------------------------------------------------------------
+# the kernel's decomposition over a thread-block cluster, replayed on the CPU
+# (tests only: nothing on the CUDA path calls these)
+# ---------------------------------------------------------------------------
+
+def cluster_columns(d: int, t: int, g: int):
+    """Owner block of each column of the augmented [D, D+T] matrix when G
+    blocks split it as `fused_sort_kernel` does: block b owns the diagonal
+    columns [b*ceil(D/G), ...) and the track columns D + [b*ceil(T/G),
+    ...); the last slices are ragged and may be empty."""
+    dc, tc = -(-d // g), -(-t // g)
+    return torch.cat([torch.arange(d) // dc, torch.arange(t) // tc])
+
+
+def _top2(values: torch.Tensor, n: int):
+    """Per row: (first max, its column, the largest other value) over the
+    columns of `values`; (-inf, n, -inf) when there are none."""
+    rows = values.shape[0]
+    inf = torch.full((rows,), -torch.inf)
+    if values.shape[1] == 0:
+        return inf, torch.full((rows,), n), inf
+    b1, i1 = first_argmax(values, 1)
+    rest = values.index_put((torch.arange(rows), i1), inf)
+    b2 = rest.max(dim=1).values if values.shape[1] > 1 else inf
+    return b1, i1, b2
+
+
+def bid_keys(bid: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """int64 keys whose order is (bid, then the lower row): the float's bits
+    made order-preserving, then the inverted row, as the kernel packs them
+    into one 64-bit word for its shared-memory atomicMax (shifted by 2^63
+    to stay signed here)."""
+    u = bid.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    order = torch.where(u >= 0x80000000, 0xFFFFFFFF - u, u + 0x80000000)
+    return (order - 0x80000000) * (1 << 32) + (0xFFFFFFFF - rows)
+
+
+def cluster_auction_replay(A: torch.Tensor, dvalid: torch.Tensor, g: int):
+    """`forward_auction_plain` as G column blocks run it: each block takes
+    the pending rows' (first max, column, runner-up) over its own columns,
+    the partials merge in ascending block order by `warp_top2`'s rule, the
+    bid goes to the column's owner, which keeps the highest (bid, lowest
+    row) key, and every block rebuilds r2c from the owners' c2r.  Returns
+    (r2c[D], rounds, bids)."""
+    d, n = A.shape
+    span = torch.clamp(A.max(), min=1e-6)
+    eps = span / max(4096.0, 64.0 * d)
+    owner = cluster_columns(d, n - d, g)
+    blocks = [torch.nonzero(owner == b).flatten() for b in range(g)]
+    rows = torch.arange(d)
+    prices = torch.zeros(n, dtype=_F32)
+    c2r = torch.full((n,), -1, dtype=torch.int64)
+    r2c = torch.where(dvalid, -1, 0).to(torch.int64)
+    rounds = bids = 0
+    while rounds < MAX_AUCTION_ROUNDS:
+        pending = dvalid & (r2c < 0)
+        if not bool(pending.any()):
+            break
+        rounds += 1
+        bids += int(pending.sum())
+        b1, i1, b2 = None, None, None
+        for cols in blocks:  # ascending block order
+            pb1, pi1, pb2 = _top2(A[:, cols] - prices[cols], n)
+            if len(cols):
+                pi1 = cols[pi1]
+            if b1 is None:
+                b1, i1, b2 = pb1, pi1, pb2
+                continue
+            take = (pb1 > b1) | ((pb1 == b1) & (pi1 < i1))
+            b2 = torch.where(take, torch.maximum(b1, pb2),
+                             torch.maximum(pb1, b2))
+            b1, i1 = torch.where(take, pb1, b1), torch.where(take, pi1, i1)
+        bid = prices[i1] + (b1 - b2) + eps
+        bidding = pending & (bid > NEG * 0.5)
+        key = torch.full((n,), torch.iinfo(torch.int64).min)
+        key = key.scatter_reduce(0, i1[bidding],
+                                 bid_keys(bid, rows)[bidding], "amax")
+        got = key > torch.iinfo(torch.int64).min
+        win_row = 0xFFFFFFFF - (key[got] & 0xFFFFFFFF)
+        c2r[got] = win_row
+        prices[got] = bid[win_row]
+        cand = torch.where(r2c >= 0, r2c, i1)
+        r2c = torch.where(dvalid, torch.where(c2r[cand] == rows, cand, -1),
+                          r2c)
+    return r2c, rounds, bids
+
+
+def cluster_slots_replay(is_new: torch.Tensor, matched: torch.Tensor,
+                         tgt: torch.Tensor, free: torch.Tensor, g: int):
+    """`allocate_slots` as G blocks run it: block b lists its own free slots
+    [b*ceil(T/G), ...) in order; an exclusive scan of the blocks' free
+    counts places the r-th new detection at the owner of the r-th free
+    slot, which looks it up in its own list."""
+    t = free.shape[0]
+    tc = -(-t // g)
+    new_rank = torch.cumsum(is_new.to(torch.int64), 0)
+    lists = [torch.nonzero(free[b * tc:(b + 1) * tc]).flatten() + b * tc
+             for b in range(g)]
+    counts = torch.tensor([len(x) for x in lists])
+    pre = torch.cumsum(counts, 0) - counts
+    n_free = int(counts.sum())
+    slot = torch.full_like(new_rank, t - 1)
+    for r, k in enumerate(new_rank.tolist()):
+        if 1 <= k <= n_free:
+            b = int(torch.nonzero((pre < k) & (k <= pre + counts))[0])
+            slot[r] = lists[b][k - int(pre[b]) - 1]
+    slot = torch.where(matched, tgt, slot)
+    n_new = new_rank[-1]
+    return slot, new_rank, n_new, n_new > n_free
 
 
 def check_chunk_inputs(state, box, conf, valid, t_shapes, extra=()):
