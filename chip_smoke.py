@@ -309,8 +309,17 @@ def phase_sort(args, dev):
         errs.append(err)
         log_check(f"fused_sort[{stream}]", k_ms, p_ms, err, stats)
         if dev.type == "cuda":
-            log_split(f"fused_sort[{stream}]", fs.PHASES, phase_split(
-                fs.fused_sort_chunk, fs.PHASES, cfg, st0, inputs))
+            plan = fs.fused_sort_chunk.plan
+            log(f"[3] fused_sort[{stream}] launch: one cluster of "
+                f"{plan['cluster']} blocks x {plan['threads']} threads, "
+                f"{fs.STORAGE[plan['storage']]}, {plan['smem_bytes']} bytes "
+                f"of shared memory per block")
+            split = phase_split(fs, fs.fused_sort_chunk, cfg, st0, inputs)
+            log_split(f"fused_sort[{stream}]", fs.PHASES, split)
+            log(f"[3] fused_sort[{stream}] cluster barriers: {split[2]:.2f} "
+                f"per frame, {(split[2] - 2) / stats[:, 0].mean():.2f} per "
+                f"auction round (two per frame: the span, the match flags), "
+                f"plus one per launch")
         if stream == "crowded":
             check_crowded("fused_sort", stats)
         else:
@@ -347,30 +356,33 @@ def mma_counts():
     return counts
 
 
-def phase_split(chunk_fn, phases, cfg, state, inputs):
+def phase_split(mod, chunk_fn, cfg, state, inputs):
     """One extra run of the stream through a fused kernel's wrapper
-    (`fs.fused_sort_chunk` or `fv.fused_visual_chunk`) with its phase
-    stamps: ms per frame in each of `phases`, the mean over the frames,
-    and the whole frame."""
-    stamps = []
+    (`fs.fused_sort_chunk` or `fv.fused_visual_chunk`; `mod` its module)
+    with its phase stamps: ms per frame in each of `mod.PHASES`, the mean
+    over the frames, the whole frame, and (SORT) the mean cluster barriers
+    per frame, else None."""
+    stamps, n = [], len(mod.PHASES) + 1
 
     def profiled(cfg, st, *xs):
-        prof = torch.zeros((CHUNK, len(phases) + 1), dtype=torch.int64,
+        prof = torch.zeros((CHUNK, mod.PROF_WIDTH), dtype=torch.int64,
                            device=xs[0].device)
         stamps.append(prof)
         return chunk_fn(cfg, st, *xs, prof=prof)
 
     run_chunks(profiled, cfg, state, inputs)
     st = torch.cat(stamps).cpu().numpy()
-    per_phase = np.diff(st, axis=1).mean(0) / 1e6
-    return per_phase, float((st[:, -1] - st[:, 0]).mean() / 1e6)
+    per_phase = np.diff(st[:, :n], axis=1).mean(0) / 1e6
+    barriers = float(st[:, n].mean()) if st.shape[1] > n else None
+    return per_phase, float((st[:, n - 1] - st[:, 0]).mean() / 1e6), barriers
 
 
 def log_split(label, phases, split):
-    per_phase, frame = split
+    per_phase, frame, barriers = split
     log(f"[3] {label} phase split (ms/frame, global timer, one profiled run):"
         f" " + ", ".join(f"{n} {x:.4f}" for n, x in zip(phases, per_phase))
-        + f"; frame {frame:.4f}")
+        + f"; frame {frame:.4f}" + ("" if barriers is None else
+                                    f"; cluster barriers/frame {barriers:.2f}"))
 
 
 def dots_bound_ms(n, m, needed, bf16):
@@ -449,7 +461,7 @@ def phase_visual(args, dev):
         log_check(label, k_ms, p_ms, err, stats)
         if name == "main_path" and dev.type == "cuda":
             log_split(label, fv.PHASES, phase_split(
-                fv.fused_visual_chunk, fv.PHASES, cfg, st0, inputs))
+                fv, fv.fused_visual_chunk, cfg, st0, inputs))
         if stream == "crowded":
             check_crowded("fused_visual", stats)
         elif name == "main_path":

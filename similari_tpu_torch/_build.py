@@ -37,8 +37,10 @@ _F = ctypes.c_float
 
 # argument lists of the C launchers in csrc/fused_track.cu
 # (inputs, state, outputs, scratch pointers; ints; floats; constraint
-# tables for the visual kernel; the phase stamps; stream)
-SORT_ARGTYPES = [_P] * (3 + 13 + 5 + 1) + [_I] * 6 + [_F] * 6 + [_P, _P]
+# tables for the visual kernel; the phase stamps; for SORT the launch plan;
+# stream)
+SORT_ARGTYPES = ([_P] * (3 + 13 + 5 + 2) + [_I] * 8 + [_F] * 6
+                 + [_P, ctypes.POINTER(_I), _P])
 VISUAL_ARGTYPES = ([_P] * (7 + 20 + 8 + 5 + 2) + [_I] * 13 + [_F] * 12
                    + [_P, _P, _P] + [_P])
 # csrc/gallery_dots.cu: x, g, dots, norms; n, m, f, d, bf16; stream

@@ -45,16 +45,21 @@
 // overflow (n_new > n_free) the frame writes nothing while next_id still
 // advances.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "fused_track.cuh"
 
+namespace cg = cooperative_groups;
 using namespace ft;
 
 namespace {
 
 constexpr int MAX_CONSTRAINTS = 8;
 constexpr int MAX_SMEM = 232448;  // bytes a block may use on sm_90
+constexpr int MAX_CLUSTER = 16;  // blocks; above 8 is non-portable
+constexpr int DEFAULT_CLUSTER = 8;  // fused SORT: blocks per cluster
+constexpr int DEFAULT_THREADS = 256;  // and threads per block
 
 struct Carve {
   char* base;
@@ -83,46 +88,113 @@ struct SortArgs {
   int *o_ids, *o_slots;  // [C, D]
   float* o_pred;  // [C, D, 5]
   int* o_ovf;  // [C]
-  int* o_stats;  // [C, 3] auction rounds, bids, gallery pairs
-  float* W;  // [D, T] scratch
-  long long* prof;  // [C, NSORT] phase stamps, or null
+  int* o_stats;  // [C, 3] auction rounds, bids, 0
+  float* W;  // [D, T] scratch: block g's [D, nt] slice at D * g * Tc
+  char* cols;  // [G, 16 (D+T)] bytes of scratch: block g's column arrays
+  long long* prof;  // [C, NSORT + 1] phase stamps and cluster barriers
   int C, D, T, epoch0, max_idle, recycle;
+  int G, Dc, Tc;  // cluster size; diagonal and track columns per block
+  int w_smem, st_smem, cols_smem;  // W slice, state slice and column
+                                   // arrays in shared memory
   float thr, min_conf;
   KalmanWeights kw;
 };
 
+// One block's view of the tracker state: its slots [g*Tc, g*Tc + nt),
+// indexed from 0, in shared memory or in place in device memory.
+struct SlotState {
+  float *mp, *mv, *cpp, *cpv, *cvv, *pred, *obs, *tconf;  // [nt, 5] / [nt]
+  int *active, *last, *length, *tid;  // [nt]
+};
+
 struct SortSmem {
-  float *box, *conf;
-  int *valid, *matched, *tgt, *nr, *slot;
-  int *act, *compat, *freef, *frank, *flist;
-  float* redf;
-  int* redi;
-  AuctionSmem a;
-  __host__ __device__ size_t carve(char* base, int D, int T) {
+  float *box, *redge, *cc, *conf;  // [D, 5], [5, D], [D], [D]
+  int *valid, *r2c, *jb, *rank, *matched;  // [D]
+  float* bid;  // [D] the round's bid of each bidding row
+  int* plist;  // [2, D] the bidding rows of this round and the next
+  int* np;  // [2] their counts
+  float4* part;  // [2, D] this block's (b1, i1, b2) of each bidding row
+  float* prices;  // [D + T] every column's, alike in every block
+  int* c2r;  // [D + T]
+  unsigned long long* key;  // [D + T] the best (round, bid, row) so far
+  int* wok;  // [Tc] own track column: its owner row's W passes thr
+  float* tedge;  // [5, Tc]
+  int *act, *compat, *frank, *flist;  // [Tc]
+  float *xmax, *gmax;  // [2] by frame parity, read by the cluster; [G]
+  int *xcnt, *gcnt;  // free slots, the same way
+  float* redf;  // [32]
+  int* redi;  // [32]
+  SlotState st;  // when st_smem
+  float* W;  // [D, Tc] when w_smem
+  __host__ __device__ size_t carve(char* base, int D, int T, int Tc,
+                                   bool cols_smem, bool st_smem,
+                                   bool w_smem) {
     Carve c(base);
     box = c.take<float>(5 * D);
+    redge = c.take<float>(5 * D);
+    cc = c.take<float>(D);
     conf = c.take<float>(D);
     valid = c.take<int>(D);
+    r2c = c.take<int>(D);
+    jb = c.take<int>(D);
+    rank = c.take<int>(D);
     matched = c.take<int>(D);
-    tgt = c.take<int>(D);
-    nr = c.take<int>(D);
-    slot = c.take<int>(D);
-    act = c.take<int>(T);
-    compat = c.take<int>(T);
-    freef = c.take<int>(T);
-    frank = c.take<int>(T);
-    flist = c.take<int>(T);
-    redf = c.take<float>(NW);
-    redi = c.take<int>(NW);
-    a.prices = c.take<float>(D + T);
-    a.c2r = c.take<int>(D + T);
-    a.r2c = c.take<int>(D);
-    a.bid = c.take<float>(D);
-    a.jb = c.take<int>(D);
-    a.win = c.take<int>(D);
+    bid = c.take<float>(D);
+    plist = c.take<int>(2 * D);
+    np = c.take<int>(2);
+    part = c.take<float4>(2 * D);
+    if (cols_smem) {
+      prices = c.take<float>(D + T);
+      c2r = c.take<int>(D + T);
+      key = c.take<unsigned long long>(D + T);
+    }
+    wok = c.take<int>(Tc);
+    tedge = c.take<float>(5 * Tc);
+    act = c.take<int>(Tc);
+    compat = c.take<int>(Tc);
+    frank = c.take<int>(Tc);
+    flist = c.take<int>(Tc);
+    xmax = c.take<float>(2);
+    gmax = c.take<float>(MAX_CLUSTER);
+    xcnt = c.take<int>(2);
+    gcnt = c.take<int>(MAX_CLUSTER);
+    redf = c.take<float>(32);
+    redi = c.take<int>(32);
+    if (st_smem) {
+      float** f5[] = {&st.mp, &st.mv, &st.cpp, &st.cpv, &st.cvv, &st.pred,
+                      &st.obs};
+      for (float** p : f5) *p = c.take<float>(5 * Tc);
+      st.tconf = c.take<float>(Tc);
+      int** i1[] = {&st.active, &st.last, &st.length, &st.tid};
+      for (int** p : i1) *p = c.take<int>(Tc);
+    }
+    W = w_smem ? c.take<float>((size_t)D * Tc) : nullptr;
     return c.off;
   }
 };
+
+// The slots [t0, t0 + n) of the state in device memory.
+__device__ SlotState global_slots(const SortArgs& a, int t0) {
+  return SlotState{a.mp + t0 * 5, a.mv + t0 * 5, a.cpp + t0 * 5,
+                   a.cpv + t0 * 5, a.cvv + t0 * 5, a.pred + t0 * 5,
+                   a.obs + t0 * 5, a.tconf + t0, a.active + t0,
+                   a.last + t0, a.length + t0, a.tid + t0};
+}
+
+// Copies n slots between two views (launch start and end).
+__device__ void copy_slots(const SlotState& to, const SlotState& from, int n,
+                           int NTB) {
+  for (int i = threadIdx.x; i < 5 * n; i += NTB) {
+    to.mp[i] = from.mp[i]; to.mv[i] = from.mv[i]; to.cpp[i] = from.cpp[i];
+    to.cpv[i] = from.cpv[i]; to.cvv[i] = from.cvv[i];
+    to.pred[i] = from.pred[i]; to.obs[i] = from.obs[i];
+  }
+  for (int i = threadIdx.x; i < n; i += NTB) {
+    to.tconf[i] = from.tconf[i]; to.active[i] = from.active[i];
+    to.last[i] = from.last[i]; to.length[i] = from.length[i];
+    to.tid[i] = from.tid[i];
+  }
+}
 
 // A phase boundary, from %globaltimer (ns), into prof[i] when prof is not
 // null.  A stamp first waits for the whole block, so a profiled launch
@@ -184,103 +256,379 @@ __device__ void write_sort_columns(const A& a, int sl, const KFRow* u,
   a.tid[sl] = new_id;
 }
 
-__global__ void __launch_bounds__(NT, 1) fused_sort_kernel(SortArgs a) {
+// A phase boundary of the SORT cluster: the whole cluster first meets
+// (only when profiling), then block 0 stamps.
+__device__ __forceinline__ void cluster_stamp(long long* prof, int i,
+                                              cg::cluster_group& cluster) {
+  if (prof == nullptr) return;  // uniform across the cluster
+  cluster.sync();
+  if (cluster.block_rank() == 0 && threadIdx.x == 0) {
+    long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    prof[i] = t;
+  }
+}
+
+// A bid of round `round` as one 64-bit word whose unsigned order is the
+// auction's within a round (the higher bid, then the lower row) and puts
+// every round above the ones before it, so a column's key needs no reset
+// between rounds: round + 1 in bits 52-63 (at most 3000 rounds), the
+// float's bits made order-preserving in bits 20-51 (bids are > 0, never
+// -0), the inverted row in bits 0-19 (D <= 1024).
+__device__ __forceinline__ unsigned long long bid_key(int round, float bid,
+                                                      int row) {
+  const unsigned b = __float_as_uint(bid);
+  const unsigned ord = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+  return ((unsigned long long)(round + 1) << 52)
+       | ((unsigned long long)ord << 20) | (unsigned long long)(0xFFFFF - row);
+}
+
+// The C frames of one sequence on one cluster of G blocks (see the note at
+// the top).  Block g owns the diagonal columns [g*Dc, g*Dc + nd) and the
+// track columns D + [g*Tc, g*Tc + nt) of the augmented [D, D+T] matrix:
+// it scans them for bids, and holds their W slice and the state of slots
+// [g*Tc, ...).  Every block keeps the rows' vectors (boxes, r2c, ranks)
+// and the auction's prices and owners of all D+T columns, and updates them
+// alike from the same data, so they need no exchange; what crosses blocks,
+// through distributed shared memory, is the frame's max weight and free
+// counts, each round's per-block bid partials, and the match flags.
+template <int NTB>
+__global__ void __launch_bounds__(NTB, 1) fused_sort_kernel(SortArgs a) {
+  constexpr int NWB = NTB / 32;
   extern __shared__ __align__(16) char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
   SortSmem sm;
-  sm.carve(smem, a.D, a.T);
-  const int D = a.D, T = a.T, tid = threadIdx.x;
+  sm.carve(smem, a.D, a.T, a.Tc, a.cols_smem, a.st_smem, a.w_smem);
+  const int D = a.D, T = a.T, N = D + T, G = a.G, Dc = a.Dc, Tc = a.Tc;
+  const int g = (int)cluster.block_rank();
+  const int d0 = g * Dc, nd = max(min(D - d0, Dc), 0);
+  const int t0 = g * Tc, nt = max(min(T - t0, Tc), 0);
+  const int tid = threadIdx.x, lane = lane_id(), w = warp_id();
+  const float thr = a.thr;
+  if (!a.cols_smem) {  // [N] prices, [N] c2r, [N] keys in device memory
+    char* base = a.cols + (size_t)g * 16 * N;
+    sm.prices = reinterpret_cast<float*>(base);
+    sm.c2r = reinterpret_cast<int*>(base + (size_t)4 * N);
+    sm.key = reinterpret_cast<unsigned long long*>(base + (size_t)8 * N);
+  }
+  const SlotState gst = global_slots(a, t0);
+  SlotState st = gst;
+  if (a.st_smem) {
+    st = sm.st;
+    copy_slots(st, gst, nt, NTB);
+    __syncthreads();
+  }
+  float* const Wl = a.w_smem ? sm.W : a.W + (size_t)D * t0;  // [D, nt]
+  int nid = *a.nid;
   for (int s = 0; s < a.C; ++s) {
-    const int epoch = a.epoch0 + s;
-    const int nid0 = *a.nid;
-    long long* const pf = a.prof ? a.prof + s * NSORT : nullptr;
-    stamp(pf, SS_START);
-    // ---- rows and tracks ------------------------------------------------
-    if (tid < D) {
-      const int v = a.valid[s * D + tid] > 0;
+    const int epoch = a.epoch0 + s, par = s & 1;
+    long long* const pf = a.prof ? a.prof + s * (NSORT + 1) : nullptr;
+    int barriers = 0;
+    cluster_stamp(pf, SS_START, cluster);
+    // ---- rows (all D, in every block) and own tracks --------------------
+    for (int r = tid; r < D; r += NTB) {
+      const int i = s * D + r;
+      const int v = a.valid[i] > 0;
       const float vf = v ? 1.0f : 0.0f;
-      for (int j = 0; j < 5; ++j)
-        sm.box[tid * 5 + j] = sanitize(a.box[(s * D + tid) * 5 + j], vf, j);
-      sm.conf[tid] = a.conf[s * D + tid];
-      sm.valid[tid] = v;
+      float b[5];
+      for (int j = 0; j < 5; ++j) {
+        b[j] = sanitize(a.box[i * 5 + j], vf, j);
+        sm.box[r * 5 + j] = b[j];
+      }
+      // aligned_iou's row terms, in its operation order
+      const float aw = b[3] * b[4];
+      sm.redge[0 * D + r] = b[0] + aw * 0.5f;
+      sm.redge[1 * D + r] = b[0] - aw * 0.5f;
+      sm.redge[2 * D + r] = b[1] + b[4] * 0.5f;
+      sm.redge[3 * D + r] = b[1] - b[4] * 0.5f;
+      sm.redge[4 * D + r] = aw * b[4];
+      sm.conf[r] = a.conf[i];
+      sm.cc[r] = fmaxf(a.conf[i], a.min_conf);
+      sm.valid[r] = v;
     }
-    for (int t = tid; t < T; t += NT) {
-      const int act0 = a.active[t] > 0;
-      const int comp = act0 && (epoch - a.last[t]) <= a.max_idle;
+    for (int t = tid; t < nt; t += NTB) {
+      const int act0 = st.active[t] > 0;
+      const int comp = act0 && (epoch - st.last[t]) <= a.max_idle;
       const int act = a.recycle ? comp : act0;
       sm.act[t] = act;
       sm.compat[t] = comp;
-      sm.freef[t] = !act;
+      sm.frank[t] = !act;
+      const float* p = &st.pred[t * 5];
+      const float tw = p[3] * p[4];
+      sm.tedge[0 * Tc + t] = p[0] + tw * 0.5f;
+      sm.tedge[1 * Tc + t] = p[0] - tw * 0.5f;
+      sm.tedge[2 * Tc + t] = p[1] + p[4] * 0.5f;
+      sm.tedge[3 * Tc + t] = p[1] - p[4] * 0.5f;
+      sm.tedge[4 * Tc + t] = tw * p[4];
     }
     __syncthreads();
-    stamp(pf, SS_ROWS);
-    // ---- weights: aligned IoU x confidence, gated -----------------------
-    float lmax = diag_max(tid, D, sm.valid, a.thr);
-    for (int idx = tid; idx < D * T; idx += NT) {
-      const int r = idx / T, t = idx - r * T;
-      float inter;
-      const float iou = aligned_iou(&sm.box[r * 5], &a.pred[t * 5], &inter);
-      const float m = iou * fmaxf(sm.conf[r], a.min_conf);
-      const float w = (sm.compat[t] && inter > 0.0f && m >= a.thr) ? m : 0.0f;
-      a.W[idx] = w;
-      lmax = fmaxf(lmax, w);
+    // own free slots in slot order (frank: inclusive ranks)
+    block_scan_inclusive<NTB>(sm.frank, nt, sm.redi);
+    for (int t = tid; t < nt; t += NTB)
+      if (!sm.act[t]) sm.flist[sm.frank[t] - 1] = t;
+    const int own_free = nt > 0 ? sm.frank[nt - 1] : 0;
+    cluster_stamp(pf, SS_ROWS, cluster);
+    // ---- weights: this block's [D, nt] slice ----------------------------
+    // A thread takes one track column (its terms in registers) and every
+    // rs-th row; a pair whose boxes do not overlap is 0 without dividing.
+    float lmax = -INFINITY;
+    if (g == 0)
+      for (int r = tid; r < D; r += NTB)
+        lmax = fmaxf(lmax, diag_max(r, D, sm.valid, thr));
+    if (nt > 0) {
+      const int rs = max(NTB / nt, 1);
+      for (int c = tid; c < rs * nt; c += NTB) {
+        const int r0 = c / nt, t = c - r0 * nt;
+        const float txr = sm.tedge[t], txl = sm.tedge[Tc + t];
+        const float tyt = sm.tedge[2 * Tc + t], tyb = sm.tedge[3 * Tc + t];
+        const float tar = sm.tedge[4 * Tc + t];
+        const bool comp = sm.compat[t] != 0;
+        for (int r = r0; r < D; r += rs) {
+          const float ix = fminf(sm.redge[r], txr) - fmaxf(sm.redge[D + r], txl);
+          const float iy = fminf(sm.redge[2 * D + r], tyt)
+                         - fmaxf(sm.redge[3 * D + r], tyb);
+          float wv = 0.0f;
+          if (comp && ix > 0.0f && iy > 0.0f) {
+            const float inter = ix * iy;
+            if (inter > 0.0f) {
+              const float uni = sm.redge[4 * D + r] + tar - inter;
+              const float m = inter / uni * sm.cc[r];
+              if (m >= thr) wv = m;
+            }
+          }
+          Wl[r * nt + t] = wv;
+          lmax = fmaxf(lmax, wv);
+        }
+      }
     }
-    stamp(pf, SS_WEIGHTS);
-    const float span = fmaxf(block_max(lmax, sm.redf), 1e-6f);
+    cluster_stamp(pf, SS_WEIGHTS, cluster);
+    // ---- span and free counts across the cluster ------------------------
+    const float bmax = block_max<NTB>(lmax, sm.redf);
+    if (tid == 0) { sm.xmax[par] = bmax; sm.xcnt[par] = own_free; }
+    cluster.sync();
+    ++barriers;
+    if (tid < G) {
+      sm.gmax[tid] = cluster.map_shared_rank(sm.xmax, tid)[par];
+      sm.gcnt[tid] = cluster.map_shared_rank(sm.xcnt, tid)[par];
+    }
+    __syncthreads();
+    float amax = -INFINITY;
+    int pre = 0, n_free = 0;
+    for (int h = 0; h < G; ++h) {
+      amax = fmaxf(amax, sm.gmax[h]);
+      pre += h < g ? sm.gcnt[h] : 0;
+      n_free += sm.gcnt[h];
+    }
+    const float span = fmaxf(amax, 1e-6f);
     const float eps = span / (float)fmax(4096.0, 64.0 * D);
-    stamp(pf, SS_SPAN);
+    cluster_stamp(pf, SS_SPAN, cluster);
+    // ---- auction (Jacobi rounds; see forward_auction) -------------------
+    for (int j = tid; j < N; j += NTB) {
+      sm.prices[j] = 0.0f;
+      sm.c2r[j] = -1;
+      sm.key[j] = 0ull;
+    }
+    if (tid == 0) sm.np[0] = 0;
+    __syncthreads();
+    for (int r = tid; r < D; r += NTB) {
+      sm.r2c[r] = sm.valid[r] ? -1 : 0;
+      if (sm.valid[r]) sm.plist[atomicAdd(&sm.np[0], 1)] = r;
+    }
+    __syncthreads();
+    // lanes per bidding row in the scan of own columns
+    const int ncol = nd + nt;
+    const int L = ncol > 256 ? 32 : ncol > 64 ? 16 : 8;
+    const int sub = lane % L, grp = lane / L, gpw = 32 / L;
     int rounds = 0, bids = 0;
-    forward_auction(a.W, D, T, a.thr, sm.valid, eps, sm.a, &rounds, &bids);
-    stamp(pf, SS_AUCTION);
-    // ---- match --------------------------------------------------------
-    if (tid < D) {
-      const int c = sm.a.r2c[tid];
-      const int tg = min(max(c - D, 0), T - 1);
-      const bool m = sm.valid[tid] && c >= D && a.W[tid * T + tg] >= a.thr;
-      sm.matched[tid] = m;
-      sm.tgt[tid] = tg;
-      sm.nr[tid] = sm.valid[tid] && !m;
+    while (true) {
+      const int cur = rounds & 1, nxt = cur ^ 1;
+      const int np = sm.np[cur];
+      if (np == 0 || rounds >= MAX_AUCTION_ROUNDS) break;
+      bids += np;
+      const int* pl = sm.plist + cur * D;
+      // this block's first max, its column and the runner-up of each
+      // bidding row over its own columns, L lanes per row
+      for (int k0 = w * gpw; k0 < np; k0 += NWB * gpw) {
+        const int k = k0 + grp;
+        const int r = k < np ? pl[k] : -1;
+        float b1 = -INFINITY, b2 = -INFINITY;
+        int i1 = N;
+        if (r >= 0) {
+          for (int q = sub; q < ncol; q += L) {
+            float v;
+            int j;
+            if (q < nd) {
+              j = d0 + q;
+              v = (j == r ? thr : 0.0f) - sm.prices[j];
+            } else {
+              const int t = q - nd;
+              j = D + t0 + t;
+              v = Wl[r * nt + t] - sm.prices[j];
+            }
+            if (v > b1) { b2 = b1; b1 = v; i1 = j; }
+            else if (v > b2) { b2 = v; }
+          }
+        }
+        for (int o = L / 2; o > 0; o >>= 1) {
+          const float ob1 = __shfl_xor_sync(FULL, b1, o);
+          const int oi1 = __shfl_xor_sync(FULL, i1, o);
+          const float ob2 = __shfl_xor_sync(FULL, b2, o);
+          const bool take = (ob1 > b1) || (ob1 == b1 && oi1 < i1);
+          const float nb2 = take ? fmaxf(b1, ob2) : fmaxf(ob1, b2);
+          if (take) { b1 = ob1; i1 = oi1; }
+          b2 = nb2;
+        }
+        if (r >= 0 && sub == 0)
+          sm.part[cur * D + r] = make_float4(b1, __int_as_float(i1), b2, 0.0f);
+      }
+      cluster.sync();
+      ++barriers;
+      // every block merges every bidding row's partials in block order and
+      // keeps, per column, the best key of the round
+      for (int k = tid; k < np; k += NTB) {
+        const int r = pl[k];
+        float4 p[MAX_CLUSTER];
+#pragma unroll
+        for (int h = 0; h < MAX_CLUSTER; ++h)
+          if (h < G) p[h] = *cluster.map_shared_rank(&sm.part[cur * D + r], h);
+        float b1 = -INFINITY, b2 = -INFINITY;
+        int i1 = N;
+#pragma unroll
+        for (int h = 0; h < MAX_CLUSTER; ++h) {
+          if (h >= G) break;
+          const int oi1 = __float_as_int(p[h].y);
+          const bool take = (p[h].x > b1) || (p[h].x == b1 && oi1 < i1);
+          const float nb2 = take ? fmaxf(b1, p[h].z) : fmaxf(p[h].x, b2);
+          if (take) { b1 = p[h].x; i1 = oi1; }
+          b2 = nb2;
+        }
+        const float bid = sm.prices[i1] + (b1 - b2) + eps;
+        sm.jb[r] = i1;
+        sm.bid[r] = bid;
+        if (bid > NEG * 0.5f) atomicMax(&sm.key[i1], bid_key(rounds, bid, r));
+      }
+      if (tid == 0) sm.np[nxt] = 0;
+      __syncthreads();
+      // winners take their columns at their bids; outbid owners and the
+      // losers bid in the next round
+      int* nl = sm.plist + nxt * D;
+      for (int k = tid; k < np; k += NTB) {
+        const int r = pl[k], j = sm.jb[r];
+        const float bid = sm.bid[r];
+        if (bid > NEG * 0.5f && sm.key[j] == bid_key(rounds, bid, r)) {
+          const int old = sm.c2r[j];
+          if (old >= 0) {
+            sm.r2c[old] = -1;
+            nl[atomicAdd(&sm.np[nxt], 1)] = old;
+          }
+          sm.c2r[j] = r;
+          sm.prices[j] = bid;
+          sm.r2c[r] = j;
+          const int t = j - D - t0;
+          if (t >= 0 && t < nt) sm.wok[t] = Wl[r * nt + t] >= thr;
+        } else {
+          nl[atomicAdd(&sm.np[nxt], 1)] = r;
+        }
+      }
+      __syncthreads();
+      ++rounds;
+    }
+    // the owners' match flags are read across the cluster below
+    cluster.sync();
+    ++barriers;
+    cluster_stamp(pf, SS_AUCTION, cluster);
+    // ---- match: the column's owner block holds W[r, j - D] >= thr --------
+    for (int r = tid; r < D; r += NTB) {
+      const int j = sm.r2c[r];
+      int m = 0;
+      if (sm.valid[r] && j >= D) {
+        const int h = (j - D) / Tc;
+        m = *cluster.map_shared_rank(&sm.wok[j - D - h * Tc], h);
+      }
+      sm.matched[r] = m;
+      sm.rank[r] = sm.valid[r] && !m;
     }
     __syncthreads();
-    stamp(pf, SS_MATCH);
-    int n_new, n_free;
-    allocate_slots(sm.freef, sm.frank, sm.flist, T, sm.nr, D, sm.redi,
-                   &n_new, &n_free);
+    cluster_stamp(pf, SS_MATCH, cluster);
+    // ---- slots: the r-th new row takes the r-th free slot of the cluster
+    block_scan_inclusive<NTB>(sm.rank, D, sm.redi);
+    const int n_new = sm.rank[D - 1];
     const bool ovf = n_new > n_free;
-    stamp(pf, SS_SLOTS);
-    // ---- Kalman step, ids, outputs (reads state at the slot) -----------
-    KFRow u[5];
-    int sl = 0, new_len = 0, new_id = 0;
-    if (tid < D) {
-      const bool m = sm.matched[tid];
-      sl = slot_of(m, sm.tgt[tid], sm.nr[tid], sm.flist, n_free, T);
-      kalman_rows(a, m, sl, &sm.box[tid * 5], u);
-      new_len = m ? a.length[sl] + 1 : 1;
-      new_id = m ? a.tid[sl] : nid0 + sm.nr[tid];
-      a.o_ids[s * D + tid] = new_id;
-      a.o_slots[s * D + tid] = sl;
-      for (int j = 0; j < 5; ++j) a.o_pred[(s * D + tid) * 5 + j] = u[j].mp;
-    }
-    __syncthreads();
-    stamp(pf, SS_KALMAN);
-    // ---- state write (dropped on overflow) ------------------------------
+    cluster_stamp(pf, SS_SLOTS, cluster);
+    // ---- Kalman step, ids, outputs, state write (dropped on overflow) ---
     if (a.recycle)
-      for (int t = tid; t < T; t += NT) a.active[t] = sm.act[t];
+      for (int t = tid; t < nt; t += NTB) st.active[t] = sm.act[t];
     __syncthreads();
-    if (tid < D && sm.valid[tid] && !ovf) {
-      write_sort_columns(a, sl, u, &sm.box[tid * 5], sm.conf[tid], epoch,
-                         new_len, new_id);
+    for (int r = tid; r < D; r += NTB) {
+      const bool m = sm.matched[r];
+      const int k = sm.rank[r];
+      int sl, b;
+      if (m) {
+        sl = sm.r2c[r] - D;
+        b = sl / Tc;
+      } else if (k >= 1 && k <= n_free) {
+        b = -1;  // the block whose free slots hold rank k
+        for (int h = 0, c = 0; h < G && b < 0; c += sm.gcnt[h], ++h)
+          if (k <= c + sm.gcnt[h]) b = h;
+        sl = b == g ? t0 + sm.flist[k - pre - 1] : -1;
+      } else {
+        sl = T - 1;
+        b = sl / Tc;
+      }
+      if (b != g) continue;
+      const int t = sl - t0;
+      const float* z = &sm.box[r * 5];
+      KFRow u[5];
+      for (int j = 0; j < 5; ++j)
+        u[j] = kf_step(a.kw, m, j, z[j], z[4], m ? st.mp[t * 5 + j] : 0.0f,
+                       m ? st.mv[t * 5 + j] : 0.0f,
+                       m ? st.cpp[t * 5 + j] : 0.0f,
+                       m ? st.cpv[t * 5 + j] : 0.0f,
+                       m ? st.cvv[t * 5 + j] : 0.0f,
+                       m ? st.mp[t * 5 + 4] : 0.0f,
+                       m ? st.mv[t * 5 + 4] : 0.0f);
+      const int new_len = m ? st.length[t] + 1 : 1;
+      const int new_id = m ? st.tid[t] : nid + k;
+      a.o_ids[s * D + r] = new_id;
+      a.o_slots[s * D + r] = sl;
+      for (int j = 0; j < 5; ++j) a.o_pred[(s * D + r) * 5 + j] = u[j].mp;
+      if (sm.valid[r] && !ovf) {
+        for (int j = 0; j < 5; ++j) {
+          st.mp[t * 5 + j] = u[j].mp;
+          st.mv[t * 5 + j] = u[j].mv;
+          st.cpp[t * 5 + j] = u[j].cpp;
+          st.cpv[t * 5 + j] = u[j].cpv;
+          st.cvv[t * 5 + j] = u[j].cvv;
+          st.pred[t * 5 + j] = u[j].mp;
+          st.obs[t * 5 + j] = z[j];
+        }
+        st.tconf[t] = sm.conf[r];
+        st.active[t] = 1;
+        st.last[t] = epoch;
+        st.length[t] = new_len;
+        st.tid[t] = new_id;
+      }
     }
-    __syncthreads();
-    if (tid == 0) {
-      *a.nid = nid0 + n_new;
+    cluster_stamp(pf, SS_KALMAN, cluster);
+    // ---- the frame's counters -------------------------------------------
+    nid += n_new;
+    if (g == 0 && tid == 0) {
       a.o_ovf[s] = ovf;
       a.o_stats[s * 3 + 0] = rounds;
       a.o_stats[s * 3 + 1] = bids;
       a.o_stats[s * 3 + 2] = 0;
+      if (pf) pf[NSORT] = barriers;
     }
     __syncthreads();
-    stamp(pf, SS_WRITE);
+    cluster_stamp(pf, SS_WRITE, cluster);
   }
+  if (a.st_smem) {
+    __syncthreads();
+    copy_slots(gst, st, nt, NTB);
+  }
+  if (g == 0 && tid == 0) *a.nid = nid;
+  // no block may leave while another can still read its shared memory
+  cluster.sync();
 }
 
 // ----------------------------------------------------------------------------
@@ -732,29 +1080,69 @@ __global__ void __launch_bounds__(NT, 1) fused_visual_kernel(VisualArgs a) {
   }
 }
 
+template <int NTB>
+cudaError_t launch_sort(const SortArgs& a, size_t bytes, cudaStream_t stream) {
+  auto kernel = fused_sort_kernel<NTB>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess && a.G > 8)
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.G);
+  cfg.blockDim = dim3(NTB);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.G;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, a);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
 }  // namespace
 
 // ----------------------------------------------------------------------------
 // C interface (loaded with ctypes)
 // ----------------------------------------------------------------------------
 
+// One cluster of G blocks of `threads` threads (0: the defaults).  A
+// block's column arrays (prices, owners, keys of all D+T columns), its
+// state slice and its W slice live in shared memory when they fit beside
+// the per-row vectors, in that order of preference, else in device memory
+// (the wrapper's `cols` and W scratch; the state in place).  plan[4] (host)
+// receives G, the threads, the storage (bits: 4 columns, 2 state, 1 W in
+// shared memory) and the shared bytes per block.
 extern "C" int fused_sort_launch(
     const void* box, const void* conf, const void* valid,
     void* mp, void* mv, void* cpp, void* cpv, void* cvv, void* pred, void* obs,
     void* tconf, void* active, void* last, void* length, void* tid, void* nid,
     void* o_ids, void* o_slots, void* o_pred, void* o_ovf, void* o_stats,
-    void* W,
-    int C, int D, int T, int epoch0, int max_idle, int recycle,
+    void* W, void* cols,
+    int C, int D, int T, int epoch0, int max_idle, int recycle, int cluster,
+    int threads,
     float thr, float min_conf, float pw2, float pw1, float vw10, float vw1,
-    void* prof, void* stream) {
-  if (D < 1 || D > NT || T < 1 || C < 1) return (int)cudaErrorInvalidValue;
+    void* prof, int* plan, void* stream) {
+  const int G = cluster > 0 ? cluster : DEFAULT_CLUSTER;
+  const int NTB = threads > 0 ? threads : DEFAULT_THREADS;
+  if (D < 1 || D > NT || T < 1 || C < 1 || G < 1 || G > MAX_CLUSTER ||
+      (NTB != 256 && NTB != 512))
+    return (int)cudaErrorInvalidValue;
+  const int Dc = (D + G - 1) / G, Tc = (T + G - 1) / G;
   SortSmem probe;
-  const size_t bytes = probe.carve(nullptr, D, T);
-  if (bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      fused_sort_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (e != cudaSuccess) return (int)e;
+  int storage = -1;
+  size_t bytes = 0;
+  const int tiers[] = {7, 6, 4, 0};
+  for (int s : tiers) {
+    bytes = probe.carve(nullptr, D, T, Tc, s & 4, s & 2, s & 1);
+    if (bytes <= MAX_SMEM) { storage = s; break; }
+  }
+  if (storage < 0) return (int)cudaErrorInvalidValue;
   SortArgs a;
   a.box = (const float*)box; a.conf = (const float*)conf;
   a.valid = (const int*)valid;
@@ -765,12 +1153,22 @@ extern "C" int fused_sort_launch(
   a.tid = (int*)tid; a.nid = (int*)nid;
   a.o_ids = (int*)o_ids; a.o_slots = (int*)o_slots;
   a.o_pred = (float*)o_pred; a.o_ovf = (int*)o_ovf;
-  a.o_stats = (int*)o_stats; a.W = (float*)W; a.prof = (long long*)prof;
+  a.o_stats = (int*)o_stats; a.W = (float*)W; a.cols = (char*)cols;
+  a.prof = (long long*)prof;
   a.C = C; a.D = D; a.T = T; a.epoch0 = epoch0; a.max_idle = max_idle;
-  a.recycle = recycle; a.thr = thr; a.min_conf = min_conf;
+  a.recycle = recycle; a.G = G; a.Dc = Dc; a.Tc = Tc;
+  a.cols_smem = (storage & 4) != 0;
+  a.st_smem = (storage & 2) != 0;
+  a.w_smem = (storage & 1) != 0;
+  a.thr = thr; a.min_conf = min_conf;
   a.kw = KalmanWeights{pw2, pw1, vw10, vw1};
-  fused_sort_kernel<<<1, NT, bytes, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  if (plan) {
+    plan[0] = G; plan[1] = NTB; plan[2] = storage; plan[3] = (int)bytes;
+  }
+  const cudaError_t e = NTB == 256
+      ? launch_sort<256>(a, bytes, (cudaStream_t)stream)
+      : launch_sort<512>(a, bytes, (cudaStream_t)stream);
+  return (int)e;
 }
 
 extern "C" int fused_visual_launch(

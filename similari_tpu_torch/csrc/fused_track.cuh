@@ -2,7 +2,9 @@
 // (fused_track.cu): block-wide reductions and scans, the box sanitizer, the
 // aligned IoU weight, the per-row Kalman step and the forward auction.
 //
-// Every helper runs on one thread block of NT threads.  Ties always go to
+// Every helper runs on one thread block of NT threads (the block-wide
+// reductions and the scan take another count, NTB, as a template
+// argument: the SORT kernel's cluster blocks are smaller).  Ties always go to
 // the lowest index, as in the reference (`similari_tpu/ops/pallas_sort.py`
 // `_row_argmax`, `forward_auction`); no atomic decides a winner.
 //
@@ -36,21 +38,37 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Block-wide max; every thread gets the result.  `red` holds NW floats.
+// Block-wide max; every thread gets the result.  `red` holds NTB / 32
+// floats.
+template <int NTB = NT>
 __device__ float block_max(float v, float* red) {
   v = warp_max(v);
   __syncthreads();
   if (lane_id() == 0) red[warp_id()] = v;
   __syncthreads();
-  return warp_max(red[lane_id()]);
+  return warp_max(lane_id() < NTB / 32 ? red[lane_id()] : -INFINITY);
+}
+
+// Block-wide sum; every thread gets the result.  `red` holds NTB / 32 ints.
+template <int NTB>
+__device__ int block_sum(int v, int* red) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  __syncthreads();
+  if (lane_id() == 0) red[warp_id()] = v;
+  __syncthreads();
+  int x = lane_id() < NTB / 32 ? red[lane_id()] : 0;
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
+  return x;
 }
 
 // In-place inclusive prefix sum of a[0..n) in shared memory.
-// `red` holds NW ints.
+// `red` holds NTB / 32 ints.
+template <int NTB = NT>
 __device__ void block_scan_inclusive(int* a, int n, int* red) {
+  constexpr int NWB = NTB / 32;
   const int lane = lane_id(), w = warp_id();
   int carry = 0;
-  for (int base = 0; base < n; base += NT) {
+  for (int base = 0; base < n; base += NTB) {
     const int i = base + threadIdx.x;
     int v = i < n ? a[i] : 0;
     for (int o = 1; o < 32; o <<= 1) {
@@ -61,7 +79,7 @@ __device__ void block_scan_inclusive(int* a, int n, int* red) {
     if (lane == 31) red[w] = v;
     __syncthreads();
     if (w == 0) {
-      int x = red[lane];
+      int x = lane < NWB ? red[lane] : 0;
       for (int o = 1; o < 32; o <<= 1) {
         int y = __shfl_up_sync(FULL, x, o);
         if (lane >= o) x += y;
@@ -70,7 +88,7 @@ __device__ void block_scan_inclusive(int* a, int n, int* red) {
     }
     __syncthreads();
     if (i < n) a[i] = v + carry + (w > 0 ? red[w - 1] : 0);
-    carry += red[NW - 1];
+    carry += red[NWB - 1];
     __syncthreads();
   }
 }

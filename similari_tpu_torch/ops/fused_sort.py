@@ -35,9 +35,22 @@ SortTuple = Tuple[torch.Tensor, ...]
 
 # the phases of a frame in `fused_sort_kernel`, in order; a profiled launch
 # stamps the start of the frame and the end of each into an int64
-# [C, len(PHASES) + 1] buffer (`csrc/fused_track.cu::SS_*`)
+# [C, PROF_WIDTH] buffer (`csrc/fused_track.cu::SS_*`), and the frame's
+# cluster barriers into its last column
 PHASES = ("rows and tracks", "weights", "span", "auction", "match", "slots",
           "Kalman", "state write")
+PROF_WIDTH = len(PHASES) + 2
+# the launch: one cluster of CLUSTER blocks of THREADS threads (0: the
+# kernel's defaults, 8 and 256)
+CLUSTER, THREADS = 0, 0
+# where a block keeps its data (`fused_sort_chunk.plan["storage"]`, bits:
+# 4 the auction's column arrays, 2 its state slice, 1 its W slice in shared
+# memory; the rest in device memory)
+STORAGE = {7: "columns, state and W in shared memory",
+           6: "columns and state in shared memory, W in device memory",
+           4: "columns in shared memory, state and W in device memory",
+           0: "all in device memory"}
+MAX_CLUSTER = 16
 
 
 # ---------------------------------------------------------------------------
@@ -263,11 +276,11 @@ def bid_keys(bid: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
 
 def cluster_auction_replay(A: torch.Tensor, dvalid: torch.Tensor, g: int):
     """`forward_auction_plain` as G column blocks run it: each block takes
-    the pending rows' (first max, column, runner-up) over its own columns,
-    the partials merge in ascending block order by `warp_top2`'s rule, the
-    bid goes to the column's owner, which keeps the highest (bid, lowest
-    row) key, and every block rebuilds r2c from the owners' c2r.  Returns
-    (r2c[D], rounds, bids)."""
+    the bidding rows' (first max, column, runner-up) over its own columns,
+    the partials merge in ascending block order by `warp_top2`'s rule, each
+    column keeps the bid with the highest (bid, lowest row) key, and the
+    winners take their columns, evicting the owners.  Returns (r2c[D],
+    rounds, bids)."""
     d, n = A.shape
     span = torch.clamp(A.max(), min=1e-6)
     eps = span / max(4096.0, 64.0 * d)
@@ -278,13 +291,14 @@ def cluster_auction_replay(A: torch.Tensor, dvalid: torch.Tensor, g: int):
     c2r = torch.full((n,), -1, dtype=torch.int64)
     r2c = torch.where(dvalid, -1, 0).to(torch.int64)
     rounds = bids = 0
+    none = torch.iinfo(torch.int64).min
     while rounds < MAX_AUCTION_ROUNDS:
         pending = dvalid & (r2c < 0)
         if not bool(pending.any()):
             break
         rounds += 1
         bids += int(pending.sum())
-        b1, i1, b2 = None, None, None
+        b1 = i1 = b2 = None
         for cols in blocks:  # ascending block order
             pb1, pi1, pb2 = _top2(A[:, cols] - prices[cols], n)
             if len(cols):
@@ -298,16 +312,16 @@ def cluster_auction_replay(A: torch.Tensor, dvalid: torch.Tensor, g: int):
             b1, i1 = torch.where(take, pb1, b1), torch.where(take, pi1, i1)
         bid = prices[i1] + (b1 - b2) + eps
         bidding = pending & (bid > NEG * 0.5)
-        key = torch.full((n,), torch.iinfo(torch.int64).min)
-        key = key.scatter_reduce(0, i1[bidding],
-                                 bid_keys(bid, rows)[bidding], "amax")
-        got = key > torch.iinfo(torch.int64).min
-        win_row = 0xFFFFFFFF - (key[got] & 0xFFFFFFFF)
-        c2r[got] = win_row
-        prices[got] = bid[win_row]
-        cand = torch.where(r2c >= 0, r2c, i1)
-        r2c = torch.where(dvalid, torch.where(c2r[cand] == rows, cand, -1),
-                          r2c)
+        keys = bid_keys(bid, rows)
+        best = torch.full((n,), none).scatter_reduce(
+            0, i1[bidding], keys[bidding], "amax")
+        won = bidding & (best[i1] == keys)
+        cols = i1[won]
+        old = c2r[cols]
+        r2c[old[old >= 0]] = -1
+        c2r[cols] = rows[won]
+        prices[cols] = bid[won]
+        r2c[won] = cols
     return r2c, rounds, bids
 
 
@@ -391,14 +405,16 @@ def fused_sort_chunk(cfg: SortConfig, state: SortTuple, box: torch.Tensor,
     pred f32[C,D,5], overflow bool[C], stats i32[C,3]) where stats holds
     the auction rounds, the bids made and (0) per frame.
     CUDA tensors launch the kernel; CPU tensors run the plain version.
-    `prof`, an int64 [C, len(PHASES) + 1] CUDA tensor, receives the
-    kernel's phase stamps (ns of the device's global timer).
+    `prof`, an int64 [C, PROF_WIDTH] CUDA tensor, receives the kernel's
+    phase stamps (ns of the device's global timer) and cluster barriers.
+    A launch records its cluster size, threads per block, storage and
+    shared bytes in `fused_sort_chunk.plan`.
     """
     check_sort_scope(cfg)
     valid = valid.to(_I32)
     check_chunk_inputs(state, box, conf, valid,
                        sort_state_shapes(state[0].shape[0]))
-    check_prof(prof, box, len(PHASES) + 1)
+    check_prof(prof, box, PROF_WIDTH)
     if box.device.type == "cpu":
         return fused_sort_chunk_plain(cfg, state, box, conf, valid, epoch0)
     if box.device.type != "cuda":
@@ -417,19 +433,26 @@ def fused_sort_chunk(cfg: SortConfig, state: SortTuple, box: torch.Tensor,
     ovf = torch.empty((c,), dtype=_I32, device=dev)
     stats = torch.empty((c, 3), dtype=_I32, device=dev)
     W = torch.empty((d, t), dtype=_F32, device=dev)
+    cols = torch.empty((MAX_CLUSTER, 4 * (d + t)), dtype=_I32, device=dev)
     pw, vw = cfg.position_weight, cfg.velocity_weight
+    plan = (ctypes.c_int * 4)()
     code = lib.fused_sort_launch(
-        *pointers(box, conf, valid, *st, ids, slots, pred, ovf, stats, W),
+        *pointers(box, conf, valid, *st, ids, slots, pred, ovf, stats, W,
+                  cols),
         c, d, t, int(epoch0), cfg.max_idle_epochs, int(cfg.recycle_idle),
-        cfg.iou_threshold, cfg.min_confidence, 2.0 * pw, 1.0 * pw, 10.0 * vw,
-        1.0 * vw, None if prof is None else prof.data_ptr(),
+        CLUSTER, THREADS, cfg.iou_threshold, cfg.min_confidence, 2.0 * pw,
+        1.0 * pw, 10.0 * vw, 1.0 * vw,
+        None if prof is None else prof.data_ptr(), plan,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     check(code, "fused_sort_launch")
+    fused_sort_chunk.plan = dict(zip(
+        ("cluster", "threads", "storage", "smem_bytes"), plan))
     fused_sort_chunk.launches += 1
     return st, ids, slots, pred, ovf > 0, stats
 
 
 fused_sort_chunk.launches = 0
+fused_sort_chunk.plan = None
 
 
 # ---------------------------------------------------------------------------

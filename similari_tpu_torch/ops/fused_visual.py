@@ -51,6 +51,7 @@ VisualTuple = Tuple[torch.Tensor, ...]
 PHASES = ("rows and tracks", "lists", "positional pass", "norms",
           "gallery distances", "votes", "argmaxes", "auction",
           "slots and KF", "state write")
+PROF_WIDTH = len(PHASES) + 1
 
 
 def check_visual_scope(cfg: VisualConfig) -> None:
@@ -261,7 +262,7 @@ def fused_visual_chunk(cfg: VisualConfig, state: VisualTuple, box, conf,
     (candidate, gallery lane) pairs per frame, the pairs whose distance
     the kernel scores.
     CUDA tensors launch the kernels; CPU tensors run the plain version.
-    `prof`, an int64 [C, len(PHASES) + 1] CUDA tensor, receives the
+    `prof`, an int64 [C, PROF_WIDTH] CUDA tensor, receives the
     kernel's phase stamps (ns of the device's global timer).
     """
     check_visual_scope(cfg)
@@ -277,7 +278,7 @@ def fused_visual_chunk(cfg: VisualConfig, state: VisualTuple, box, conf,
             raise ValueError("fvalid, qual and oa must be [C, D]")
     if qual.dtype != _F32 or oa.dtype != _F32:
         raise TypeError("qual and oa must be float32")
-    check_prof(prof, box, len(PHASES) + 1)
+    check_prof(prof, box, PROF_WIDTH)
     if box.device.type == "cpu":
         return fused_visual_chunk_plain(cfg, state, box, conf, valid, feat,
                                         fvalid, qual, oa, epoch0)

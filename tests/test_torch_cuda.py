@@ -74,22 +74,59 @@ def _unit_conf(box, valid):
     return box, np.ones(valid.shape, np.float32), valid
 
 
+def _padded_frames():
+    """Random-walk rows with two frames of padding only."""
+    box, valid = sort_stream(4, 8, 16)
+    valid[2] = False
+    valid[5] = False
+    return _unit_conf(box, valid)
+
+
+def _walk(seed, steps, d, spread):
+    box, valid = sort_stream(seed, steps, d, density=spread)
+    box[..., 3] = np.random.default_rng(seed).uniform(0.5, 1.5, (steps, d))
+    return box, np.random.default_rng(seed + 1).uniform(
+        0.4, 1.0, (steps, d)).astype(np.float32), valid
+
+
+# name: (config, stream, capacity T, `fused_sort_chunk.plan["storage"]`
+# or None)
 SORT_CASES = {
-    "stream": (dict(), lambda: _unit_conf(*sort_stream(0, 8, 8)), 32),
+    "stream": (dict(), lambda: _unit_conf(*sort_stream(0, 8, 8)), 32, None),
     "overflow": (dict(max_idle_epochs=2),
-                 lambda: _unit_conf(*sort_overflow_stream(8, 8)), 8),
+                 lambda: _unit_conf(*sort_overflow_stream(8, 8)), 8, None),
     "overflow_recycle": (dict(max_idle_epochs=2, recycle_idle=True),
-                         lambda: _unit_conf(*sort_overflow_stream(8, 8)), 8),
+                         lambda: _unit_conf(*sort_overflow_stream(8, 8)), 8,
+                         None),
     # several auction rounds per frame, equal bids from an exact copy
     "crowded": (dict(recycle_idle=True),
                 lambda: crowded_stream(0, 8, 16, 12, 16, 133.0,
-                                       copies=1)[:3], 64),
+                                       copies=1)[:3], 64, None),
+    "padded_frames": (dict(), _padded_frames, 64, None),
+    # D in {1, 128, 1024} against T in {200, 500, 512, 2000, 4000, 8000}:
+    # ragged column slices, and each storage of a block's data
+    "d1_t200": (dict(), lambda: _walk(1, 8, 1, 50.0), 200, 7),
+    "d1_t500": (dict(), lambda: _walk(2, 8, 1, 50.0), 500, 7),
+    "d128_t200": (dict(recycle_idle=True), lambda: crowded_stream(
+        1, 8, 128, 100, 16, 400.0)[:3], 200, 7),
+    "d128_t500": (dict(), lambda: crowded_stream(2, 8, 128, 100, 16,
+                                                 400.0)[:3], 500, 7),
+    "d128_t512": (dict(), lambda: _walk(3, 8, 128, 1000.0), 512, 7),
+    "d128_t2000": (dict(), lambda: _walk(4, 8, 128, 1000.0), 2000, 7),
+    "d1024_t512": (dict(max_idle_epochs=1), lambda: _walk(5, 8, 1024,
+                                                          3000.0), 512, 6),
+    "d1024_t2000": (dict(), lambda: _walk(6, 4, 1024, 3000.0), 2000, 6),
+    "d1024_t4000": (dict(), lambda: _walk(7, 4, 1024, 3000.0), 4000, 4),
+    "d1024_t8000": (dict(), lambda: _walk(8, 4, 1024, 3000.0), 8000, 0),
 }
 
 
 @pytest.mark.parametrize("case", sorted(SORT_CASES))
 def test_fused_sort_kernel_matches_plain(cuda, case):
-    kw, make, t = SORT_CASES[case]
+    """One cluster of 8 blocks; a block's column arrays, state slice and W
+    slice in shared memory where they fit, else in device memory, as
+    `storage` says."""
+    kw, make, t, storage = SORT_CASES[case]
     cfg = SortConfig(method="iou", oriented=False, **dict(
         dict(max_idle_epochs=5), **kw))
     inputs = [torch.tensor(x, device=cuda) for x in make()]
@@ -98,8 +135,46 @@ def test_fused_sort_kernel_matches_plain(cuda, case):
     before = fs.fused_sort_chunk.launches
     k = _chunks(fs.fused_sort_chunk, cfg, st, inputs, steps)
     assert fs.fused_sort_chunk.launches == before + steps // CHUNK
+    assert fs.fused_sort_chunk.plan["cluster"] == 8
+    if storage is not None:
+        assert fs.fused_sort_chunk.plan["storage"] == storage
     p = _chunks(fs.fused_sort_chunk_plain, cfg, st, inputs, steps)
     _assert_same(k, p)
+
+
+@pytest.mark.parametrize("threads", [256, 512])
+@pytest.mark.parametrize("cluster", [2, 4, 8, 16])
+def test_fused_sort_cluster_shapes_match_plain(cuda, cluster, threads,
+                                               monkeypatch):
+    """Every cluster size and block width the launcher takes gives the
+    plain chunk's results on a contested stream with a ragged T."""
+    monkeypatch.setattr(fs, "CLUSTER", cluster)
+    monkeypatch.setattr(fs, "THREADS", threads)
+    cfg = SortConfig(method="iou", oriented=False, recycle_idle=True)
+    inputs = [torch.tensor(x, device=cuda)
+              for x in crowded_stream(3, 8, 64, 40, 16, 250.0)[:3]]
+    st = fs.state_to_tuple(new_sort_state(300, 1, device=cuda))
+    k = _chunks(fs.fused_sort_chunk, cfg, st, inputs, 8)
+    assert fs.fused_sort_chunk.plan["cluster"] == cluster
+    assert fs.fused_sort_chunk.plan["threads"] == threads
+    _assert_same(k, _chunks(fs.fused_sort_chunk_plain, cfg, st, inputs, 8))
+
+
+def test_fused_sort_phase_stamps(cuda):
+    """A profiled launch stamps every phase in order and counts the
+    cluster barriers: two per frame, one per auction round."""
+    cfg = SortConfig(method="iou", oriented=False)
+    box, conf, valid = (torch.tensor(x, device=cuda)
+                        for x in crowded_stream(0, CHUNK, 16, 12, 16, 133.0,
+                                                copies=1)[:3])
+    st = fs.state_to_tuple(new_sort_state(64, 1, device=cuda))
+    prof = torch.zeros((CHUNK, fs.PROF_WIDTH), dtype=torch.int64,
+                       device=cuda)
+    stats = fs.fused_sort_chunk(cfg, st, box, conf, valid, 1, prof=prof)[5]
+    prof = prof.cpu()
+    stamps = prof[:, :len(fs.PHASES) + 1]
+    assert bool((stamps[:, 1:] >= stamps[:, :-1]).all())
+    assert torch.equal(prof[:, -1], 2 + stats[:, 0].cpu().long())
 
 
 VISUAL_CASES = {

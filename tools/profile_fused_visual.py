@@ -61,14 +61,14 @@ def main(argv=None) -> int:
         fv.fused_visual_chunk(cfg, st0, *(x[:CHUNK] for x in inputs), 1)
         runs = [cs.run_chunks(fv.fused_visual_chunk, cfg, st0, inputs)[2]
                 for _ in range(3)]
-        per_phase, frame = cs.phase_split(fv.fused_visual_chunk, fv.PHASES,
-                                          cfg, st0, inputs)
+        per_phase, frame, _ = cs.phase_split(fv, fv.fused_visual_chunk, cfg,
+                                             st0, inputs)
         out[name] = dict(chunk_ms=runs, frame_ms=frame,
                          phases=dict(zip(fv.PHASES, per_phase.tolist())))
         cs.log(f"{name}: {', '.join(f'{x:.4f}' for x in runs)} ms per "
                f"{CHUNK}-frame chunk")
         cs.log_split(f"fused_visual[main_path, {name}]", fv.PHASES,
-                     (per_phase, frame))
+                     (per_phase, frame, None))
     dets, feats = cs.synthetic_sequence(1024, args.seed + 2)
     fps = [run_sequence_device_visual(dets, feats, capacity=cs.T,
                                       gallery=cs.K)[1] for _ in range(2)]
