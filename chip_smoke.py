@@ -496,17 +496,22 @@ def ids_per_object(out):
     return [len(set(ids[:, i].tolist())) for i in range(ids.shape[1])], ids
 
 
-def visual_device_ms(dets, feats):
-    """torch.profiler over `run_sequence_device_visual` on the first
-    PROFILED_FRAMES frames: {kernel: (device ms per launch, launches)} for
-    the fused visual path's two kernels."""
+def main_path_device_ms(dets, feats):
+    """torch.profiler over `run_sequence_device_visual` and
+    `run_sequence_device` on the first PROFILED_FRAMES frames: {kernel:
+    (device ms per launch, launches)} for the fused paths' three
+    kernels."""
     frames = sorted(dets)[:PROFILED_FRAMES]
     sub_d = {f: dets[f] for f in frames}
     sub_f = {f: feats[f] for f in frames}
     _, _, kernels = device_profile(lambda: run_sequence_device_visual(
         sub_d, sub_f, capacity=T, gallery=K), len(frames))
+    _, _, sort_kernels = device_profile(
+        lambda: run_sequence_device(sub_d, capacity=T), len(frames))
+    kernels = kernels + sort_kernels
     out = {}
-    for name in ("gallery_dots_kernel", "fused_visual_kernel"):
+    for name in ("gallery_dots_kernel", "fused_visual_kernel",
+                 "fused_sort_kernel"):
         times = [e.time_range.elapsed_us() / 1e3 for e in kernels
                  if name in e.name]
         if len(times) != len(frames) // CHUNK:
@@ -545,12 +550,14 @@ def phase_main(args, dets, feats):
             raise AssertionError("main path outputs are not finite/complete")
     log(f"[4] VisualSORT: every object kept one id; SORT: "
         f"{sum(c == 1 for c in scount)}/{D_VALID} objects kept one id")
-    dev_ms = visual_device_ms(dets, feats)
-    (g_ms, n), (s_ms, _) = (dev_ms[k] for k in ("gallery_dots_kernel",
-                                                "fused_visual_kernel"))
+    dev_ms = main_path_device_ms(dets, feats)
+    (g_ms, n), (s_ms, _), (f_ms, _) = (dev_ms[k] for k in (
+        "gallery_dots_kernel", "fused_visual_kernel", "fused_sort_kernel"))
     log(f"[4] VisualSORT device ms per launch (torch.profiler, first {n} "
         f"chunks): gallery_dots_kernel {g_ms:.5f}, fused_visual_kernel "
         f"{s_ms:.5f}, both {g_ms + s_ms:.5f} per {CHUNK}-frame chunk")
+    log(f"[4] SORT device ms per launch (torch.profiler, first {n} chunks): "
+        f"fused_sort_kernel {f_ms:.5f} per {CHUNK}-frame launch")
     return launches, vout, dev_ms
 
 
@@ -1222,6 +1229,9 @@ def main(argv=None) -> int:
     part = kernels[1]["parts"][0]
     part["launches"] = launches["gallery_dots"]
     part["ms"] = dev_ms["gallery_dots_kernel"][0]
+    # the SORT chunk's CUDA-event time includes the wrapper's host work,
+    # now as long as the kernel: its entry takes the device time instead
+    kernels[0]["ms"] = dev_ms["fused_sort_kernel"][0]
     clip_entry = phase_clip(args, dev)
     clip_entry["launches"], err = phase_oriented_sort(args, dev)
     clip_entry["max_abs_err"] = max(clip_entry["max_abs_err"], err)

@@ -1,20 +1,50 @@
 // Fused SORT and VisualSORT frame kernels for Hopper (sm_90a).
 //
+// Each launch runs C consecutive frames of one sequence: a loop over frames
+// inside the kernel, since frame s needs the state frame s-1 left.  The
+// TPU's one-hot matmul scatters and gathers become indexed loads and
+// stores.
+//
 // fused_sort_kernel replaces `similari_tpu/ops/pallas_sort.py::_kernel`
-// (with `forward_auction`, `_row_argmax`, `_cumsum_rows`);
+// (with `forward_auction`, `_row_argmax`, `_cumsum_rows`), which keeps the
+// whole chunk's state in VMEM.  On this card the frame is latency-bound,
+// not bound by bytes or operations: at D=128 (pad_pow2(100)), T=512 a
+// 16-frame launch moves ~0.2 MB and needs ~21 MFLOP, 0.36 us at the card's
+// f32 rate (chip_smoke.py's bound), yet one block on one SM took 70 us per
+// frame (PERF.md section 5): the [D, T] weights pass on one SM's issue rate
+// (59%) and auction rounds of ~9.5 us each (four barriers of 1024
+// threads, every column of a bidding row read from L2, an O(D) winner
+// loop per row).  The design runs the chunk on ONE CLUSTER of G blocks
+// (default 8 x 512 threads; cudaLaunchKernelEx with a cluster dimension):
+//   - block g owns track columns [g*ceil(T/G), ...) and diagonal columns
+//     [g*ceil(D/G), ...); it computes its [D, ceil(T/G)] slice of the
+//     weights into shared memory (32 KB at the main-path shape) from
+//     per-row and per-track edge terms, one track column per thread, and
+//     keeps the state of its slots in shared memory for the whole launch
+//     (read once at the start, written once at the end), as the TPU kept
+//     it in VMEM.  Slices that do not fit go to device memory, the same
+//     code with other pointers (the launcher's plan says which);
+//   - an auction round is one cluster barrier: each block scans its own
+//     columns for every bidding row (a few lanes per row) and publishes
+//     a (first max, column, runner-up) partial; after the barrier every
+//     block reads the G partials through distributed shared memory,
+//     merges them in block order, and resolves every bid itself against
+//     its own copy of all columns' prices and owners (a shared-memory
+//     atomicMax per column on a (round, bid, lowest row) key): O(bidding
+//     rows) per round, and the copies stay equal without an exchange;
+//   - per frame two more barriers: the span (the max weight) with the
+//     free-slot counts, and the match flags, which a column's owner sets.
+//     Free slots are ranked by an exclusive scan of the blocks' counts;
+//     the block that owns a row's slot runs its Kalman step and writes.
+//
 // fused_visual_kernel replaces `similari_tpu/ops/pallas_visual.py::_kernel`
 // (with `_col_argmax` and the same helpers), together with
-// gallery_dots.cu, which computes its gallery product.
-//
-// Each launch runs C consecutive frames of one sequence on ONE thread block
-// of 1024 threads: a loop over frames inside the kernel, __syncthreads()
-// between phases, the tracker state read and written in place in device
-// memory (it stays L2-resident: 4.2 MB at T=512, K=3, F=512), per-row and
-// per-track vectors in shared memory, and the [D, T] matrices in global
-// scratch buffers the wrapper allocates.  The TPU's one-hot matmul
-// scatters and gathers become indexed loads and stores.  The frame loop is
-// sequential (frame s matches against the gallery that frames < s left),
-// so it stays on one block, one SM of 132.
+// gallery_dots.cu, which computes its gallery product.  It runs on ONE
+// thread block of 1024 threads: __syncthreads() between phases, the
+// tracker state read and written in place in device memory (it stays
+// L2-resident: 4.2 MB at T=512, K=3, F=512), per-row and per-track vectors
+// in shared memory, and the [D, T] matrices in global scratch buffers the
+// wrapper allocates.
 //
 // The gallery product leaves the loop.  The scan writes a gallery lane only
 // by copying a candidate row of the chunk into it, so every lane a frame-s
@@ -26,19 +56,16 @@
 // enters a lane) and, for each gated (candidate, lane) pair, gathers the
 // dot and both norms through it.
 //
-// Bound at the main-path shapes (D=128 after pad_pow2(100), T=512, K=3,
-// F=512): the state moves about 8.4 MB per launch (read + write), 1.3 us
-// each way at 3.35 TB/s, and the ~30,000 gated pairs per frame are L2
-// gathers.  Neither is the limit: the single block's serial phases are.
-// On an H100 (PERF.md section 5, from the `prof` phase stamps) a frame
-// takes ~0.22 ms: the [D, T] votes, positional and argmax passes ~60%,
-// the auction rounds (each a few block barriers) ~15%, the state write
-// ~12%, the gallery gather ~10%; the product adds ~0.06 ms per chunk.
-// What the design does about it: unassigned rows only are re-scanned each
-// auction round; gallery pairs are listed once per frame from compacted
-// (candidate, lane) lists; nothing leaves the block between phases except
-// through L2.  Shared-memory staging of the state and a cluster for the
-// [D, T] passes are left for later.
+// Bound at the main-path shapes (D=128, T=512, K=3, F=512): the state
+// moves about 8.4 MB per launch (read + write), 1.3 us each way at 3.35
+// TB/s, and the ~30,000 gated pairs per frame are L2 gathers.  Neither is
+// the limit: the single block's serial phases are.  On an H100 (PERF.md
+// section 5, from the `prof` phase stamps) a frame takes ~0.22 ms: the
+// [D, T] votes, positional and argmax passes ~60%, the auction rounds
+// (each a few block barriers) ~15%, the state write ~12%, the gallery
+// gather ~10%; the product adds ~0.06 ms per chunk.  Unassigned rows only
+// are re-scanned each auction round; gallery pairs are listed once per
+// frame from compacted (candidate, lane) lists.
 //
 // Ids must match the reference exactly: ties go to the lowest index
 // everywhere, the r-th new detection takes the r-th free slot, and on
@@ -59,7 +86,7 @@ constexpr int MAX_CONSTRAINTS = 8;
 constexpr int MAX_SMEM = 232448;  // bytes a block may use on sm_90
 constexpr int MAX_CLUSTER = 16;  // blocks; above 8 is non-portable
 constexpr int DEFAULT_CLUSTER = 8;  // fused SORT: blocks per cluster
-constexpr int DEFAULT_THREADS = 256;  // and threads per block
+constexpr int DEFAULT_THREADS = 512;  // and threads per block
 
 struct Carve {
   char* base;
@@ -183,13 +210,13 @@ __device__ SlotState global_slots(const SortArgs& a, int t0) {
 
 // Copies n slots between two views (launch start and end).
 __device__ void copy_slots(const SlotState& to, const SlotState& from, int n,
-                           int NTB) {
-  for (int i = threadIdx.x; i < 5 * n; i += NTB) {
+                           int nthreads) {
+  for (int i = threadIdx.x; i < 5 * n; i += nthreads) {
     to.mp[i] = from.mp[i]; to.mv[i] = from.mv[i]; to.cpp[i] = from.cpp[i];
     to.cpv[i] = from.cpv[i]; to.cvv[i] = from.cvv[i];
     to.pred[i] = from.pred[i]; to.obs[i] = from.obs[i];
   }
-  for (int i = threadIdx.x; i < n; i += NTB) {
+  for (int i = threadIdx.x; i < n; i += nthreads) {
     to.tconf[i] = from.tconf[i]; to.active[i] = from.active[i];
     to.last[i] = from.last[i]; to.length[i] = from.length[i];
     to.tid[i] = from.tid[i];
@@ -225,7 +252,7 @@ __device__ __forceinline__ float diag_max(int tid, int D, const int* valid,
 }
 
 // Kalman step of one detection against its slot's stored filter (matched)
-// or a new filter at z.  A is SortArgs or VisualArgs (same state columns).
+// or a new filter at z (VisualArgs).
 template <class A>
 __device__ void kalman_rows(const A& a, bool matched, int sl, const float* z,
                             KFRow* u) {

@@ -1,6 +1,8 @@
 // Device functions shared by the fused SORT and VisualSORT frame kernels
 // (fused_track.cu): block-wide reductions and scans, the box sanitizer, the
-// aligned IoU weight, the per-row Kalman step and the forward auction.
+// aligned IoU weight, the per-row Kalman step, and the one-block forward
+// auction of the VisualSORT kernel (the SORT kernel splits its auction
+// over a cluster, fused_track.cu).
 //
 // Every helper runs on one thread block of NT threads (the block-wide
 // reductions and the scan take another count, NTB, as a template

@@ -7,6 +7,10 @@
 IoU x confidence weights with compatibility gating, the forward auction on
 the augmented `[D, D+T]` matrix, free-slot allocation, the Kalman
 predict/update, the state write (dropped on overflow) and the overflow flag.
+The kernel runs the chunk on one thread-block cluster (`CLUSTER` blocks,
+each holding a column slice of the weights and of the state);
+`cluster_auction_replay` and `cluster_slots_replay` replay its split of
+the auction and the slot allocation on the CPU for the tests.
 
 Scope, as the reference kernel's: method = IoU on axis-aligned boxes, no
 spatio-temporal constraints, history depth 1.
@@ -41,7 +45,7 @@ PHASES = ("rows and tracks", "weights", "span", "auction", "match", "slots",
           "Kalman", "state write")
 PROF_WIDTH = len(PHASES) + 2
 # the launch: one cluster of CLUSTER blocks of THREADS threads (0: the
-# kernel's defaults, 8 and 256)
+# kernel's defaults, 8 and 512; 256 threads and 2-16 blocks also launch)
 CLUSTER, THREADS = 0, 0
 # where a block keeps its data (`fused_sort_chunk.plan["storage"]`, bits:
 # 4 the auction's column arrays, 2 its state slice, 1 its W slice in shared
@@ -214,9 +218,12 @@ def fused_sort_chunk_plain(cfg: SortConfig, state: SortTuple, box, conf,
         tgt = torch.clamp(r2c - d, 0, t - 1)
         matched = dvalid & (r2c >= d) & (W[rows, tgt] >= thr)
         is_new = dvalid & ~matched
-        slot, new_rank, n_new, overflow = (
-            cluster_slots_replay if cluster else allocate_slots)(
-            is_new, matched, tgt, ~active, *([cluster] if cluster else []))
+        if cluster:
+            slot, new_rank, n_new, overflow = cluster_slots_replay(
+                is_new, matched, tgt, ~active, cluster)
+        else:
+            slot, new_rank, n_new, overflow = allocate_slots(
+                is_new, matched, tgt, ~active)
         u = kalman_rows(spec, st, slot, matched, bx)
         new_len = torch.where(matched, st[10][slot] + 1, 1)
         new_ids = torch.where(matched, st[11][slot], st[12][0] + new_rank)
@@ -267,8 +274,8 @@ def _top2(values: torch.Tensor, n: int):
 def bid_keys(bid: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """int64 keys whose order is (bid, then the lower row): the float's bits
     made order-preserving, then the inverted row, as the kernel packs them
-    into one 64-bit word for its shared-memory atomicMax (shifted by 2^63
-    to stay signed here)."""
+    (below its round tag) into one 64-bit word for its shared-memory
+    atomicMax; shifted by 2^63 to stay signed here."""
     u = bid.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
     order = torch.where(u >= 0x80000000, 0xFFFFFFFF - u, u + 0x80000000)
     return (order - 0x80000000) * (1 << 32) + (0xFFFFFFFF - rows)

@@ -19,8 +19,13 @@ from similari_tpu.ops.pallas_sort import compiled_pallas_sort_scan, forward_auct
 from similari_tpu.trackers.sort_step import SortConfig as JaxSortConfig
 from similari_tpu.trackers.state import new_sort_state as jax_new_sort_state
 from similari_tpu_torch.convert import sort_state_from_numpy, sort_state_to_numpy
-from similari_tpu_torch.ops.fused_sort import (forward_auction_plain,
+from similari_tpu_torch.ops.assignment import MAX_AUCTION_ROUNDS
+from similari_tpu_torch.ops.fused_sort import (allocate_slots, bid_keys,
+                                               cluster_auction_replay,
+                                               cluster_slots_replay,
+                                               forward_auction_plain,
                                                fused_sort_chunk,
+                                               fused_sort_chunk_plain,
                                                fused_sort_scan,
                                                state_to_tuple)
 from similari_tpu_torch.trackers.sort_step import SortConfig
@@ -232,3 +237,127 @@ def test_chunk_rejects_malformed_inputs():
         fused_sort_chunk(cfg, st[:-1], *args, 1)
     with pytest.raises(ValueError, match="state entry"):
         fused_sort_chunk(cfg, (st[0].double(),) + st[1:], *args, 1)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's split over a cluster of G blocks, replayed on the CPU
+# ---------------------------------------------------------------------------
+
+def _replay_stream(case):
+    """(config, box, conf, valid, capacity T)."""
+    if case.startswith("stream"):
+        box, valid = sort_stream(int(case[-1]), STEPS, D)
+        return BASE, box, np.ones(valid.shape, np.float32), valid, 200
+    if case.startswith("overflow"):
+        box, valid = sort_overflow_stream(STEPS, D)
+        cfg = dict(BASE, max_idle_epochs=2,
+                   recycle_idle=case.endswith("recycle"))
+        return cfg, box, np.ones(valid.shape, np.float32), valid, 8
+    if case == "padded":
+        box, valid = sort_stream(4, STEPS, D)
+        valid[2] = False
+        valid[5] = False
+        return BASE, box, np.ones(valid.shape, np.float32), valid, 64
+    seed = int(case[-1])
+    box, conf, valid = crowded_stream(seed, STEPS, 16, 12, 16, 133.0,
+                                      copies=1)[:3]
+    return dict(BASE, recycle_idle=True), box, conf, valid, (64, 500)[seed]
+
+
+@pytest.mark.parametrize("case,g", [
+    ("stream0", 8), ("stream1", 3), ("overflow", 3), ("overflow_recycle", 8),
+    ("padded", 16), ("crowded0", 8), ("crowded1", 16)])
+def test_cluster_replay_chunk_matches_plain(case, g):
+    """The whole chunk with the auction and the slot allocation split over
+    g column blocks as the kernel splits them (T = 200, 500, 8 and 64: not
+    multiples of g) gives the plain chunk's ids, slots, overflow flags,
+    auction statistics and state exactly."""
+    kw, box, conf, valid, t = _replay_stream(case)
+    st = state_to_tuple(sort_state_from_numpy(
+        jax_state_dict(jax_new_sort_state(t, 1)), CPU))
+    args = [torch.tensor(x) for x in (box, conf, valid)]
+    cfg = SortConfig(**kw)
+    plain = fused_sort_chunk_plain(cfg, st, *args, 1)
+    replay = fused_sort_chunk_plain(cfg, st, *args, 1, cluster=g)
+    for a, b in zip(plain[1:], replay[1:]):
+        assert torch.equal(a, b)
+    for a, b in zip(plain[0], replay[0]):
+        assert torch.equal(a, b)
+    if case.startswith("crowded"):
+        assert plain[5][:, 0].float().mean() > 2
+
+
+def _auction_matrix(case):
+    """(A [D, D+T], dvalid) for the auction on its own."""
+    rng = np.random.default_rng(len(case))
+    d, t, thr = 12, 200, 0.3
+    if case == "ties":  # integer weights: equal values and equal bids
+        W = rng.integers(0, 3, size=(d, t)).astype(np.float32) * 0.25
+    elif case == "equal_rows":  # exact copies bid equal amounts
+        W = np.repeat(rng.uniform(0, 1, size=(d // 3, t)), 3, axis=0)
+        W = W.astype(np.float32)
+    elif case == "contested":
+        W = np.zeros((d, t), np.float32)
+        W[:, 7] = rng.uniform(0.5, 0.6, d)
+        W[:, 150] = rng.uniform(0.4, 0.5, d)
+    elif case == "d1":
+        d, t = 1, 500
+        W = rng.uniform(0, 1, size=(d, t)).astype(np.float32)
+    elif case == "cap":  # three rows, two equal columns: a price war
+        d, t, thr = 3, 500, 0.0
+        W = np.zeros((d, t), np.float32)
+        W[:, 3:5] = 1.0
+    else:
+        W = rng.uniform(0, 1, size=(d, t)).astype(np.float32)
+        W[W < 0.6] = 0.0
+    dvalid = np.ones(d, bool)
+    if case == "padded":
+        dvalid[d // 2:] = False
+        W[~dvalid] = 0.0
+    A = np.concatenate([np.where(np.eye(d, dtype=bool) & dvalid[:, None],
+                                 thr, 0.0).astype(np.float32), W], axis=1)
+    return torch.tensor(A), torch.tensor(dvalid)
+
+
+@pytest.mark.parametrize("g", [2, 8, 16])
+@pytest.mark.parametrize("case", ["random", "ties", "equal_rows",
+                                  "contested", "padded", "d1", "cap"])
+def test_cluster_auction_replay_matches_plain(case, g):
+    """Per-block partials merged in block order and the (bid, lowest row)
+    key per column give `forward_auction_plain`'s columns, rounds and bids
+    on ties, exact copies, one contested column, padded rows, D = 1 and a
+    price war cut at 3000 rounds."""
+    A, dvalid = _auction_matrix(case)
+    r2c, rounds, bids = forward_auction_plain(A, dvalid)
+    r2c_g, rounds_g, bids_g = cluster_auction_replay(A, dvalid, g)
+    assert torch.equal(r2c, r2c_g)
+    assert (rounds, bids) == (rounds_g, bids_g)
+    if case == "cap":
+        assert rounds == MAX_AUCTION_ROUNDS
+
+
+def test_bid_keys_order_bids_then_rows():
+    """The packed key orders by bid, then by the lower row, for positive
+    bids (the auction's), equal bids and neighbouring floats."""
+    bid = torch.tensor([0.5, 0.5, np.nextafter(np.float32(0.5), 1),
+                        1e-7, 3.0e4], dtype=torch.float32)
+    rows = torch.tensor([4, 2, 9, 0, 1023])
+    order = torch.argsort(bid_keys(bid, rows), descending=True)
+    assert order.tolist() == [4, 2, 1, 0, 3]
+
+
+@pytest.mark.parametrize("t,g", [(200, 8), (500, 16), (500, 3), (7, 8)])
+def test_cluster_slots_replay_matches_allocate_slots(t, g):
+    """Free-slot ranks as an exclusive scan of the blocks' free counts plus
+    each block's own list: the r-th new row takes the r-th free slot in
+    slot order across blocks, with and without overflow."""
+    rng = np.random.default_rng(t + g)
+    for frac, d in ((0.3, 40), (0.02, 40), (0.9, 3)):
+        free = torch.tensor(rng.uniform(size=t) < frac)
+        is_new = torch.tensor(rng.uniform(size=d) < 0.5)
+        matched = ~is_new & torch.tensor(rng.uniform(size=d) < 0.5)
+        tgt = torch.tensor(rng.integers(0, t, d))
+        want = allocate_slots(is_new, matched, tgt, free)
+        got = cluster_slots_replay(is_new, matched, tgt, free, g)
+        for a, b in zip(want, got):
+            assert torch.equal(a, b)

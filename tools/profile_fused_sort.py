@@ -8,8 +8,10 @@ ms per `fused_sort_chunk` call (three runs) and, where the checkout's
 kernel takes phase stamps, the frame's ms in each phase and the cluster
 barriers per frame from one more run; then the fused VisualSORT chunk's
 ms on its main-path config (three runs, the kernel that shares the
-header), and the frames/s of `run_sequence_device` on phase 4's
-1024-frame sequence (two runs).  One JSON line holds the numbers.
+header), the frames/s of `run_sequence_device` on phase 4's 1024-frame
+sequence (two runs), and the SORT kernel's device ms per launch on that
+path from `torch.profiler` (its first 256 frames).  One JSON line holds
+the numbers.
 
 `--root DIR` imports `chip_smoke.py` and the package from another
 checkout, for example a parent commit unpacked with `git archive`, so
@@ -127,9 +129,17 @@ def main(argv=None) -> int:
     dets, _ = cs.synthetic_sequence(1024, args.seed + 2)
     fps = [run_sequence_device(dets, capacity=cs.T)[1] for _ in range(2)]
     out["main_path_frames_per_s"] = fps
+    sub = {f: dets[f] for f in sorted(dets)[:256]}
+    _, _, kernels = cs.device_profile(
+        lambda: run_sequence_device(sub, capacity=cs.T), len(sub))
+    times = [e.time_range.elapsed_us() / 1e3 for e in kernels
+             if "fused_sort_kernel" in e.name]
+    out["main_path_kernel_ms"] = float(np.mean(times))
     cs.log(f"main path: run_sequence_device "
            f"{', '.join(f'{x:.1f}' for x in fps)} frames/s (1024 frames x "
-           f"{cs.D_VALID} objects, CUDA events)")
+           f"{cs.D_VALID} objects, CUDA events); fused_sort_kernel "
+           f"{out['main_path_kernel_ms']:.5f} ms per launch on the path "
+           f"(torch.profiler, {len(times)} launches)")
     print(json.dumps(out), flush=True)
     return 0
 
