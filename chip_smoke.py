@@ -22,8 +22,10 @@ Phases:
   4. the main path: `run_sequence_device_visual`, then `run_sequence_device`,
      on a synthetic 1024-frame sequence of 100 random-walk objects with
      512-d identities, the launch counters zeroed before and read after;
-     then `torch.profiler` over the visual path's first 256 frames for
-     each of its kernels' device time per launch;
+     then `torch.profiler` over both paths' first 256 frames for each of
+     their kernels' device time per launch (the `kernels` line's
+     `device_ms` of the two fused kernels; their `ms` is phase 3's
+     CUDA-event time of a wrapper call);
   5. the rotated-box clip kernel against its plain version
      (`pair_block_plain`): IoU at D=500, T=2000 on the x-sorted views of
      one frame of the oriented SORT stream (most tiles skip) and on the
@@ -1229,9 +1231,10 @@ def main(argv=None) -> int:
     part = kernels[1]["parts"][0]
     part["launches"] = launches["gallery_dots"]
     part["ms"] = dev_ms["gallery_dots_kernel"][0]
-    # the SORT chunk's CUDA-event time includes the wrapper's host work,
-    # now as long as the kernel: its entry takes the device time instead
-    kernels[0]["ms"] = dev_ms["fused_sort_kernel"][0]
+    # `ms` is a wrapper call's CUDA-event time (phase 3), host work
+    # included; `device_ms` the kernel's own device time on the main path
+    for k, name in zip(kernels, ("fused_sort_kernel", "fused_visual_kernel")):
+        k["device_ms"] = dev_ms[name][0]
     clip_entry = phase_clip(args, dev)
     clip_entry["launches"], err = phase_oriented_sort(args, dev)
     clip_entry["max_abs_err"] = max(clip_entry["max_abs_err"], err)

@@ -37,10 +37,10 @@ _F = ctypes.c_float
 
 # argument lists of the C launchers in csrc/fused_track.cu
 # (inputs, state, outputs, scratch pointers; ints; floats; constraint
-# tables for the visual kernel; the phase stamps; for SORT the launch plan;
-# stream)
-SORT_ARGTYPES = ([_P] * (3 + 13 + 5 + 2) + [_I] * 8 + [_F] * 6
-                 + [_P, ctypes.POINTER(_I), _P])
+# tables for the visual kernel; the phase stamps; stream)
+SORT_ARGTYPES = [_P] * (3 + 13 + 5 + 2) + [_I] * 6 + [_F] * 6 + [_P, _P]
+# fused_sort_plan: D, T; plan[4]
+SORT_PLAN_ARGTYPES = [_I, _I, ctypes.POINTER(_I)]
 VISUAL_ARGTYPES = ([_P] * (7 + 20 + 8 + 5 + 2) + [_I] * 13 + [_F] * 12
                    + [_P, _P, _P] + [_P])
 # csrc/gallery_dots.cu: x, g, dots, norms; n, m, f, d, bf16; stream
@@ -125,6 +125,8 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         lib.fused_sort_launch.argtypes = SORT_ARGTYPES
         lib.fused_sort_launch.restype = ctypes.c_int
+        lib.fused_sort_plan.argtypes = SORT_PLAN_ARGTYPES
+        lib.fused_sort_plan.restype = ctypes.c_int
         lib.fused_visual_launch.argtypes = VISUAL_ARGTYPES
         lib.fused_visual_launch.restype = ctypes.c_int
         lib.gallery_dots_launch.argtypes = DOTS_ARGTYPES

@@ -14,8 +14,10 @@
 // frame (PERF.md section 5): the [D, T] weights pass on one SM's issue rate
 // (59%) and auction rounds of ~9.5 us each (four barriers of 1024
 // threads, every column of a bidding row read from L2, an O(D) winner
-// loop per row).  The design runs the chunk on ONE CLUSTER of G blocks
-// (default 8 x 512 threads; cudaLaunchKernelEx with a cluster dimension):
+// loop per row).  The design runs the chunk on ONE CLUSTER of G = 8
+// blocks of 512 threads (cudaLaunchKernelEx with a cluster dimension; the
+// shape measured fastest of 2-16 blocks and 256 or 512 threads, PERF.md
+// section 6):
 //   - block g owns track columns [g*ceil(T/G), ...) and diagonal columns
 //     [g*ceil(D/G), ...); it computes its [D, ceil(T/G)] slice of the
 //     weights into shared memory (32 KB at the main-path shape) from
@@ -84,9 +86,8 @@ namespace {
 
 constexpr int MAX_CONSTRAINTS = 8;
 constexpr int MAX_SMEM = 232448;  // bytes a block may use on sm_90
-constexpr int MAX_CLUSTER = 16;  // blocks; above 8 is non-portable
-constexpr int DEFAULT_CLUSTER = 8;  // fused SORT: blocks per cluster
-constexpr int DEFAULT_THREADS = 512;  // and threads per block
+constexpr int SORT_CLUSTER = 8;  // fused SORT: blocks per cluster (G)
+constexpr int SORT_THREADS = 512;  // and threads per block
 
 struct Carve {
   char* base;
@@ -116,11 +117,13 @@ struct SortArgs {
   float* o_pred;  // [C, D, 5]
   int* o_ovf;  // [C]
   int* o_stats;  // [C, 3] auction rounds, bids, 0
-  float* W;  // [D, T] scratch: block g's [D, nt] slice at D * g * Tc
-  char* cols;  // [G, 16 (D+T)] bytes of scratch: block g's column arrays
+  float* W;  // [D, T] scratch, when !w_smem: block g's [D, nt] slice at
+             // D * g * Tc
+  char* cols;  // [G, 16 (D+T)] bytes of scratch, when !cols_smem: block
+               // g's column arrays
   long long* prof;  // [C, NSORT + 1] phase stamps and cluster barriers
   int C, D, T, epoch0, max_idle, recycle;
-  int G, Dc, Tc;  // cluster size; diagonal and track columns per block
+  int Dc, Tc;  // diagonal and track columns per block
   int w_smem, st_smem, cols_smem;  // W slice, state slice and column
                                    // arrays in shared memory
   float thr, min_conf;
@@ -182,9 +185,9 @@ struct SortSmem {
     frank = c.take<int>(Tc);
     flist = c.take<int>(Tc);
     xmax = c.take<float>(2);
-    gmax = c.take<float>(MAX_CLUSTER);
+    gmax = c.take<float>(SORT_CLUSTER);
     xcnt = c.take<int>(2);
-    gcnt = c.take<int>(MAX_CLUSTER);
+    gcnt = c.take<int>(SORT_CLUSTER);
     redf = c.take<float>(32);
     redi = c.take<int>(32);
     if (st_smem) {
@@ -252,17 +255,17 @@ __device__ __forceinline__ float diag_max(int tid, int D, const int* valid,
 }
 
 // Kalman step of one detection against its slot's stored filter (matched)
-// or a new filter at z (VisualArgs).
+// or a new filter at z; `a` holds the state (VisualArgs, SlotState).
 template <class A>
-__device__ void kalman_rows(const A& a, bool matched, int sl, const float* z,
-                            KFRow* u) {
+__device__ void kalman_rows(const KalmanWeights& kw, const A& a, bool matched,
+                            int sl, const float* z, KFRow* u) {
   for (int j = 0; j < 5; ++j)
-    u[j] = kf_step(a.kw, matched, j, z[j], z[4], a.mp[sl * 5 + j],
+    u[j] = kf_step(kw, matched, j, z[j], z[4], a.mp[sl * 5 + j],
                    a.mv[sl * 5 + j], a.cpp[sl * 5 + j], a.cpv[sl * 5 + j],
                    a.cvv[sl * 5 + j], a.mp[sl * 5 + 4], a.mv[sl * 5 + 4]);
 }
 
-// Writes the SORT columns of one updated slot.
+// Writes the SORT columns of one updated slot (VisualArgs, SlotState).
 template <class A>
 __device__ void write_sort_columns(const A& a, int sl, const KFRow* u,
                                    const float* z, float conf, int epoch,
@@ -319,14 +322,14 @@ __device__ __forceinline__ unsigned long long bid_key(int round, float bid,
 // alike from the same data, so they need no exchange; what crosses blocks,
 // through distributed shared memory, is the frame's max weight and free
 // counts, each round's per-block bid partials, and the match flags.
-template <int NTB>
-__global__ void __launch_bounds__(NTB, 1) fused_sort_kernel(SortArgs a) {
-  constexpr int NWB = NTB / 32;
+__global__ void __launch_bounds__(SORT_THREADS, 1)
+fused_sort_kernel(SortArgs a) {
+  constexpr int NTB = SORT_THREADS, NWB = NTB / 32, G = SORT_CLUSTER;
   extern __shared__ __align__(16) char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   SortSmem sm;
   sm.carve(smem, a.D, a.T, a.Tc, a.cols_smem, a.st_smem, a.w_smem);
-  const int D = a.D, T = a.T, N = D + T, G = a.G, Dc = a.Dc, Tc = a.Tc;
+  const int D = a.D, T = a.T, N = D + T, Dc = a.Dc, Tc = a.Tc;
   const int g = (int)cluster.block_rank();
   const int d0 = g * Dc, nd = max(min(D - d0, Dc), 0);
   const int t0 = g * Tc, nt = max(min(T - t0, Tc), 0);
@@ -514,15 +517,14 @@ __global__ void __launch_bounds__(NTB, 1) fused_sort_kernel(SortArgs a) {
       // keeps, per column, the best key of the round
       for (int k = tid; k < np; k += NTB) {
         const int r = pl[k];
-        float4 p[MAX_CLUSTER];
+        float4 p[G];
 #pragma unroll
-        for (int h = 0; h < MAX_CLUSTER; ++h)
-          if (h < G) p[h] = *cluster.map_shared_rank(&sm.part[cur * D + r], h);
+        for (int h = 0; h < G; ++h)
+          p[h] = *cluster.map_shared_rank(&sm.part[cur * D + r], h);
         float b1 = -INFINITY, b2 = -INFINITY;
         int i1 = N;
 #pragma unroll
-        for (int h = 0; h < MAX_CLUSTER; ++h) {
-          if (h >= G) break;
+        for (int h = 0; h < G; ++h) {
           const int oi1 = __float_as_int(p[h].y);
           const bool take = (p[h].x > b1) || (p[h].x == b1 && oi1 < i1);
           const float nb2 = take ? fmaxf(b1, p[h].z) : fmaxf(p[h].x, b2);
@@ -606,35 +608,14 @@ __global__ void __launch_bounds__(NTB, 1) fused_sort_kernel(SortArgs a) {
       const int t = sl - t0;
       const float* z = &sm.box[r * 5];
       KFRow u[5];
-      for (int j = 0; j < 5; ++j)
-        u[j] = kf_step(a.kw, m, j, z[j], z[4], m ? st.mp[t * 5 + j] : 0.0f,
-                       m ? st.mv[t * 5 + j] : 0.0f,
-                       m ? st.cpp[t * 5 + j] : 0.0f,
-                       m ? st.cpv[t * 5 + j] : 0.0f,
-                       m ? st.cvv[t * 5 + j] : 0.0f,
-                       m ? st.mp[t * 5 + 4] : 0.0f,
-                       m ? st.mv[t * 5 + 4] : 0.0f);
+      kalman_rows(a.kw, st, m, t, z, u);
       const int new_len = m ? st.length[t] + 1 : 1;
       const int new_id = m ? st.tid[t] : nid + k;
       a.o_ids[s * D + r] = new_id;
       a.o_slots[s * D + r] = sl;
       for (int j = 0; j < 5; ++j) a.o_pred[(s * D + r) * 5 + j] = u[j].mp;
-      if (sm.valid[r] && !ovf) {
-        for (int j = 0; j < 5; ++j) {
-          st.mp[t * 5 + j] = u[j].mp;
-          st.mv[t * 5 + j] = u[j].mv;
-          st.cpp[t * 5 + j] = u[j].cpp;
-          st.cpv[t * 5 + j] = u[j].cpv;
-          st.cvv[t * 5 + j] = u[j].cvv;
-          st.pred[t * 5 + j] = u[j].mp;
-          st.obs[t * 5 + j] = z[j];
-        }
-        st.tconf[t] = sm.conf[r];
-        st.active[t] = 1;
-        st.last[t] = epoch;
-        st.length[t] = new_len;
-        st.tid[t] = new_id;
-      }
+      if (sm.valid[r] && !ovf)
+        write_sort_columns(st, t, u, z, sm.conf[r], epoch, new_len, new_id);
     }
     cluster_stamp(pf, SS_KALMAN, cluster);
     // ---- the frame's counters -------------------------------------------
@@ -1028,7 +1009,7 @@ __global__ void __launch_bounds__(NT, 1) fused_visual_kernel(VisualArgs a) {
       const bool is_new = sm.valid[tid] && !m;
       sl = slot_of(m, sm.tgt[tid], sm.nr[tid], sm.flist, n_free, T);
       sm.slot[tid] = sl;
-      kalman_rows(a, m, sl, &sm.box[tid * 5], u);
+      kalman_rows(a.kw, a, m, sl, &sm.box[tid * 5], u);
       new_len = m ? a.length[sl] + 1 : 1;
       new_id = m ? a.tid[sl] : nid0 + sm.nr[tid];
       // live lanes of the target row, quality-sorted eviction
@@ -1107,29 +1088,21 @@ __global__ void __launch_bounds__(NT, 1) fused_visual_kernel(VisualArgs a) {
   }
 }
 
-template <int NTB>
-cudaError_t launch_sort(const SortArgs& a, size_t bytes, cudaStream_t stream) {
-  auto kernel = fused_sort_kernel<NTB>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e == cudaSuccess && a.G > 8)
-    e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (e != cudaSuccess) return e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.G);
-  cfg.blockDim = dim3(NTB);
-  cfg.dynamicSmemBytes = bytes;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = a.G;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, a);
-  return e != cudaSuccess ? e : cudaGetLastError();
+// Where a block of the SORT cluster keeps its data: the storage bits (4 the
+// column arrays, prices, owners and keys of all D+T columns; 2 its state
+// slice; 1 its W slice in shared memory, in that order of preference, the
+// rest in device memory) and the shared bytes per block; -1 when D is out
+// of range.
+int sort_storage(int D, int T, size_t* bytes) {
+  if (D < 1 || D > NT || T < 1) return -1;
+  const int Tc = (T + SORT_CLUSTER - 1) / SORT_CLUSTER;
+  SortSmem probe;
+  const int tiers[] = {7, 6, 4, 0};
+  for (int s : tiers) {
+    *bytes = probe.carve(nullptr, D, T, Tc, s & 4, s & 2, s & 1);
+    if (*bytes <= MAX_SMEM) return s;
+  }
+  return -1;
 }
 
 }  // namespace
@@ -1138,38 +1111,38 @@ cudaError_t launch_sort(const SortArgs& a, size_t bytes, cudaStream_t stream) {
 // C interface (loaded with ctypes)
 // ----------------------------------------------------------------------------
 
-// One cluster of G blocks of `threads` threads (0: the defaults).  A
-// block's column arrays (prices, owners, keys of all D+T columns), its
-// state slice and its W slice live in shared memory when they fit beside
-// the per-row vectors, in that order of preference, else in device memory
-// (the wrapper's `cols` and W scratch; the state in place).  plan[4] (host)
-// receives G, the threads, the storage (bits: 4 columns, 2 state, 1 W in
-// shared memory) and the shared bytes per block.
+// The launch plan of the SORT kernel at D rows and T slots: plan[4] (host)
+// receives the cluster size, the threads per block, the storage (see
+// sort_storage) and the shared bytes per block.
+extern "C" int fused_sort_plan(int D, int T, int* plan) {
+  size_t bytes = 0;
+  const int storage = sort_storage(D, T, &bytes);
+  if (storage < 0) return (int)cudaErrorInvalidValue;
+  plan[0] = SORT_CLUSTER;
+  plan[1] = SORT_THREADS;
+  plan[2] = storage;
+  plan[3] = (int)bytes;
+  return 0;
+}
+
+// One cluster of SORT_CLUSTER blocks.  W ([D, T] f32) and cols ([G, 16
+// (D+T)] bytes) are the device-memory scratch of the W slices and the
+// column arrays; each may be null where the plan keeps them in shared
+// memory, and a launch whose plan needs a null one is refused.
 extern "C" int fused_sort_launch(
     const void* box, const void* conf, const void* valid,
     void* mp, void* mv, void* cpp, void* cpv, void* cvv, void* pred, void* obs,
     void* tconf, void* active, void* last, void* length, void* tid, void* nid,
     void* o_ids, void* o_slots, void* o_pred, void* o_ovf, void* o_stats,
     void* W, void* cols,
-    int C, int D, int T, int epoch0, int max_idle, int recycle, int cluster,
-    int threads,
+    int C, int D, int T, int epoch0, int max_idle, int recycle,
     float thr, float min_conf, float pw2, float pw1, float vw10, float vw1,
-    void* prof, int* plan, void* stream) {
-  const int G = cluster > 0 ? cluster : DEFAULT_CLUSTER;
-  const int NTB = threads > 0 ? threads : DEFAULT_THREADS;
-  if (D < 1 || D > NT || T < 1 || C < 1 || G < 1 || G > MAX_CLUSTER ||
-      (NTB != 256 && NTB != 512))
-    return (int)cudaErrorInvalidValue;
-  const int Dc = (D + G - 1) / G, Tc = (T + G - 1) / G;
-  SortSmem probe;
-  int storage = -1;
+    void* prof, void* stream) {
   size_t bytes = 0;
-  const int tiers[] = {7, 6, 4, 0};
-  for (int s : tiers) {
-    bytes = probe.carve(nullptr, D, T, Tc, s & 4, s & 2, s & 1);
-    if (bytes <= MAX_SMEM) { storage = s; break; }
-  }
-  if (storage < 0) return (int)cudaErrorInvalidValue;
+  const int storage = sort_storage(D, T, &bytes);
+  if (storage < 0 || C < 1 || (!(storage & 1) && W == nullptr) ||
+      (!(storage & 4) && cols == nullptr))
+    return (int)cudaErrorInvalidValue;
   SortArgs a;
   a.box = (const float*)box; a.conf = (const float*)conf;
   a.valid = (const int*)valid;
@@ -1183,19 +1156,32 @@ extern "C" int fused_sort_launch(
   a.o_stats = (int*)o_stats; a.W = (float*)W; a.cols = (char*)cols;
   a.prof = (long long*)prof;
   a.C = C; a.D = D; a.T = T; a.epoch0 = epoch0; a.max_idle = max_idle;
-  a.recycle = recycle; a.G = G; a.Dc = Dc; a.Tc = Tc;
+  a.recycle = recycle;
+  a.Dc = (D + SORT_CLUSTER - 1) / SORT_CLUSTER;
+  a.Tc = (T + SORT_CLUSTER - 1) / SORT_CLUSTER;
   a.cols_smem = (storage & 4) != 0;
   a.st_smem = (storage & 2) != 0;
   a.w_smem = (storage & 1) != 0;
   a.thr = thr; a.min_conf = min_conf;
   a.kw = KalmanWeights{pw2, pw1, vw10, vw1};
-  if (plan) {
-    plan[0] = G; plan[1] = NTB; plan[2] = storage; plan[3] = (int)bytes;
-  }
-  const cudaError_t e = NTB == 256
-      ? launch_sort<256>(a, bytes, (cudaStream_t)stream)
-      : launch_sort<512>(a, bytes, (cudaStream_t)stream);
-  return (int)e;
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_sort_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(SORT_CLUSTER);
+  cfg.blockDim = dim3(SORT_THREADS);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = SORT_CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, fused_sort_kernel, a);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 extern "C" int fused_visual_launch(

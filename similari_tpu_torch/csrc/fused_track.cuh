@@ -51,18 +51,6 @@ __device__ float block_max(float v, float* red) {
   return warp_max(lane_id() < NTB / 32 ? red[lane_id()] : -INFINITY);
 }
 
-// Block-wide sum; every thread gets the result.  `red` holds NTB / 32 ints.
-template <int NTB>
-__device__ int block_sum(int v, int* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  __syncthreads();
-  if (lane_id() == 0) red[warp_id()] = v;
-  __syncthreads();
-  int x = lane_id() < NTB / 32 ? red[lane_id()] : 0;
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
-  return x;
-}
-
 // In-place inclusive prefix sum of a[0..n) in shared memory.
 // `red` holds NTB / 32 ints.
 template <int NTB = NT>

@@ -7,8 +7,8 @@
 IoU x confidence weights with compatibility gating, the forward auction on
 the augmented `[D, D+T]` matrix, free-slot allocation, the Kalman
 predict/update, the state write (dropped on overflow) and the overflow flag.
-The kernel runs the chunk on one thread-block cluster (`CLUSTER` blocks,
-each holding a column slice of the weights and of the state);
+The kernel runs the chunk on one thread-block cluster of 8 blocks, each
+holding a column slice of the weights and of the state;
 `cluster_auction_replay` and `cluster_slots_replay` replay its split of
 the auction and the slot allocation on the CPU for the tests.
 
@@ -44,9 +44,6 @@ SortTuple = Tuple[torch.Tensor, ...]
 PHASES = ("rows and tracks", "weights", "span", "auction", "match", "slots",
           "Kalman", "state write")
 PROF_WIDTH = len(PHASES) + 2
-# the launch: one cluster of CLUSTER blocks of THREADS threads (0: the
-# kernel's defaults, 8 and 512; 256 threads and 2-16 blocks also launch)
-CLUSTER, THREADS = 0, 0
 # where a block keeps its data (`fused_sort_chunk.plan["storage"]`, bits:
 # 4 the auction's column arrays, 2 its state slice, 1 its W slice in shared
 # memory; the rest in device memory)
@@ -54,7 +51,6 @@ STORAGE = {7: "columns, state and W in shared memory",
            6: "columns and state in shared memory, W in device memory",
            4: "columns in shared memory, state and W in device memory",
            0: "all in device memory"}
-MAX_CLUSTER = 16
 
 
 # ---------------------------------------------------------------------------
@@ -189,11 +185,9 @@ def check_sort_scope(cfg: SortConfig) -> None:
 
 
 def fused_sort_chunk_plain(cfg: SortConfig, state: SortTuple, box, conf,
-                           valid, epoch0: int, cluster: int = 0):
+                           valid, epoch0: int):
     """Plain PyTorch version of the fused SORT chunk (same outputs as
-    `fused_sort_chunk`), on any device.  `cluster` = G > 0 replays the
-    kernel's split of the auction and the slot allocation over G blocks
-    (`cluster_auction_replay`, `cluster_slots_replay`; tests only)."""
+    `fused_sort_chunk`), on any device."""
     st = [x.clone() for x in state]
     c, d = box.shape[:2]
     t = st[0].shape[0]
@@ -213,17 +207,12 @@ def fused_sort_chunk_plain(cfg: SortConfig, state: SortTuple, box, conf,
         m = iou * torch.clamp(conf[s], min=cfg.min_confidence)[:, None]
         W = torch.where(compat[None, :] & (inter > 0) & (m >= thr), m, 0.0)
         A = augmented(W, dvalid, thr)
-        r2c, rounds, bids = (cluster_auction_replay(A, dvalid, cluster)
-                             if cluster else forward_auction_plain(A, dvalid))
+        r2c, rounds, bids = forward_auction_plain(A, dvalid)
         tgt = torch.clamp(r2c - d, 0, t - 1)
         matched = dvalid & (r2c >= d) & (W[rows, tgt] >= thr)
         is_new = dvalid & ~matched
-        if cluster:
-            slot, new_rank, n_new, overflow = cluster_slots_replay(
-                is_new, matched, tgt, ~active, cluster)
-        else:
-            slot, new_rank, n_new, overflow = allocate_slots(
-                is_new, matched, tgt, ~active)
+        slot, new_rank, n_new, overflow = allocate_slots(
+            is_new, matched, tgt, ~active)
         u = kalman_rows(spec, st, slot, matched, bx)
         new_len = torch.where(matched, st[10][slot] + 1, 1)
         new_ids = torch.where(matched, st[11][slot], st[12][0] + new_rank)
@@ -414,8 +403,7 @@ def fused_sort_chunk(cfg: SortConfig, state: SortTuple, box: torch.Tensor,
     CUDA tensors launch the kernel; CPU tensors run the plain version.
     `prof`, an int64 [C, PROF_WIDTH] CUDA tensor, receives the kernel's
     phase stamps (ns of the device's global timer) and cluster barriers.
-    A launch records its cluster size, threads per block, storage and
-    shared bytes in `fused_sort_chunk.plan`.
+    A launch records its plan (`sort_plan`) in `fused_sort_chunk.plan`.
     """
     check_sort_scope(cfg)
     valid = valid.to(_I32)
@@ -439,27 +427,46 @@ def fused_sort_chunk(cfg: SortConfig, state: SortTuple, box: torch.Tensor,
     pred = torch.empty((c, d, 5), dtype=_F32, device=dev)
     ovf = torch.empty((c,), dtype=_I32, device=dev)
     stats = torch.empty((c, 3), dtype=_I32, device=dev)
-    W = torch.empty((d, t), dtype=_F32, device=dev)
-    cols = torch.empty((MAX_CLUSTER, 4 * (d + t)), dtype=_I32, device=dev)
+    plan = sort_plan(lib, d, t)
+    # device-memory scratch only for what the plan keeps out of shared
+    # memory: the W slices, the column arrays ([G, 4 (D+T)] words)
+    W = (None if plan["storage"] & 1 else
+         torch.empty((d, t), dtype=_F32, device=dev))
+    cols = (None if plan["storage"] & 4 else
+            torch.empty((plan["cluster"], 4 * (d + t)), dtype=_I32,
+                        device=dev))
     pw, vw = cfg.position_weight, cfg.velocity_weight
-    plan = (ctypes.c_int * 4)()
     code = lib.fused_sort_launch(
-        *pointers(box, conf, valid, *st, ids, slots, pred, ovf, stats, W,
-                  cols),
-        c, d, t, int(epoch0), cfg.max_idle_epochs, int(cfg.recycle_idle),
-        CLUSTER, THREADS, cfg.iou_threshold, cfg.min_confidence, 2.0 * pw,
-        1.0 * pw, 10.0 * vw, 1.0 * vw,
-        None if prof is None else prof.data_ptr(), plan,
+        *pointers(box, conf, valid, *st, ids, slots, pred, ovf, stats),
+        *(None if x is None else x.data_ptr() for x in (W, cols)), c, d, t,
+        int(epoch0), cfg.max_idle_epochs, int(cfg.recycle_idle),
+        cfg.iou_threshold, cfg.min_confidence,
+        2.0 * pw, 1.0 * pw, 10.0 * vw, 1.0 * vw,
+        None if prof is None else prof.data_ptr(),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     check(code, "fused_sort_launch")
-    fused_sort_chunk.plan = dict(zip(
-        ("cluster", "threads", "storage", "smem_bytes"), plan))
+    fused_sort_chunk.plan = plan
     fused_sort_chunk.launches += 1
     return st, ids, slots, pred, ovf > 0, stats
 
 
 fused_sort_chunk.launches = 0
 fused_sort_chunk.plan = None
+_PLANS: dict = {}
+
+
+def sort_plan(lib, d: int, t: int) -> dict:
+    """The kernel's launch at D = d rows and T = t slots (`fused_sort_plan`
+    in the library, asked once per shape): cluster size, threads per block,
+    storage (`STORAGE`) and shared bytes per block."""
+    if (d, t) not in _PLANS:
+        from .._build import check
+
+        out = (ctypes.c_int * 4)()
+        check(lib.fused_sort_plan(d, t, out), "fused_sort_plan")
+        _PLANS[d, t] = dict(zip(("cluster", "threads", "storage",
+                                 "smem_bytes"), out))
+    return dict(_PLANS[d, t])
 
 
 # ---------------------------------------------------------------------------

@@ -118,6 +118,9 @@ SORT_CASES = {
     "d1024_t2000": (dict(), lambda: _walk(6, 4, 1024, 3000.0), 2000, 6),
     "d1024_t4000": (dict(), lambda: _walk(7, 4, 1024, 3000.0), 4000, 4),
     "d1024_t8000": (dict(), lambda: _walk(8, 4, 1024, 3000.0), 8000, 0),
+    # contested columns with a ragged T
+    "d64_t300_crowded": (dict(recycle_idle=True), lambda: crowded_stream(
+        3, 8, 64, 40, 16, 250.0)[:3], 300, 7),
 }
 
 
@@ -135,29 +138,12 @@ def test_fused_sort_kernel_matches_plain(cuda, case):
     before = fs.fused_sort_chunk.launches
     k = _chunks(fs.fused_sort_chunk, cfg, st, inputs, steps)
     assert fs.fused_sort_chunk.launches == before + steps // CHUNK
-    assert fs.fused_sort_chunk.plan["cluster"] == 8
+    assert (fs.fused_sort_chunk.plan["cluster"],
+            fs.fused_sort_chunk.plan["threads"]) == (8, 512)
     if storage is not None:
         assert fs.fused_sort_chunk.plan["storage"] == storage
     p = _chunks(fs.fused_sort_chunk_plain, cfg, st, inputs, steps)
     _assert_same(k, p)
-
-
-@pytest.mark.parametrize("threads", [256, 512])
-@pytest.mark.parametrize("cluster", [2, 4, 8, 16])
-def test_fused_sort_cluster_shapes_match_plain(cuda, cluster, threads,
-                                               monkeypatch):
-    """Every cluster size and block width the launcher takes gives the
-    plain chunk's results on a contested stream with a ragged T."""
-    monkeypatch.setattr(fs, "CLUSTER", cluster)
-    monkeypatch.setattr(fs, "THREADS", threads)
-    cfg = SortConfig(method="iou", oriented=False, recycle_idle=True)
-    inputs = [torch.tensor(x, device=cuda)
-              for x in crowded_stream(3, 8, 64, 40, 16, 250.0)[:3]]
-    st = fs.state_to_tuple(new_sort_state(300, 1, device=cuda))
-    k = _chunks(fs.fused_sort_chunk, cfg, st, inputs, 8)
-    assert fs.fused_sort_chunk.plan["cluster"] == cluster
-    assert fs.fused_sort_chunk.plan["threads"] == threads
-    _assert_same(k, _chunks(fs.fused_sort_chunk_plain, cfg, st, inputs, 8))
 
 
 def test_fused_sort_phase_stamps(cuda):

@@ -20,6 +20,7 @@ from similari_tpu.trackers.sort_step import SortConfig as JaxSortConfig
 from similari_tpu.trackers.state import new_sort_state as jax_new_sort_state
 from similari_tpu_torch.convert import sort_state_from_numpy, sort_state_to_numpy
 from similari_tpu_torch.ops.assignment import MAX_AUCTION_ROUNDS
+from similari_tpu_torch.ops import fused_sort
 from similari_tpu_torch.ops.fused_sort import (allocate_slots, bid_keys,
                                                cluster_auction_replay,
                                                cluster_slots_replay,
@@ -267,7 +268,7 @@ def _replay_stream(case):
 @pytest.mark.parametrize("case,g", [
     ("stream0", 8), ("stream1", 3), ("overflow", 3), ("overflow_recycle", 8),
     ("padded", 16), ("crowded0", 8), ("crowded1", 16)])
-def test_cluster_replay_chunk_matches_plain(case, g):
+def test_cluster_replay_chunk_matches_plain(case, g, monkeypatch):
     """The whole chunk with the auction and the slot allocation split over
     g column blocks as the kernel splits them (T = 200, 500, 8 and 64: not
     multiples of g) gives the plain chunk's ids, slots, overflow flags,
@@ -278,7 +279,11 @@ def test_cluster_replay_chunk_matches_plain(case, g):
     args = [torch.tensor(x) for x in (box, conf, valid)]
     cfg = SortConfig(**kw)
     plain = fused_sort_chunk_plain(cfg, st, *args, 1)
-    replay = fused_sort_chunk_plain(cfg, st, *args, 1, cluster=g)
+    monkeypatch.setattr(fused_sort, "forward_auction_plain",
+                        lambda A, dvalid: cluster_auction_replay(A, dvalid, g))
+    monkeypatch.setattr(fused_sort, "allocate_slots",
+                        lambda *xs: cluster_slots_replay(*xs, g))
+    replay = fused_sort_chunk_plain(cfg, st, *args, 1)
     for a, b in zip(plain[1:], replay[1:]):
         assert torch.equal(a, b)
     for a, b in zip(plain[0], replay[0]):

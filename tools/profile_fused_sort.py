@@ -20,12 +20,8 @@ two versions can be timed in turns in one call on one card:
     for r in _archive/parent . . _archive/parent; do
         python3 tools/profile_fused_sort.py --root $r; done
 
-`--cluster G` and `--threads N` launch the kernel with another cluster
-size or block width (checkouts whose kernel takes them).
-
 Usage: python3 tools/profile_fused_sort.py [--root DIR] [--frames N]
-                                           [--seed S] [--cluster G]
-                                           [--threads N]
+                                           [--seed S]
 """
 
 from __future__ import annotations
@@ -64,8 +60,6 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--frames", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--cluster", type=int, default=0)
-    ap.add_argument("--threads", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_fused_sort: CUDA is not available", file=sys.stderr)
@@ -81,8 +75,6 @@ def main(argv=None) -> int:
     from similari_tpu_torch.trackers.state import new_sort_state
     from similari_tpu_torch.trackers.visual_state import new_visual_state
 
-    if args.cluster or args.threads:
-        fs.CLUSTER, fs.THREADS = args.cluster, args.threads
     dev = torch.device("cuda")
     cfg = sequence_sort_config()
     st0 = fs.state_to_tuple(new_sort_state(cs.T, 1, device=dev))
