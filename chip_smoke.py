@@ -4,8 +4,9 @@
 Phases:
   1. the device, and `nvidia-smi` name and power limit;
   2. the nvcc build of the CUDA kernels, timed, and the count of tensor-core
-     instructions (HMMA/HGMMA) in each form of `gallery_dots_kernel`
-     (`cuobjdump -sass`): the bf16 forms must have them;
+     instructions (HGMMA/HMMA) in each kernel of `csrc/gallery_dots.cu`
+     (`cuobjdump -sass`): the bf16 product, `gallery_dots_wgmma_kernel`,
+     must have HGMMA;
   3. each fused kernel against its plain PyTorch version on the card at
      the main path's launch shape (D=128 rows for 100 objects, T=512, the
      runners' chunk of C=16 frames; K=3, F=512 for the visual kernel):
@@ -16,22 +17,28 @@ Phases:
      random-walk objects, as on the main path, and a crowded scene whose
      auction must run several rounds per frame; on both, one extra
      profiled run of the main-path config gives the scan kernel's phase
-     split.  Then `gallery_dots_kernel` against `gallery_dots_plain` at
-     the main path's launch shape, bf16 and f32, timed beside
-     `torch.matmul` of the same operands in f32;
+     split.  Then the gallery product against `gallery_dots_plain` at
+     the main path's launch shape, bf16 and f32: the CUDA-event time of a
+     wrapper call and the profiler's device time per call, beside the
+     one PyTorch call of the same function (bf16: `torch.mm` of the bf16
+     operands with `out_dtype=torch.float32`; f32: `x @ cols.T`, TF32
+     off);
   4. the main path: `run_sequence_device_visual`, then `run_sequence_device`,
      on a synthetic 1024-frame sequence of 100 random-walk objects with
      512-d identities, the launch counters zeroed before and read after;
      then `torch.profiler` over both paths' first 256 frames for each of
      their kernels' device time per launch (the `kernels` line's
-     `device_ms` of the two fused kernels; their `ms` is phase 3's
+     `device_ms` of the two fused kernels and of `gallery_dots`, its
+     staging and product kernels together; their `ms` is phase 3's
      CUDA-event time of a wrapper call);
   5. the rotated-box clip kernel against its plain version
      (`pair_block_plain`): IoU at D=500, T=2000 on the x-sorted views of
      one frame of the oriented SORT stream (most tiles skip) and on the
      same boxes unsorted (few skip), the intersection area at n=1000 on
      the NMS stream; masks equal, floats within RTOL/ATOL, tiles run equal
-     to the plain count; identical rotated boxes give exactly 1.0;
+     to the plain count; identical rotated boxes give exactly 1.0; the
+     CUDA-event time of a wrapper call and the profiler's device time per
+     launch (the sorted case's is the entry's `device_ms`);
   6. the oriented SORT path: `sort_scan` at D=500 detections, T=2000 slots
      (bench.py's `sort_iou_oriented_500`) over --oriented-frames frames,
      the clip launches counted (one per frame), then its first 64 frames
@@ -343,19 +350,46 @@ def visual_configs():
 
 
 def mma_counts():
-    """{(bf16, vectorised copies): HMMA/HGMMA instructions} for each form
-    of `gallery_dots_kernel` in the built library (`cuobjdump -sass`)."""
+    """{kernel: (HGMMA, HMMA) instructions} for each kernel of
+    `csrc/gallery_dots.cu` in the built library (`cuobjdump -sass`): the
+    bf16 product (`gallery_dots_wgmma_kernel`), the staging pass and the
+    f32 forms."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(_build.build())],
                           capture_output=True, text=True, check=True).stdout
     counts = {}
     for part in sass.split("Function : ")[1:]:
-        m = re.search(r"gallery_dots_kernelILb([01])ELb([01])E",
+        m = re.search(r"\d(gallery_dots_[a-z0-9_]*?kernel)(ILb([01])E)?",
                       part.split("\n", 1)[0])
         if m:
-            counts[(m.group(1) == "1", m.group(2) == "1")] = len(
-                re.findall(r"\bHG?MMA\.", part))
+            name = m.group(1) + ("" if m.group(3) is None else
+                                 "<vec>" if m.group(3) == "1" else "<scalar>")
+            counts[name] = (len(re.findall(r"\bHGMMA\.", part)),
+                            len(re.findall(r"\bHMMA\.", part)))
     return counts
+
+
+def device_ms_per_call(fn, match, calls):
+    """torch.profiler over `calls` calls of fn, after one warm-up call:
+    device ms per call of the kernels whose name holds `match` (the mean
+    time of each such kernel, summed over the kernels: each runs once a
+    call; the profiler may drop some launches), and {kernel name: launches
+    seen}."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    times = {}
+    for e in prof.events():
+        if e.device_type == cuda and match in e.name:
+            times.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    return (sum(float(np.mean(t)) for t in times.values()) / 1e3,
+            {name: len(t) for name, t in times.items()})
 
 
 def phase_split(mod, chunk_fn, cfg, state, inputs):
@@ -398,12 +432,33 @@ def dots_bound_ms(n, m, needed, bf16):
             "bytes" if by_bytes >= by_ops else "operations")
 
 
+def library_dots(x, cols, bf16):
+    """(call, name): one PyTorch call of the product the kernel computes.
+    bf16: `torch.mm` of the bf16 operands with f32 sums and output (or,
+    where this PyTorch lacks `out_dtype`, with a bf16 output, named so);
+    f32: `x @ cols.T` with TF32 off."""
+    if not bf16:
+        return (lambda: gd.f32_dots(x, cols),
+                "x @ cols.T in f32, TF32 off")
+    xb, cb = x.bfloat16(), cols.bfloat16()
+    try:
+        torch.mm(xb[:1], cb[:1].T, out_dtype=torch.float32)
+    except (TypeError, RuntimeError):
+        return (lambda: torch.mm(xb, cb.T),
+                "torch.mm(x_bf16, cols_bf16.T) with a bf16 output (no "
+                "out_dtype in this PyTorch)")
+    return (lambda: torch.mm(xb, cb.T, out_dtype=torch.float32),
+            "torch.mm(x_bf16, cols_bf16.T, out_dtype=torch.float32)")
+
+
 def check_gallery_dots(dev, feat):
-    """`gallery_dots_kernel` against `gallery_dots_plain` at the main
-    path's launch shape: the stream's first chunk (N = 16 x 128 rows)
+    """The gallery product's kernels against `gallery_dots_plain` at the
+    main path's launch shape: the stream's first chunk (N = 16 x 128 rows)
     against T*K = 1536 lanes holding rows of its next chunk, bf16 and
     f32.  Every entry the scan reads within rtol 1e-5 and 1e-4 x |q| |g|,
-    norms within 1e-5.  Returns the bf16 (main path) `parts` entry."""
+    norms within 1e-5.  Times: a wrapper call's CUDA-event ms, the
+    kernels' device ms per call (profiler), and the library call's.
+    Returns the bf16 (main path) `kernels` entry."""
     x = feat[:CHUNK].reshape(CHUNK * D, F)
     g = feat[CHUNK:2 * CHUNK].reshape(-1, F)[:T * K].contiguous()
     n, m = x.shape[0], g.shape[0]
@@ -423,15 +478,20 @@ def check_gallery_dots(dev, feat):
         torch.testing.assert_close(norms, p_norms, rtol=1e-5, atol=1e-5)
         max_err = float(err[need].max())
         rel = float((err / scale.clamp(min=1e-30))[need].max())
-        k_ms = time_ms(dev, lambda: gd.gallery_dots(x, g, bf16, D), 50)
+        call = lambda: gd.gallery_dots(x, g, bf16, D)  # noqa: E731
+        k_ms = time_ms(dev, call, 50)
+        dev_ms, kernels = device_ms_per_call(call, "gallery_dots", 20)
         p_ms = time_ms(dev, lambda: gd.gallery_dots_plain(x, g, bf16), 10)
-        lib_ms = time_ms(dev, lambda: torch.matmul(x, cols.T), 50)
+        lib, lib_name = library_dots(x, cols, bf16)
+        lib_ms = time_ms(dev, lib, 50)
+        lib_dev_ms = device_ms_per_call(lib, "", 20)[0]
         needed = int(need.sum())
         bound = dots_bound_ms(n, m, needed, bf16)
         log(f"[3] {label} N={n} M={m} F={F}: max_abs_err {max_err:.3e} "
             f"(max {rel:.2e} x |q| |g|) over {needed} needed products; in a "
-            f"loop of repeats: kernel {k_ms:.5f} ms  plain {p_ms:.5f} ms  "
-            f"torch.matmul f32 (TF32 off) {lib_ms:.5f} ms  bound "
+            f"loop of repeats: kernel {k_ms:.5f} ms (device {dev_ms:.5f} ms "
+            f"per call: {kernels})  plain {p_ms:.5f} ms  {lib_name} "
+            f"{lib_ms:.5f} ms (device {lib_dev_ms:.5f})  bound "
             f"{bound[0]:.6f} ms ({bound[1]})")
         if bf16:
             entry = dict(name="gallery_dots", route="cuda",
@@ -439,7 +499,7 @@ def check_gallery_dots(dev, feat):
                          replaces="similari_tpu/ops/pallas_visual.py:245",
                          launches=0, max_abs_err=max_err, ms=k_ms,
                          plain_ms=p_ms, bound_ms=bound[0], bound_by=bound[1],
-                         library_ms=lib_ms)
+                         library_ms=lib_ms, device_ms=dev_ms)
     return entry
 
 
@@ -472,8 +532,7 @@ def phase_visual(args, dev):
                 p_ms, visual_bound_ms(CHUNK, per_launch(stats),
                                       cfg.feature_precision == "bf16"))
     entry["max_abs_err"] = max(errs)
-    entry["parts"] = [check_gallery_dots(dev, random_walk[3])]
-    return entry
+    return entry, check_gallery_dots(dev, random_walk[3])
 
 
 def synthetic_sequence(frames, seed):
@@ -511,15 +570,18 @@ def main_path_device_ms(dets, feats):
     _, _, sort_kernels = device_profile(
         lambda: run_sequence_device(sub_d, capacity=T), len(frames))
     kernels = kernels + sort_kernels
+    chunks = len(frames) // CHUNK
     out = {}
-    for name in ("gallery_dots_kernel", "fused_visual_kernel",
-                 "fused_sort_kernel"):
+    # the gallery product's two kernels (bf16: staging, then the product)
+    # count as one launch of the wrapper
+    for name, per_launch in (("gallery_dots", 2), ("fused_visual_kernel", 1),
+                             ("fused_sort_kernel", 1)):
         times = [e.time_range.elapsed_us() / 1e3 for e in kernels
                  if name in e.name]
-        if len(times) != len(frames) // CHUNK:
+        if len(times) != per_launch * chunks:
             raise AssertionError(f"profile of the main path: {len(times)} "
-                                 f"{name} launches for {len(frames)} frames")
-        out[name] = (float(np.mean(times)), len(times))
+                                 f"{name} kernels for {len(frames)} frames")
+        out[name] = (float(np.sum(times)) / chunks, chunks)
     return out
 
 
@@ -554,10 +616,11 @@ def phase_main(args, dets, feats):
         f"{sum(c == 1 for c in scount)}/{D_VALID} objects kept one id")
     dev_ms = main_path_device_ms(dets, feats)
     (g_ms, n), (s_ms, _), (f_ms, _) = (dev_ms[k] for k in (
-        "gallery_dots_kernel", "fused_visual_kernel", "fused_sort_kernel"))
+        "gallery_dots", "fused_visual_kernel", "fused_sort_kernel"))
     log(f"[4] VisualSORT device ms per launch (torch.profiler, first {n} "
-        f"chunks): gallery_dots_kernel {g_ms:.5f}, fused_visual_kernel "
-        f"{s_ms:.5f}, both {g_ms + s_ms:.5f} per {CHUNK}-frame chunk")
+        f"chunks): gallery_dots (staging + product) {g_ms:.5f}, "
+        f"fused_visual_kernel {s_ms:.5f}, both {g_ms + s_ms:.5f} per "
+        f"{CHUNK}-frame chunk")
     log(f"[4] SORT device ms per launch (torch.profiler, first {n} chunks): "
         f"fused_sort_kernel {f_ms:.5f} per {CHUNK}-frame launch")
     return launches, vout, dev_ms
@@ -611,8 +674,9 @@ def clip_bound_ms(d, t, near_pairs):
 
 
 def check_clip_case(dev, name, det_box, trk_box, want_iou):
-    """Kernel against plain version on one input; returns (kernel ms,
-    plain ms, max_abs_err, bound)."""
+    """Kernel against plain version on one input; returns (a wrapper
+    call's CUDA-event ms, plain ms, max_abs_err, bound, the kernel's device
+    ms per launch by the profiler)."""
     det8, trk8 = cl.clip_columns(det_box), cl.clip_columns(trk_box)
     tiles = torch.zeros(1, dtype=torch.int32, device=dev)
     k = cl.clip_pairs(det8, trk8, want_iou, tiles)
@@ -629,15 +693,17 @@ def check_clip_case(dev, name, det_box, trk_box, want_iou):
                              "an in-radius pair")
     d, t = far.shape
     total = -(-d // cl.TILE) * -(-t // cl.TILE)
-    k_ms = time_ms(dev, lambda: cl.clip_pairs(det8, trk8, want_iou), 20)
+    call = lambda: cl.clip_pairs(det8, trk8, want_iou)  # noqa: E731
+    k_ms = time_ms(dev, call, 20)
+    dev_ms = device_ms_per_call(call, "clip_pairs", 20)[0]
     p_ms = time_ms(dev, lambda: cl.pair_block_plain(det8, trk8, want_iou), 3)
     near = int((~far).sum())
     bound = clip_bound_ms(d, t, near)
     log(f"[5] clip[{name}] D={d} T={t} {'iou' if want_iou else 'inter'}  "
-        f"kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  max_abs_err {err:.3e}  "
-        f"tiles run {run}/{total}  in-radius pairs {near}  bound "
-        f"{bound[0]:.6f} ms ({bound[1]})")
-    return k_ms, p_ms, err, bound
+        f"kernel {k_ms:.4f} ms (device {dev_ms:.5f} ms per launch)  plain "
+        f"{p_ms:.4f} ms  max_abs_err {err:.3e}  tiles run {run}/{total}  "
+        f"in-radius pairs {near}  bound {bound[0]:.6f} ms ({bound[1]})")
+    return k_ms, p_ms, err, bound, dev_ms
 
 
 def phase_clip(args, dev):
@@ -650,7 +716,8 @@ def phase_clip(args, dev):
     active = torch.arange(OT, device=dev) < OD
     det_s = x_sorted(stream[1], torch.ones(OD, dtype=torch.bool, device=dev))
     trk_s = x_sorted(pred, active)
-    k_ms, p_ms, err, bound = check_clip_case(dev, "sorted", det_s, trk_s, True)
+    k_ms, p_ms, err, bound, dev_ms = check_clip_case(dev, "sorted", det_s,
+                                                     trk_s, True)
     g = torch.Generator(device="cpu").manual_seed(args.seed)
     errs = [err]
     errs.append(check_clip_case(
@@ -684,7 +751,8 @@ def phase_clip(args, dev):
                 source="similari_tpu_torch/csrc/clip.cu",
                 replaces="similari_tpu/ops/pallas_clip.py:96", launches=0,
                 max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms,
-                bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+                bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+                device_ms=dev_ms)
 
 
 def plain_clip_pairs(det8, trk8, want_iou, tiles=None):
@@ -1056,7 +1124,7 @@ def phase_batched_visual(args, dev):
                     raise AssertionError(f"batched VisualSORT profile: "
                                          f"{len(path)} merge kernels for "
                                          f"{n} frames")
-                entry["ms"] = float(np.mean(path))
+                entry["ms"] = entry["device_ms"] = float(np.mean(path))
     each = "; ".join(f"{f} " + ", ".join(f"{x * 1e3 / n:.3f}" for x in v)
                      for f, v in secs.items())
     log(f"[10] batched VisualSORT S={s} D={BD} T={BT} K={K} F={F} bf16, {n} "
@@ -1216,24 +1284,21 @@ def main(argv=None) -> int:
                                    "error")):
             log("    " + line.strip())
     mma = mma_counts()
-    log("[2] HMMA/HGMMA instructions in gallery_dots_kernel: " + ", ".join(
-        f"{'bf16' if b else 'f32'}{' vec' if v else ''} {n}"
-        for (b, v), n in sorted(mma.items())))
-    if len(mma) != 4 or not all(n > 0 for (b, _), n in mma.items() if b):
-        raise AssertionError("the bf16 gallery product does not run on the "
-                             "tensor cores")
+    log("[2] HGMMA / HMMA instructions in csrc/gallery_dots.cu: " + ", ".join(
+        f"{name} {hg} / {hm}" for name, (hg, hm) in sorted(mma.items())))
+    if mma.get("gallery_dots_wgmma_kernel", (0, 0))[0] == 0:
+        raise AssertionError("the bf16 gallery product does not run on "
+                             "wgmma")
 
-    kernels = [phase_sort(args, dev), phase_visual(args, dev)]
+    kernels = [phase_sort(args, dev), *phase_visual(args, dev)]
     dets, feats = synthetic_sequence(args.main_frames, args.seed + 2)
     launches, fused_out, dev_ms = phase_main(args, dets, feats)
     for k in kernels:
         k["launches"] = launches[k["name"]]
-    part = kernels[1]["parts"][0]
-    part["launches"] = launches["gallery_dots"]
-    part["ms"] = dev_ms["gallery_dots_kernel"][0]
     # `ms` is a wrapper call's CUDA-event time (phase 3), host work
-    # included; `device_ms` the kernel's own device time on the main path
-    for k, name in zip(kernels, ("fused_sort_kernel", "fused_visual_kernel")):
+    # included; `device_ms` the kernels' own device time on the main path
+    for k, name in zip(kernels, ("fused_sort_kernel", "fused_visual_kernel",
+                                 "gallery_dots")):
         k["device_ms"] = dev_ms[name][0]
     clip_entry = phase_clip(args, dev)
     clip_entry["launches"], err = phase_oriented_sort(args, dev)

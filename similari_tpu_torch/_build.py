@@ -41,10 +41,13 @@ _F = ctypes.c_float
 SORT_ARGTYPES = [_P] * (3 + 13 + 5 + 2) + [_I] * 6 + [_F] * 6 + [_P, _P]
 # fused_sort_plan: D, T; plan[4]
 SORT_PLAN_ARGTYPES = [_I, _I, ctypes.POINTER(_I)]
+# fused_visual_plan: D, T, K; plan[2]
+VISUAL_PLAN_ARGTYPES = [_I, _I, _I, ctypes.POINTER(_I)]
 VISUAL_ARGTYPES = ([_P] * (7 + 20 + 8 + 5 + 2) + [_I] * 13 + [_F] * 12
                    + [_P, _P, _P] + [_P])
-# csrc/gallery_dots.cu: x, g, dots, norms; n, m, f, d, bf16; stream
-DOTS_ARGTYPES = [_P] * 4 + [_I] * 5 + [_P]
+# csrc/gallery_dots.cu: x, g, dots, norms, bf16 staging; n, m, f, d, bf16;
+# stream
+DOTS_ARGTYPES = [_P] * 5 + [_I] * 5 + [_P]
 # csrc/clip.cu: det8, trk8, out, tiles_run; d, t, want_iou; stream
 CLIP_ARGTYPES = [_P] * 4 + [_I] * 3 + [_P]
 # csrc/merge.cu: state, src, row, valid; s, d, r; row bytes; stream
@@ -108,8 +111,10 @@ def build() -> Path:
     try:
         log = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o),
                          str(CSRC / s)] for s, o in zip(SOURCES, objs)])
+        # -ldl: gallery_dots.cu looks up the driver's TMA encoder at run
+        # time (dlopen), so the library links no driver stub
         log += _run_all([[_nvcc(), "-shared", "-o", str(tmp),
-                          *map(str, objs)]])
+                          *map(str, objs), "-ldl"]])
     finally:
         _LIB.build_seconds = time.perf_counter() - t0
         for o in objs:
@@ -127,6 +132,8 @@ def library() -> ctypes.CDLL:
         lib.fused_sort_launch.restype = ctypes.c_int
         lib.fused_sort_plan.argtypes = SORT_PLAN_ARGTYPES
         lib.fused_sort_plan.restype = ctypes.c_int
+        lib.fused_visual_plan.argtypes = VISUAL_PLAN_ARGTYPES
+        lib.fused_visual_plan.restype = ctypes.c_int
         lib.fused_visual_launch.argtypes = VISUAL_ARGTYPES
         lib.fused_visual_launch.restype = ctypes.c_int
         lib.gallery_dots_launch.argtypes = DOTS_ARGTYPES

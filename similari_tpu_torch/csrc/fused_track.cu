@@ -1184,6 +1184,19 @@ extern "C" int fused_sort_launch(
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
+// The launch of the VisualSORT kernel at D rows, T slots and K lanes:
+// plan[2] (host) receives the threads of its one block and its shared
+// bytes; returns non-zero where the launcher refuses the shape.
+extern "C" int fused_visual_plan(int D, int T, int K, int* plan) {
+  VisualSmem probe;
+  const size_t bytes = probe.carve(nullptr, D, T, K);
+  plan[0] = NT;
+  plan[1] = (int)bytes;
+  if (D < 1 || D > NT || T < 1 || K < 1 || K > 31 || bytes > MAX_SMEM)
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
 extern "C" int fused_visual_launch(
     const void* box, const void* conf, const void* valid, const void* feat,
     const void* fvalid, const void* qual, const void* oa,

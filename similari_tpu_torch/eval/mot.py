@@ -220,8 +220,11 @@ def run_sequence_device(
     (`trackers/sort_step.py::sort_scan`) frame by frame with per-frame
     epochs: IoU or Mahalanobis (`method="maha"`), assignment "auction",
     "hungarian" or "auto".  The JAX package's default is its general step
-    (`engine="xla"`); both engines give the same ids.  Returns (per-frame
-    outputs, frames/s of the timed run: CUDA-event time on the card).
+    (`engine="xla"`); both engines give the same ids.  The fused engine
+    raises ValueError, before any launch and on every device, for more
+    than 1024 detections in a frame (`ops/fused_sort.py::
+    check_sort_shape`).  Returns (per-frame outputs, frames/s of the timed
+    run: CUDA-event time on the card).
     """
     from ..trackers.state import new_sort_state
 
@@ -241,6 +244,10 @@ def run_sequence_device(
     if steps == 0:
         return {}, 0.0
     dpad = _pad_pow2(max(len(detections[f]) for f in frames))
+    if engine == "fused":
+        from ..ops.fused_sort import check_sort_shape
+
+        check_sort_shape(dpad, capacity)
     box = np.zeros((steps, dpad, 5), np.float32)
     conf = np.zeros((steps, dpad), np.float32)
     valid = np.zeros((steps, dpad), bool)
@@ -308,7 +315,11 @@ def run_sequence_device_visual(
     Remaining keyword args override `VisualConfig` fields.
     engine="fused" (the default here) runs the fused kernel over 16-frame
     chunks with its in-kernel auction (`assignment="auction"`); it takes
-    no own-area gates.  engine="step" runs the general step
+    no own-area gates, and raises ValueError before any launch, on every
+    device, for more than 1024 detections in a frame or a state past the
+    kernel's shared memory (`ops/fused_visual.py::check_visual_shape`:
+    about 2,570 slots at 128 rows and 3 lanes).  engine="step" runs the
+    general step
     (`trackers/visual_step.py::visual_scan`) frame by frame with per-frame
     epochs, any assignment, and own-area gates with shares computed on the
     device (`own_area_backend="device"`); the JAX package's `engine="xla"`.
@@ -347,6 +358,10 @@ def run_sequence_device_visual(
         default=1,
     )
     dpad = _pad_pow2(max(len(detections[f]) for f in frames))
+    if engine == "fused":
+        from ..ops.fused_visual import check_visual_shape
+
+        check_visual_shape(dpad, capacity, gallery)
     box = np.zeros((steps, dpad, 5), np.float32)
     conf = np.zeros((steps, dpad), np.float32)
     valid = np.zeros((steps, dpad), bool)

@@ -47,40 +47,72 @@ def clip_columns(boxes: torch.Tensor) -> torch.Tensor:
                         radius, area], dim=-1)
 
 
+def _edge_term(ax, ay, bx, by, i: int, tie_pass: bool) -> torch.Tensor:
+    """Edge i of A clipped to B by Liang-Barsky: its term of the boundary
+    integral; ax/ay, bx/by: 4-lists of vertex coordinates, already
+    recentred per pair."""
+    sx = ax[i]
+    sy = ay[i]
+    dex = ax[(i + 1) % 4] - sx
+    dey = ay[(i + 1) % 4] - sy
+    t0 = torch.zeros_like(sx)
+    t1 = torch.ones_like(sx)
+    ok = torch.ones(sx.shape, dtype=torch.bool, device=sx.device)
+    for h in range(4):
+        px = bx[h]
+        py = by[h]
+        dx = bx[(h + 1) % 4] - px
+        dy = by[(h + 1) % 4] - py
+        a = dx * (sy - py) - dy * (sx - px)
+        b = dx * dey - dy * dex
+        tt = -a / torch.where(b == 0.0, 1.0, b)
+        t0 = torch.where(b < 0.0, torch.maximum(t0, tt), t0)
+        t1 = torch.where(b > 0.0, torch.minimum(t1, tt), t1)
+        para_out = (b == 0.0) & (a > 0.0)
+        if tie_pass:
+            same_dir = dx * dex + dy * dey >= 0.0
+            para_out = para_out | ((b == 0.0) & (a == 0.0) & same_dir)
+        ok = ok & ~para_out
+    p0x = sx + t0 * dex
+    p0y = sy + t0 * dey
+    p1x = sx + t1 * dex
+    p1y = sy + t1 * dey
+    return torch.where(ok & (t1 > t0), p0x * p1y - p0y * p1x, 0.0)
+
+
 def _pair_integral(ax, ay, bx, by, tie_pass: bool) -> torch.Tensor:
-    """Boundary integral of A's edges clipped to B; ax/ay, bx/by: 4-lists
-    of [D, T] vertex coordinates, already recentred per pair."""
+    """Boundary integral of A's edges clipped to B: the edge terms summed
+    in order, ((c0 + c1) + c2) + c3."""
     total = None
     for i in range(4):
-        sx = ax[i]
-        sy = ay[i]
-        dex = ax[(i + 1) % 4] - sx
-        dey = ay[(i + 1) % 4] - sy
-        t0 = torch.zeros_like(sx)
-        t1 = torch.ones_like(sx)
-        ok = torch.ones(sx.shape, dtype=torch.bool, device=sx.device)
-        for h in range(4):
-            px = bx[h]
-            py = by[h]
-            dx = bx[(h + 1) % 4] - px
-            dy = by[(h + 1) % 4] - py
-            a = dx * (sy - py) - dy * (sx - px)
-            b = dx * dey - dy * dex
-            tt = -a / torch.where(b == 0.0, 1.0, b)
-            t0 = torch.where(b < 0.0, torch.maximum(t0, tt), t0)
-            t1 = torch.where(b > 0.0, torch.minimum(t1, tt), t1)
-            para_out = (b == 0.0) & (a > 0.0)
-            if tie_pass:
-                same_dir = dx * dex + dy * dey >= 0.0
-                para_out = para_out | ((b == 0.0) & (a == 0.0) & same_dir)
-            ok = ok & ~para_out
-        p0x = sx + t0 * dex
-        p0y = sy + t0 * dey
-        p1x = sx + t1 * dex
-        p1y = sy + t1 * dey
-        contrib = torch.where(ok & (t1 > t0), p0x * p1y - p0y * p1x, 0.0)
+        contrib = _edge_term(ax, ay, bx, by, i, tie_pass)
         total = contrib if total is None else total + contrib
     return total
+
+
+def _recentred(det8: torch.Tensor, trk8: torch.Tensor):
+    """Each pair's two quads around the midpoint of their centres, as
+    vertex = offset +- half the centre delta: (ax, ay, bx, by), 4-lists
+    broadcast from det8 [..., 8] against trk8 [..., 8]."""
+    ddx = det8[..., 0] - trk8[..., 0]  # centre delta (a - b)
+    ddy = det8[..., 1] - trk8[..., 1]
+    hx = 0.5 * ddx  # a_centre - midpoint; b_centre - midpoint = -hx
+    hy = 0.5 * ddy
+    a_r1x, a_r1y, a_r2x, a_r2y = (det8[..., k] for k in range(2, 6))
+    b_r1x, b_r1y, b_r2x, b_r2y = (trk8[..., k] for k in range(2, 6))
+    return ([hx + a_r1x, hx + a_r2x, hx - a_r1x, hx - a_r2x],
+            [hy + a_r1y, hy + a_r2y, hy - a_r1y, hy - a_r2y],
+            [b_r1x - hx, b_r2x - hx, -b_r1x - hx, -b_r2x - hx],
+            [b_r1y - hy, b_r2y - hy, -b_r1y - hy, -b_r2y - hy])
+
+
+def _iou(inter, area_a, area_b):
+    # union > 0: a degenerate (zero-area) box near a real one clips to the
+    # real box's area and leaves the union at +-1 ulp of zero; in exact
+    # math inter <= union, so the guard fires only on such rows
+    union = area_a + area_b - inter
+    pos = (inter > 0.0) & (union > 0.0)
+    return torch.where(pos, inter / torch.where(pos, union, 1.0), 0.0)
 
 
 def far_pairs(det8: torch.Tensor, trk8: torch.Tensor) -> torch.Tensor:
@@ -107,34 +139,34 @@ def pair_block_plain(det8: torch.Tensor, trk8: torch.Tensor,
     """Plain PyTorch version of the kernel: det8 [D, 8], trk8 [T, 8] ->
     [D, T] IoU (want_iou) or intersection area, 0 where empty or too far.
     Same arithmetic and operation order as the kernel."""
-    dxc = det8[:, 0:1]
-    dyc = det8[:, 1:2]
-    darea = det8[:, 7:8]
-    txc = trk8[None, :, 0]
-    tyc = trk8[None, :, 1]
-    tarea = trk8[None, :, 7]
-    ddx = dxc - txc  # [D, T] centre delta (a - b)
-    ddy = dyc - tyc
     far = far_pairs(det8, trk8)
-    hx = 0.5 * ddx  # a_centre - midpoint; b_centre - midpoint = -hx
-    hy = 0.5 * ddy
-    a_r1x, a_r1y, a_r2x, a_r2y = (det8[:, k:k + 1] for k in range(2, 6))
-    ax = [hx + a_r1x, hx + a_r2x, hx - a_r1x, hx - a_r2x]
-    ay = [hy + a_r1y, hy + a_r2y, hy - a_r1y, hy - a_r2y]
-    b_r1x, b_r1y, b_r2x, b_r2y = (trk8[None, :, k] for k in range(2, 6))
-    bx = [b_r1x - hx, b_r2x - hx, -b_r1x - hx, -b_r2x - hx]
-    by = [b_r1y - hy, b_r2y - hy, -b_r1y - hy, -b_r2y - hy]
+    ax, ay, bx, by = _recentred(det8[:, None, :], trk8[None, :, :])
     s = (_pair_integral(ax, ay, bx, by, False)
          + _pair_integral(bx, by, ax, ay, True))
     inter = torch.where(far, 0.0, torch.abs(s) * 0.5)
     if not want_iou:
         return inter
-    # union > 0: a degenerate (zero-area) box near a real one clips to the
-    # real box's area and leaves the union at +-1 ulp of zero; in exact
-    # math inter <= union, so the guard fires only on such rows
-    union = darea + tarea - inter
-    pos = (inter > 0.0) & (union > 0.0)
-    return torch.where(pos, inter / torch.where(pos, union, 1.0), 0.0)
+    return _iou(inter, det8[:, 7:8], trk8[None, :, 7])
+
+
+def clip_lanes_replay(det8: torch.Tensor, trk8: torch.Tensor,
+                      want_iou: bool) -> torch.Tensor:
+    """The kernel's split of the clip, replayed on the CPU (tests only):
+    the in-radius pairs listed, each pair's 8 edge terms (2 passes x 4
+    edges) computed apart, as the 8 lanes of its group do, then added in
+    the fixed order (((c0 + c1) + c2) + c3) + (((c4 + c5) + c6) + c7);
+    every other pair 0."""
+    rows, cols = (~far_pairs(det8, trk8)).nonzero(as_tuple=True)
+    a, b = det8[rows], trk8[cols]
+    ax, ay, bx, by = _recentred(a, b)
+    e = ([_edge_term(ax, ay, bx, by, i, False) for i in range(4)]
+         + [_edge_term(bx, by, ax, ay, i, True) for i in range(4)])
+    s = (((e[0] + e[1]) + e[2]) + e[3]) + (((e[4] + e[5]) + e[6]) + e[7])
+    inter = torch.abs(s) * 0.5
+    out = torch.zeros((det8.shape[0], trk8.shape[0]), dtype=_F32,
+                      device=det8.device)
+    out[rows, cols] = _iou(inter, a[:, 7], b[:, 7]) if want_iou else inter
+    return out
 
 
 def _check(det8: torch.Tensor, trk8: torch.Tensor, tiles) -> None:
@@ -171,12 +203,13 @@ def clip_pairs(det8: torch.Tensor, trk8: torch.Tensor, want_iou: bool,
     det8, trk8 = det8.contiguous(), trk8.contiguous()
     d, t = det8.shape[0], trk8.shape[0]
     out = torch.empty((d, t), dtype=_F32, device=det8.device)
-    code = lib.clip_pairs_launch(
-        ctypes.c_void_p(det8.data_ptr()), ctypes.c_void_p(trk8.data_ptr()),
-        ctypes.c_void_p(out.data_ptr()),
-        ctypes.c_void_p(None if tiles is None else tiles.data_ptr()),
-        d, t, int(want_iou),
-        ctypes.c_void_p(torch.cuda.current_stream(det8.device).cuda_stream))
+    with torch.cuda.device(det8.device):
+        code = lib.clip_pairs_launch(
+            ctypes.c_void_p(det8.data_ptr()), ctypes.c_void_p(trk8.data_ptr()),
+            ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(None if tiles is None else tiles.data_ptr()),
+            d, t, int(want_iou), ctypes.c_void_p(
+                torch.cuda.current_stream(det8.device).cuda_stream))
     check(code, "clip_pairs_launch")
     clip_pairs.launches += 1
     return out

@@ -13,7 +13,10 @@ holding a column slice of the weights and of the state;
 the auction and the slot allocation on the CPU for the tests.
 
 Scope, as the reference kernel's: method = IoU on axis-aligned boxes, no
-spatio-temporal constraints, history depth 1.
+spatio-temporal constraints, history depth 1.  Shapes: at most MAX_ROWS
+rows per frame, and a block's shared arrays within MAX_SMEM with every
+slice in device memory (`check_sort_shape`, before any launch on every
+device).
 
 The state travels as a tuple (see `state_to_tuple`):
 (mean_pos, mean_vel, cpp, cpv, cvv, pred_box, obs_box, conf, active i32,
@@ -51,6 +54,69 @@ STORAGE = {7: "columns, state and W in shared memory",
            6: "columns and state in shared memory, W in device memory",
            4: "columns in shared memory, state and W in device memory",
            0: "all in device memory"}
+# the fused kernels' limits (`csrc/fused_track.cu`, `.cuh`): a frame's rows
+# on one block of NT threads, a block's shared memory on sm_90; the SORT
+# cluster's blocks and their threads
+MAX_ROWS = 1024
+MAX_SMEM = 232448
+SORT_CLUSTER, SORT_THREADS = 8, 512
+STEP_HINT = ('; run the general step instead (engine="step" in '
+             "eval/mot.py's runners)")
+
+
+def carve_bytes(counts) -> int:
+    """Shared bytes that `Carve::take` (`csrc/fused_track.cu`) hands out
+    for arrays of 4-byte items, or (count, item bytes) pairs, in order,
+    each from a 16-byte boundary."""
+    off = 0
+    for c in counts:
+        n, size = c if isinstance(c, tuple) else (c, 4)
+        off = ((off + 15) & ~15) + n * size
+    return off
+
+
+def sort_smem_bytes(d: int, t: int, storage: int) -> int:
+    """Shared bytes per block of `SortSmem::carve` at D = d rows, T = t
+    slots and the storage bits (`STORAGE`)."""
+    tc = -(-t // SORT_CLUSTER)
+    counts = [5 * d, 5 * d] + [d] * 8 + [2 * d, 2, (2 * d, 16)]
+    if storage & 4:
+        counts += [d + t, d + t, (d + t, 8)]
+    counts += [tc, 5 * tc, tc, tc, tc, tc, 2, SORT_CLUSTER, 2, SORT_CLUSTER,
+               32, 32]
+    if storage & 2:
+        counts += [5 * tc] * 7 + [tc] * 5
+    if storage & 1:
+        counts += [d * tc]
+    return carve_bytes(counts)
+
+
+def sort_storage(d: int, t: int):
+    """(storage, shared bytes per block) that `sort_storage` in
+    `csrc/fused_track.cu` chooses: the first of 7, 6, 4, 0 that fits;
+    storage -1 (with the bytes of 0) when none fits."""
+    for s in (7, 6, 4, 0):
+        nbytes = sort_smem_bytes(d, t, s)
+        if nbytes <= MAX_SMEM:
+            return s, nbytes
+    return -1, nbytes
+
+
+def check_sort_shape(d: int, t: int):
+    """Raise ValueError, before any launch and alike on every device, for
+    a shape `fused_sort_kernel` does not take: more than MAX_ROWS rows per
+    frame, or a block's shared arrays past MAX_SMEM with every slice in
+    device memory.  Returns `sort_storage(d, t)`."""
+    if d > MAX_ROWS:
+        raise ValueError(f"the fused SORT kernel takes at most {MAX_ROWS} "
+                         f"rows per frame (one per thread), got D={d}"
+                         + STEP_HINT)
+    storage, nbytes = sort_storage(d, t)
+    if storage < 0:
+        raise ValueError(f"the fused SORT kernel's shared arrays at D={d}, "
+                         f"T={t} take {nbytes} bytes per block, past the "
+                         f"{MAX_SMEM} bytes a block may use" + STEP_HINT)
+    return storage, nbytes
 
 
 # ---------------------------------------------------------------------------
@@ -403,13 +469,17 @@ def fused_sort_chunk(cfg: SortConfig, state: SortTuple, box: torch.Tensor,
     CUDA tensors launch the kernel; CPU tensors run the plain version.
     `prof`, an int64 [C, PROF_WIDTH] CUDA tensor, receives the kernel's
     phase stamps (ns of the device's global timer) and cluster barriers.
-    A launch records its plan (`sort_plan`) in `fused_sort_chunk.plan`.
+    A launch records its plan in `fused_sort_chunk.plan`: cluster size,
+    threads per block, storage (`STORAGE`) and shared bytes per block.
     """
     check_sort_scope(cfg)
     valid = valid.to(_I32)
     check_chunk_inputs(state, box, conf, valid,
                        sort_state_shapes(state[0].shape[0]))
     check_prof(prof, box, PROF_WIDTH)
+    c, d = box.shape[:2]
+    t = state[0].shape[0]
+    storage, smem_bytes = check_sort_shape(d, t)
     if box.device.type == "cpu":
         return fused_sort_chunk_plain(cfg, state, box, conf, valid, epoch0)
     if box.device.type != "cuda":
@@ -419,54 +489,36 @@ def fused_sort_chunk(cfg: SortConfig, state: SortTuple, box: torch.Tensor,
     lib = library()
     box, conf, valid = box.contiguous(), conf.contiguous(), valid.contiguous()
     st = tuple(x.contiguous().clone() for x in state)  # updated in place
-    c, d = box.shape[:2]
-    t = st[0].shape[0]
     dev = box.device
     ids = torch.empty((c, d), dtype=_I32, device=dev)
     slots = torch.empty((c, d), dtype=_I32, device=dev)
     pred = torch.empty((c, d, 5), dtype=_F32, device=dev)
     ovf = torch.empty((c,), dtype=_I32, device=dev)
     stats = torch.empty((c, 3), dtype=_I32, device=dev)
-    plan = sort_plan(lib, d, t)
-    # device-memory scratch only for what the plan keeps out of shared
+    # device-memory scratch only for what the storage keeps out of shared
     # memory: the W slices, the column arrays ([G, 4 (D+T)] words)
-    W = (None if plan["storage"] & 1 else
-         torch.empty((d, t), dtype=_F32, device=dev))
-    cols = (None if plan["storage"] & 4 else
-            torch.empty((plan["cluster"], 4 * (d + t)), dtype=_I32,
-                        device=dev))
+    W = None if storage & 1 else torch.empty((d, t), dtype=_F32, device=dev)
+    cols = (None if storage & 4 else
+            torch.empty((SORT_CLUSTER, 4 * (d + t)), dtype=_I32, device=dev))
     pw, vw = cfg.position_weight, cfg.velocity_weight
-    code = lib.fused_sort_launch(
-        *pointers(box, conf, valid, *st, ids, slots, pred, ovf, stats),
-        *(None if x is None else x.data_ptr() for x in (W, cols)), c, d, t,
-        int(epoch0), cfg.max_idle_epochs, int(cfg.recycle_idle),
-        cfg.iou_threshold, cfg.min_confidence,
-        2.0 * pw, 1.0 * pw, 10.0 * vw, 1.0 * vw,
-        None if prof is None else prof.data_ptr(),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    with torch.cuda.device(dev):  # the launch and its attributes
+        code = lib.fused_sort_launch(
+            *pointers(box, conf, valid, *st, ids, slots, pred, ovf, stats),
+            *(None if x is None else x.data_ptr() for x in (W, cols)), c, d,
+            t, int(epoch0), cfg.max_idle_epochs, int(cfg.recycle_idle),
+            cfg.iou_threshold, cfg.min_confidence,
+            2.0 * pw, 1.0 * pw, 10.0 * vw, 1.0 * vw,
+            None if prof is None else prof.data_ptr(),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     check(code, "fused_sort_launch")
-    fused_sort_chunk.plan = plan
+    fused_sort_chunk.plan = dict(cluster=SORT_CLUSTER, threads=SORT_THREADS,
+                                 storage=storage, smem_bytes=smem_bytes)
     fused_sort_chunk.launches += 1
     return st, ids, slots, pred, ovf > 0, stats
 
 
 fused_sort_chunk.launches = 0
 fused_sort_chunk.plan = None
-_PLANS: dict = {}
-
-
-def sort_plan(lib, d: int, t: int) -> dict:
-    """The kernel's launch at D = d rows and T = t slots (`fused_sort_plan`
-    in the library, asked once per shape): cluster size, threads per block,
-    storage (`STORAGE`) and shared bytes per block."""
-    if (d, t) not in _PLANS:
-        from .._build import check
-
-        out = (ctypes.c_int * 4)()
-        check(lib.fused_sort_plan(d, t, out), "fused_sort_plan")
-        _PLANS[d, t] = dict(zip(("cluster", "threads", "storage",
-                                 "smem_bytes"), out))
-    return dict(_PLANS[d, t])
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,9 @@ in closed form; the forward auction on the positional remainder; free-slot
 allocation; the Kalman step; gallery insert with quality-sorted eviction.
 
 Scope, as the reference kernel's: axis-aligned boxes, history depth 1,
-own-area shares precomputed when own-area gating is on.
+own-area shares precomputed when own-area gating is on.  Shapes: at most
+MAX_ROWS rows per frame, MAX_LANES lanes, and shared arrays within
+MAX_SMEM (`check_visual_shape`, before any launch on every device).
 
 The state travels as a tuple (see `state_to_tuple`): the 12 SORT columns
 of `fused_sort.state_to_tuple`, then feats f32[T,K,F], feat_quality
@@ -31,7 +33,8 @@ from typing import Tuple
 
 import torch
 
-from .fused_sort import (NEG, aligned_iou, allocate_slots, augmented,
+from .fused_sort import (MAX_ROWS, MAX_SMEM, NEG, STEP_HINT, aligned_iou,
+                         allocate_slots, augmented, carve_bytes,
                          check_chunk_inputs, check_prof, first_argmax,
                          forward_auction_plain, kalman_rows, pointers,
                          sanitize_boxes, sort_state_shapes, write_rows)
@@ -72,6 +75,38 @@ def check_visual_scope(cfg: VisualConfig) -> None:
         raise ValueError(f"feature_precision {cfg.feature_precision!r}")
     if len(cfg.constraints) > 8:
         raise ValueError("at most 8 spatio-temporal constraints")
+
+
+MAX_LANES = 31  # gallery lanes per track: bits of a per-track int mask
+
+
+def visual_smem_bytes(d: int, t: int, k: int) -> int:
+    """Shared bytes of `VisualSmem::carve` (`csrc/fused_track.cu`) at D = d
+    rows, T = t slots and K = k gallery lanes, all arrays of 4-byte items
+    (the library's `fused_visual_plan` gives the same count)."""
+    nw = MAX_ROWS // 32
+    return carve_bytes([5 * d] + [d] * 20 + [t] * 10 + [k * t] * 3
+                       + [nw, nw, 1 + k, 1, d + t, d + t] + [d] * 4)
+
+
+def check_visual_shape(d: int, t: int, k: int) -> None:
+    """Raise ValueError, before any launch and alike on every device, for
+    a shape `fused_visual_kernel` does not take: more than MAX_ROWS rows
+    per frame, more than MAX_LANES lanes, or shared arrays past
+    MAX_SMEM."""
+    if d > MAX_ROWS:
+        raise ValueError(f"the fused VisualSORT kernel takes at most "
+                         f"{MAX_ROWS} rows per frame (one per thread), got "
+                         f"D={d}" + STEP_HINT)
+    if k > MAX_LANES:
+        raise ValueError(f"the fused VisualSORT kernel takes at most "
+                         f"{MAX_LANES} gallery lanes per track, got K={k}"
+                         + STEP_HINT)
+    nbytes = visual_smem_bytes(d, t, k)
+    if nbytes > MAX_SMEM:
+        raise ValueError(f"the fused VisualSORT kernel's shared arrays at "
+                         f"D={d}, T={t}, K={k} take {nbytes} bytes, past the "
+                         f"{MAX_SMEM} bytes a block may use" + STEP_HINT)
 
 
 def _gallery_distances(cfg: VisualConfig, feat, gf):
@@ -279,6 +314,7 @@ def fused_visual_chunk(cfg: VisualConfig, state: VisualTuple, box, conf,
     if qual.dtype != _F32 or oa.dtype != _F32:
         raise TypeError("qual and oa must be float32")
     check_prof(prof, box, PROF_WIDTH)
+    check_visual_shape(d, t, k)
     if box.device.type == "cpu":
         return fused_visual_chunk_plain(cfg, state, box, conf, valid, feat,
                                         fvalid, qual, oa, epoch0)
@@ -308,20 +344,22 @@ def fused_visual_chunk(cfg: VisualConfig, state: VisualTuple, box, conf,
     dd = (ctypes.c_int * max(n_cons, 1))(*[int(a) for a, _ in cons])
     md = (ctypes.c_float * max(n_cons, 1))(*[float(b) for _, b in cons])
     pw, vw = cfg.position_weight, cfg.velocity_weight
-    code = lib.fused_visual_launch(
-        *pointers(*ins, *st, *outs, *scratch, dots, norms),
-        c, d, t, k, f, int(epoch0), cfg.max_idle_epochs,
-        int(cfg.recycle_idle), cfg.visual_minimal_track_length,
-        cfg.visual_min_votes, int(cfg.positional_kind == "maha"),
-        int(cfg.visual_kind == "euclidean"), n_cons,
-        cfg.new_track_threshold, cfg.positional_min_confidence,
-        cfg.visual_threshold, cfg.visual_minimal_area,
-        cfg.visual_minimal_quality_use, cfg.visual_minimal_quality_collect,
-        cfg.own_area_use, cfg.own_area_collect,
-        2.0 * pw, 1.0 * pw, 10.0 * vw, 1.0 * vw,
-        ctypes.cast(dd, ctypes.c_void_p), ctypes.cast(md, ctypes.c_void_p),
-        None if prof is None else prof.data_ptr(),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    with torch.cuda.device(dev):  # the launch and its attributes
+        code = lib.fused_visual_launch(
+            *pointers(*ins, *st, *outs, *scratch, dots, norms),
+            c, d, t, k, f, int(epoch0), cfg.max_idle_epochs,
+            int(cfg.recycle_idle), cfg.visual_minimal_track_length,
+            cfg.visual_min_votes, int(cfg.positional_kind == "maha"),
+            int(cfg.visual_kind == "euclidean"), n_cons,
+            cfg.new_track_threshold, cfg.positional_min_confidence,
+            cfg.visual_threshold, cfg.visual_minimal_area,
+            cfg.visual_minimal_quality_use,
+            cfg.visual_minimal_quality_collect,
+            cfg.own_area_use, cfg.own_area_collect,
+            2.0 * pw, 1.0 * pw, 10.0 * vw, 1.0 * vw,
+            ctypes.cast(dd, ctypes.c_void_p), ctypes.cast(md, ctypes.c_void_p),
+            None if prof is None else prof.data_ptr(),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     check(code, "fused_visual_launch")
     fused_visual_chunk.launches += 1
     ids, slots, pred, vt, newf, length, ovf, stats = outs

@@ -16,10 +16,14 @@ operands are rounded to bf16 and multiplied with f32 sums; the norms are
 always those of the unrounded values (`similari_tpu/ops/pallas_visual.py`
 :245-265).
 
-`gallery_dots` launches the CUDA kernel `gallery_dots_kernel`
-(`csrc/gallery_dots.cu`) for CUDA tensors, which skips the tiles the scan
-never reads (outside `needed_columns`), and runs its plain version,
-`gallery_dots_plain`, for CPU tensors.
+`gallery_dots` launches the CUDA kernels of `csrc/gallery_dots.cu` for
+CUDA tensors, which skip the tiles the scan never reads (outside
+`needed_columns`), and runs their plain version, `gallery_dots_plain`, for
+CPU tensors.  With bf16 inputs a staging kernel first writes the norms and
+a bf16 copy of [G ; X] (`stage_bf16` is its plain version), then a TMA +
+wgmma kernel multiplies that copy in TILE_ROWS x TILE_COLS output tiles;
+`staged_dots_replay` replays that on the CPU for the tests.  f32 inputs
+take one kernel of exact f32 products.
 """
 
 from __future__ import annotations
@@ -29,6 +33,11 @@ import ctypes
 import torch
 
 _F32 = torch.float32
+# the bf16 copy's row width is a multiple of this (`csrc/gallery_dots.cu`
+# KT: TMA needs 16-byte row strides, wgmma a depth of 16, a stage is 64
+# deep); the bf16 product's output tile
+PAD = 64
+TILE_ROWS, TILE_COLS = 192, 256
 
 
 def round_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -57,6 +66,45 @@ def gallery_dots_plain(x: torch.Tensor, g: torch.Tensor, bf16: bool):
     return f32_dots(x, cols), norms
 
 
+def stage_bf16(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The bf16 staging pass's copy of [G ; X]: each row rounded to bf16
+    (nearest even) once, zero-padded to a multiple of PAD columns."""
+    cols = torch.cat([g, x])
+    f = cols.shape[1]
+    out = torch.zeros((cols.shape[0], -(-f // PAD) * PAD),
+                      dtype=torch.bfloat16, device=cols.device)
+    out[:, :f] = cols.to(torch.bfloat16)
+    return out
+
+
+def tile_needed(n: int, m: int, rows_per_frame: int, tm: int, r0: int,
+                c0: int) -> bool:
+    """Whether the output tile at (r0, c0) holds an entry of
+    `needed_columns` (the kernels' `tile_needed`): a gallery column, or a
+    chunk row of a later frame than its first chunk-row column."""
+    if c0 < m:
+        return True
+    return (min(r0 + tm, n) - 1) // rows_per_frame > (c0 - m) // rows_per_frame
+
+
+def staged_dots_replay(x: torch.Tensor, g: torch.Tensor,
+                       rows_per_frame: int) -> torch.Tensor:
+    """The bf16 product as the kernel tiles it, on the CPU (tests only):
+    the staged copy multiplied in f32 over its padded width, one
+    TILE_ROWS x TILE_COLS output tile at a time, the tiles the kernel skips
+    left NaN."""
+    st = stage_bf16(x, g).to(_F32)
+    n, m = x.shape[0], g.shape[0]
+    a = st[m:]
+    out = torch.full((n, m + n), float("nan"), dtype=_F32, device=x.device)
+    for r0 in range(0, n, TILE_ROWS):
+        for c0 in range(0, m + n, TILE_COLS):
+            if tile_needed(n, m, rows_per_frame, TILE_ROWS, r0, c0):
+                out[r0:r0 + TILE_ROWS, c0:c0 + TILE_COLS] = f32_dots(
+                    a[r0:r0 + TILE_ROWS], st[c0:c0 + TILE_COLS])
+    return out
+
+
 def needed_columns(n: int, m: int, rows_per_frame: int,
                    device=None) -> torch.Tensor:
     """bool [N, M + N]: the entries the scan can read.  Every launch-start
@@ -72,9 +120,9 @@ def gallery_dots(x: torch.Tensor, g: torch.Tensor, bf16: bool,
     """(dots f32[N, M + N], norms f32[M + N]) for chunk rows x f32[N, F]
     (`rows_per_frame` rows per frame) and launch-start lanes g f32[M, F].
 
-    CUDA tensors launch `gallery_dots_kernel`, which may leave the entries
-    outside `needed_columns` unwritten; CPU tensors run
-    `gallery_dots_plain`, which computes them all.
+    CUDA tensors launch the kernels, which may leave the entries outside
+    `needed_columns` unwritten; CPU tensors run `gallery_dots_plain`, which
+    computes them all.
     """
     if x.dim() != 2 or g.dim() != 2 or x.shape[1] != g.shape[1]:
         raise ValueError("x must be [N, F] and g [M, F]")
@@ -93,13 +141,20 @@ def gallery_dots(x: torch.Tensor, g: torch.Tensor, bf16: bool,
         raise ValueError(f"unsupported device {x.device}")
     from .._build import check, library
 
+    lib = library()
     x, g = x.contiguous(), g.contiguous()
-    dots = torch.empty((n, m + n), dtype=_F32, device=x.device)
-    norms = torch.empty((m + n,), dtype=_F32, device=x.device)
-    code = library().gallery_dots_launch(
-        x.data_ptr(), g.data_ptr(), dots.data_ptr(), norms.data_ptr(),
-        n, m, f, rows_per_frame, int(bf16),
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+    dev = x.device
+    dots = torch.empty((n, m + n), dtype=_F32, device=dev)
+    norms = torch.empty((m + n,), dtype=_F32, device=dev)
+    # the bf16 staging kernel's rounded, padded copy of [G ; X]
+    stage = (torch.empty((m + n, -(-f // PAD) * PAD), dtype=torch.bfloat16,
+                         device=dev) if bf16 else None)
+    with torch.cuda.device(dev):  # the launches and their attributes
+        code = lib.gallery_dots_launch(
+            x.data_ptr(), g.data_ptr(), dots.data_ptr(), norms.data_ptr(),
+            None if stage is None else stage.data_ptr(), n, m, f,
+            rows_per_frame, int(bf16),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     check(code, "gallery_dots_launch")
     gallery_dots.launches += 1
     return dots, norms

@@ -77,11 +77,12 @@ def lane_merge_inplace(state: torch.Tensor, src: torch.Tensor,
     lib = library()
     src, row, valid = src.contiguous(), row.contiguous(), valid.contiguous()
     s, r, f = state.shape
-    code = lib.lane_merge_launch(
-        ctypes.c_void_p(state.data_ptr()), ctypes.c_void_p(src.data_ptr()),
-        ctypes.c_void_p(row.data_ptr()), ctypes.c_void_p(valid.data_ptr()),
-        s, src.shape[1], r, f * state.element_size(),
-        ctypes.c_void_p(torch.cuda.current_stream(state.device).cuda_stream))
+    with torch.cuda.device(state.device):
+        code = lib.lane_merge_launch(
+            ctypes.c_void_p(state.data_ptr()), ctypes.c_void_p(src.data_ptr()),
+            ctypes.c_void_p(row.data_ptr()), ctypes.c_void_p(valid.data_ptr()),
+            s, src.shape[1], r, f * state.element_size(), ctypes.c_void_p(
+                torch.cuda.current_stream(state.device).cuda_stream))
     check(code, "lane_merge_launch")
     lane_merge_inplace.launches += 1
     return state

@@ -117,6 +117,46 @@ def test_identical_rotated_boxes_give_exactly_one():
     assert float((iou.diagonal() - 1.0).abs().max()) < 1e-6
 
 
+def _replay_inputs(case):
+    """Clip columns (det8, trk8) of this file's streams."""
+    if case == "exact":
+        cols = torch.tensor(EXACT_BOX_COLUMNS, dtype=torch.float32)
+        return cols, cols
+    if case == "degenerate":
+        det = np.array([[5.0, 0.0, 0.3, 1.5, 30.0]], np.float32)
+        trk = np.array([[0.0, 0.0, 0.0, 0.0, 0.0], [2.0, 1.0, 0.5, 2.0, 0.0],
+                        [3.0, 0.0, 0.1, 0.0, 25.0]], np.float32)
+    elif case == "touching":  # shared edges and corners
+        det = np.array([[0.0, 0.0, 0.0, 1.0, 2.0]] * 3, np.float32)
+        trk = np.array([[2.0, 0.0, 0.0, 1.0, 2.0], [2.0, 2.0, 0.0, 1.0, 2.0],
+                        [0.0, -2.0, 0.0, 1.0, 2.0]], np.float32)
+    elif case == "self":
+        det = trk = random_boxes(np.random.default_rng(2), 200)
+    elif case == "iou":
+        rng = np.random.default_rng(3)
+        det, trk = random_boxes(rng, 130), random_boxes(rng, 300)
+    else:  # "inter": the dense stream
+        rng = np.random.default_rng(8)
+        det = random_boxes(rng, 130, spread=300.0)
+        trk = random_boxes(rng, 300, spread=300.0)
+    return (cl.clip_columns(torch.tensor(det)),
+            cl.clip_columns(torch.tensor(trk)))
+
+
+@pytest.mark.parametrize("want_iou", [True, False])
+@pytest.mark.parametrize("case", ["iou", "inter", "self", "exact",
+                                  "degenerate", "touching"])
+def test_lane_replay_matches_plain_bit_for_bit(case, want_iou):
+    """The kernel's split (the in-radius pairs listed; each pair's 8 edge
+    terms on 8 lanes, added in the fixed order) equals the plain version
+    bit for bit."""
+    det8, trk8 = _replay_inputs(case)
+    replay = cl.clip_lanes_replay(det8, trk8, want_iou)
+    plain = cl.pair_block_plain(det8, trk8, want_iou)
+    assert torch.equal(replay, plain)
+    assert bool((~cl.far_pairs(det8, trk8)).any())  # pairs were listed
+
+
 def test_clip_pairs_checks_inputs():
     x = torch.zeros(4, 8)
     with pytest.raises(ValueError, match="det8"):

@@ -17,6 +17,7 @@ Integer outputs and state must be equal; floats are held at
 torch_parity.RTOL/ATOL; the merge kernel is a copy and must be bit-equal.
 """
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -198,14 +199,17 @@ def test_fused_visual_kernel_matches_plain(cuda, case):
 
 
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("f", [16, 129, 512])
-def test_gallery_dots_kernel_matches_plain(cuda, f, bf16):
+@pytest.mark.parametrize("m", [70, 1536])
+@pytest.mark.parametrize("f", [3, 16, 129, 512])
+def test_gallery_dots_kernel_matches_plain(cuda, f, m, bf16):
     """Every entry the scan reads (all launch-start lanes, chunk rows of
     earlier frames) within rtol 1e-5 and 1e-4 x |q| |g| of the plain
-    product; the norms of the unrounded rows within 1e-5.  Ragged against
-    the 64 x 64 tiles; F = 129 takes the 4-byte copies."""
+    product; the norms of the unrounded rows within 1e-5.  N = 120 rows
+    are ragged against the 192 x 256 (bf16) and 64 x 64 (f32) tiles, and
+    M + N = 190 or 1656 columns; F = 3 and 129 take the scalar copies and
+    pad the bf16 copy to 64 and 192 columns."""
     g = torch.Generator().manual_seed(f)
-    c, d, m = 5, 24, 70
+    c, d = 5, 24
     x = torch.randn((c * d, f), generator=g).to(cuda)
     gal = (3.0 * torch.randn((m, f), generator=g)).to(cuda)
     before = gd.gallery_dots.launches
@@ -235,9 +239,87 @@ def test_kernel_wrapper_checks_inputs(cuda):
     rng = np.random.default_rng(0)
     big = torch.tensor(rng.uniform(size=(1, 2048, 5)), dtype=torch.float32,
                        device=cuda)
-    with pytest.raises(RuntimeError, match="CUDA error"):
+    before = fs.fused_sort_chunk.launches
+    with pytest.raises(ValueError, match='engine="step"'):
         fs.fused_sort_chunk(cfg, st, big, torch.ones(1, 2048, device=cuda),
                             torch.ones(1, 2048, device=cuda), 1)
+    assert fs.fused_sort_chunk.launches == before
+
+
+def test_shape_check_counts_the_library_bytes(cuda):
+    """The Python count of the fused kernels' shared bytes equals the
+    library's launch plans: VisualSORT over a grid of (D, T, K), within and
+    past the limit; SORT's storage and bytes over (D, T)."""
+    from similari_tpu_torch._build import library
+
+    lib = library()
+    out = (ctypes.c_int * 4)()
+    for d in (1, 8, 100, 128, 1024):
+        for t in (1, 200, 512, 1252, 1253, 2573, 2574, 4000):
+            for k in (1, 3, 8, 31):
+                code = lib.fused_visual_plan(d, t, k, out)
+                nbytes = fv.visual_smem_bytes(d, t, k)
+                assert (out[0], out[1]) == (1024, nbytes), (d, t, k)
+                assert (code == 0) == (nbytes <= fs.MAX_SMEM), (d, t, k)
+    for d in (1, 100, 128, 1024):
+        for t in (1, 200, 512, 2000, 4000, 8000, 24000):
+            storage, nbytes = fs.sort_storage(d, t)
+            code = lib.fused_sort_plan(d, t, out)
+            assert (code == 0) == (storage >= 0), (d, t)
+            if storage >= 0:
+                assert (out[2], out[3]) == (storage, nbytes), (d, t)
+
+
+def test_launchers_run_on_the_inputs_device(cuda, monkeypatch):
+    """Each of the five launchers enters `torch.cuda.device` with its
+    input's device around its launch (the card's current device may be
+    another)."""
+    entered = []
+    real = torch.cuda.device
+
+    class Recording:
+        def __init__(self, dev):
+            entered.append(dev)
+            self.guard = real(dev)
+
+        def __enter__(self):
+            return self.guard.__enter__()
+
+        def __exit__(self, *exc):
+            return self.guard.__exit__(*exc)
+
+    monkeypatch.setattr(torch.cuda, "device", Recording)
+    dev = torch.empty(0, device=cuda).device
+    box, valid = sort_stream(0, CHUNK, 8)
+    sort_in = [torch.tensor(x, device=cuda)
+               for x in _unit_conf(box, valid)]
+    vis_in = [torch.tensor(x, device=cuda) for x in visual_stream(0, CHUNK,
+                                                                  8, 16)]
+    det8 = torch.tensor(random_boxes(np.random.default_rng(0), 40, 50.0),
+                        device=cuda)
+    state = torch.zeros((2, 6, 16), device=cuda)
+    calls = {
+        "fused_sort": (lambda: fs.fused_sort_chunk(
+            SortConfig(method="iou", oriented=False),
+            fs.state_to_tuple(new_sort_state(32, 1, device=cuda)), *sort_in,
+            1), 1),
+        "fused_visual + gallery_dots": (lambda: fv.fused_visual_chunk(
+            VisualConfig(**VISUAL_CONFIGS["euclid_iou"]),
+            fv.state_to_tuple(new_visual_state(32, 1, 3, 16, device=cuda)),
+            *vis_in, 1), 2),
+        "gallery_dots": (lambda: gd.gallery_dots(
+            vis_in[3].view(-1, 16), state.view(-1, 16), True, 8), 1),
+        "clip_pairs": (lambda: cl.clip_pairs(
+            cl.clip_columns(det8), cl.clip_columns(det8), True), 1),
+        "lane_merge": (lambda: mi.lane_merge_inplace(
+            state, torch.ones((2, 3, 16), device=cuda),
+            torch.arange(3, dtype=torch.int32, device=cuda).repeat(2, 1),
+            torch.ones((2, 3), dtype=torch.int32, device=cuda)), 1),
+    }
+    for name, (call, guards) in calls.items():
+        entered.clear()
+        call()
+        assert [torch.device(x) for x in entered] == [dev] * guards, name
 
 
 def _clip_boxes(case):

@@ -25,9 +25,11 @@ from similari_tpu_torch.ops.fused_visual import (_gallery_distances,
                                                  fused_visual_chunk_plain,
                                                  fused_visual_scan,
                                                  state_to_tuple)
-from similari_tpu_torch.ops.gallery_dots import (gallery_dots,
+from similari_tpu_torch.ops.gallery_dots import (PAD, TILE_COLS, TILE_ROWS,
+                                                 gallery_dots,
                                                  gallery_dots_plain,
-                                                 needed_columns)
+                                                 needed_columns, stage_bf16,
+                                                 staged_dots_replay)
 from similari_tpu_torch.trackers.visual_state import new_visual_state
 from similari_tpu_torch.trackers.visual_step import (VisualConfig,
                                                      visual_scan, visual_step)
@@ -284,6 +286,34 @@ def test_gallery_dots_plain_matches_numpy(f, bf16):
     frame = np.arange(c * d) // d
     assert need.shape == (c * d, m + c * d) and need[:, :m].all()
     np.testing.assert_array_equal(need[:, m:], frame[:, None] > frame[None])
+
+
+@pytest.mark.parametrize("f", [3, 16, 129, 512])
+def test_gallery_dots_bf16_staging_matches_plain(f):
+    """The bf16 kernel's staging pass (each row of [G ; X] rounded to bf16
+    once, zero-padded to a multiple of 64 columns) multiplied as the
+    product kernel tiles it (TILE_ROWS x TILE_COLS output tiles over the
+    padded width, skipped tiles left out) equals `gallery_dots_plain` bit
+    for bit on every entry the scan reads.  Ragged: 5 frames of 64 rows
+    against 70 lanes; the first tile row's chunk-column tile is
+    skipped."""
+    rng = np.random.default_rng(f)
+    c, d, m = 5, 64, 70
+    x = torch.tensor(rng.normal(size=(c * d, f)), dtype=torch.float32)
+    g = torch.tensor(3.0 * rng.normal(size=(m, f)), dtype=torch.float32)
+    st = stage_bf16(x, g)
+    assert st.dtype == torch.bfloat16 and st.shape == (m + c * d,
+                                                       -(-f // PAD) * PAD)
+    assert torch.equal(st[:, :f].view(torch.int16),
+                       torch.cat([g, x]).to(torch.bfloat16).view(torch.int16))
+    assert not st[:, f:].any()
+    replay = staged_dots_replay(x, g, d)
+    plain, _ = gallery_dots_plain(x, g, True)
+    need = needed_columns(c * d, m, d)
+    assert not replay[need].isnan().any()
+    assert torch.equal(replay[need], plain[need])
+    # rows of frames 0-2 against chunk columns of frames 2-4
+    assert bool(replay[:TILE_ROWS, TILE_COLS:].isnan().all())
 
 
 def _lane_entered(cfg, st, out, valid, box, fvalid, qual, oa, k):
