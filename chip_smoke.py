@@ -72,7 +72,27 @@ Phases:
      D=100, T=400, K=3, F=512 over 64 frames;
  12. batched SORT at bench.py's `batch_sort_256x100` (S=256 scenes of 100
      objects, T=200, aligned IoU) over --batch-frames frames;
- 13. one `kernels` JSON line, then the result line.
+ 13. the public `Sort` on phase 6's stream from 128 slots (the first 8
+     frames through `predict` on Universal2DBox objects, the rest through
+     `predict_arrays`): ids, slots and lengths equal to phase 6's scan
+     every frame, one clip launch per call; ms per call and the device's
+     idle share; then `wasted()` after `skip_epochs` returns every track
+     once;
+ 14. the public `nms()` on phase 7's frames: the kept boxes equal phase
+     7's keeps; ms per call;
+ 15. the public `VisualSort` on phase 4's stream (--step-frames frames):
+     ids equal to phase 11's general step; then phase 11's own-area
+     config with device shares (ids equal to the same config's scan
+     without in-step recycling) and with the f64 clipping oracle's (the
+     share of frames whose ids differ); frames/s;
+ 16. the public `BatchVisualSort` and `BatchSort` on phase 10's and 12's
+     streams: lengths, is_new, voting types and the per-slot state equal
+     to the bare steps every frame, ids one fixed map of theirs per
+     scene, two merge launches per predict; scene-frames/s beside the
+     bare steps'.  Each of phases 13-16 zeroes every launch counter
+     before its run and reads them after;
+ 17. one `kernels` JSON line (the clip's and the merge's launches include
+     the API paths'), then the result line.
 
 The fused-kernel checks take the main path's configurations from the
 runners' own builders, the other configurations and the crowded stream
@@ -101,7 +121,11 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 
-from similari_tpu_torch import _build  # noqa: E402
+from similari_tpu_torch import (  # noqa: E402
+    BatchSort, BatchVisualSort, PositionalMetricType, Sort,
+    SortPredictionBatchRequest, Universal2DBox, VisualSort,
+    VisualSortMetricType, VisualSortObservation, VisualSortOptions,
+    VisualSortPredictionBatchRequest, _build, nms)
 from similari_tpu_torch.eval.mot import (  # noqa: E402
     CHUNK, DeviceTimer, run_sequence_device, run_sequence_device_visual,
     sequence_sort_config, sequence_visual_config)
@@ -784,7 +808,8 @@ def compare_scans(name, k, p):
 
 
 def phase_oriented_sort(args, dev):
-    """Phase 6; returns (clip launches, max_abs_err)."""
+    """Phase 6; returns (clip launches, max_abs_err, the whole run's
+    (state, outputs))."""
     s = args.oriented_frames
     box = torch.as_tensor(oriented_stream(s, args.seed + 42), device=dev)
     conf = torch.ones((s, OD), dtype=torch.float32, device=dev)
@@ -825,11 +850,12 @@ def phase_oriented_sort(args, dev):
         f"{launches}; {int(state.next_id)} ids, {kept}/{OD} objects kept "
         f"one id; first {n} frames equal to the plain-clip run "
         f"(max_abs_err {err:.3e})")
-    return launches, err
+    return launches, err, (state, out)
 
 
 def phase_nms(args, dev):
-    """Phase 7; returns the clip launches on the NMS path."""
+    """Phase 7; returns (the clip launches on the NMS path, the keep mask
+    of each frame)."""
     frames = torch.as_tensor(nms_stream(args.nms_frames), device=dev)
     valid = torch.ones(NMS_N, dtype=torch.bool, device=dev)
     if not use_block_skip(None, True, 0, NMS_N, dev):
@@ -857,7 +883,7 @@ def phase_nms(args, dev):
         f"{dense_timer.seconds * 1e3 / n:.4f} ms/frame (CUDA events), "
         f"{n} frames, clip launches {launches}, keep masks equal, "
         f"{kept:.1f} boxes kept per frame")
-    return launches
+    return launches, keep
 
 
 def phase_maha(dets, frames):
@@ -1025,8 +1051,8 @@ def device_profile(run, frames):
 
 
 def phase_batched_visual(args, dev):
-    """Phase 10; returns the merge kernel's `kernels` entry, its time and
-    launches taken on this path."""
+    """Phase 10; returns (the merge kernel's `kernels` entry, its time and
+    launches taken on this path; the in-place form's scene-frames/s)."""
     s, n = BS, args.batch_frames
     cfg = bench_visual_config()
     boxes, feat = batch_stream(n, s, dev)
@@ -1145,12 +1171,12 @@ def phase_batched_visual(args, dev):
     log(f"[10] the last frame's merge inputs in a loop of repeats (mean of "
         f"gallery and history): kernel {loop_k:.5f} ms  plain {loop_p:.5f} "
         f"ms  index_put_ {loop_lib:.5f} ms")
-    return entry
+    return entry, s * n / t_in
 
 
 def phase_general_visual(args, dev, dets, feats, fused_out):
     """Phase 11, first half: the general step on the fused path's
-    sequence."""
+    sequence.  Returns its outputs."""
     n = min(args.step_frames, args.main_frames)
     frames = sorted(dets)[:n]
     sub_d = {f: dets[f] for f in frames}
@@ -1176,25 +1202,37 @@ def phase_general_visual(args, dev, dets, feats, fused_out):
         if bad32:
             raise AssertionError("the general step and the fused engine give "
                                  "other ids in f32")
+    return out
+
+
+def own_area_stream(seed):
+    """Phase 11's stream (numpy): bench's random walk of OA_D boxes, each
+    keeping its angle U(0, 0.6) over the frames (as
+    `tests/torch_parity.py::oriented_stream`), and constant identities."""
+    rng = np.random.default_rng(seed + 7)
+    box = box_stream(OA_FRAMES, OA_D, rng)
+    box[..., 2] = rng.uniform(0, 0.6, size=OA_D)
+    ident = rng.normal(size=(OA_D, F)).astype(np.float32)
+    return box, np.broadcast_to(ident, (OA_FRAMES, OA_D, F)).copy()
+
+
+def own_area_config(**kw):
+    """Phase 11's config: bench's, oriented, own-area gated."""
+    return bench_visual_config(oriented=True, own_area_use=OA_USE,
+                               own_area_collect=OA_COLLECT, **kw)
 
 
 def phase_own_area(args, dev):
     """Phase 11, second half: the oriented own-area history-3 config on
-    bench's random walk, each box keeping its angle U(0, 0.6) over the
-    frames (as `tests/torch_parity.py::oriented_stream`)."""
+    `own_area_stream`.  Returns its outputs."""
     m = OA_FRAMES
-    rng = np.random.default_rng(args.seed + 7)
-    box = box_stream(m, OA_D, rng)
-    box[..., 2] = rng.uniform(0, 0.6, size=OA_D)
-    ident = rng.normal(size=(OA_D, F)).astype(np.float32)
-    feat = np.broadcast_to(ident, (m, OA_D, F)).copy()
-    box, feat = (torch.as_tensor(x, device=dev) for x in (box, feat))
+    box, feat = (torch.as_tensor(x, device=dev)
+                 for x in own_area_stream(args.seed))
     ones = torch.ones((m, OA_D), dtype=torch.float32, device=dev)
     # a box whose own-area share is below the use gate (~6% here) cannot
     # match a track past the minimal length visually, so ~15 detections a
     # frame start new tracks: recycling keeps the live ones within 400 slots
-    cfg = bench_visual_config(oriented=True, own_area_use=OA_USE,
-                              own_area_collect=OA_COLLECT, recycle_idle=True)
+    cfg = own_area_config(recycle_idle=True)
     st0 = new_visual_state(OA_T, OA_H, K, F, device=dev)
     visual_scan(cfg, st0, *(x[:2] for x in (box, ones, ones > 0, feat,
                                             ones > 0, ones, ones)), 1)
@@ -1220,10 +1258,11 @@ def phase_own_area(args, dev):
         f"frame 3 visual; {int(st.next_id)} ids, {kept}/{OA_D} objects "
         f"kept one id; history rows filled "
         f"{int(st.hist_feat_valid.sum())}")
+    return out
 
 
 def phase_batched_sort(args, dev):
-    """Phase 12: bench.py's batched SORT."""
+    """Phase 12: bench.py's batched SORT.  Returns its scene-frames/s."""
     s, n = BS, args.batch_frames
     cfg = SortConfig(method="iou", assignment="auction", max_idle_epochs=5,
                      oriented=False)
@@ -1245,6 +1284,398 @@ def phase_batched_sort(args, dev):
         f"({timer.seconds * 1e3 / n:.3f} ms/frame, CUDA events); "
         f"{float(np.mean(ids == ids[:1])):.4f} of ids equal their first "
         f"frame's")
+    return s * n / timer.seconds
+
+
+# ---------------------------------------------------------------------------
+# phases 13-16: the public API (Sort, nms(), VisualSort, BatchVisualSort,
+# BatchSort) on the paths above, each driven with every launch counter at 0
+# ---------------------------------------------------------------------------
+
+COUNTERS = {"fused_sort": fs.fused_sort_chunk,
+            "fused_visual": fv.fused_visual_chunk,
+            "gallery_dots": gd.gallery_dots,
+            "clip_pairs": cl.clip_pairs,
+            "lane_merge": mi.lane_merge_inplace}
+OBJECT_FRAMES = 8  # phase 13's frames through `predict` on box objects
+API_PROFILED_FRAMES = 16  # calls under torch.profiler for the idle share
+
+
+def zero_counts():
+    for wrapper in COUNTERS.values():
+        wrapper.launches = 0
+
+
+def read_counts():
+    return {name: w.launches for name, w in COUNTERS.items()}
+
+
+def expect_counts(label, counts, want):
+    """Every counter 0 except `want`'s, which must equal their values."""
+    wrong = {k: v for k, v in counts.items() if v != want.get(k, 0)}
+    if wrong:
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+
+
+def api_idle_share(dev, make, call, frames):
+    """(device busy ms per call, idle share) of `call(tracker, i)` over
+    the first `frames` calls of a fresh tracker: torch.profiler's kernel
+    time against the CUDA-event time of an unprofiled run of the same
+    calls on another fresh tracker."""
+    tr = make()
+    with DeviceTimer(dev) as timer:
+        for i in range(frames):
+            call(tr, i)
+    tr = make()
+    busy, _, _ = device_profile(
+        lambda: [call(tr, i) for i in range(frames)], frames)
+    return busy, 1.0 - busy / (timer.seconds * 1e3 / frames)
+
+
+def check_same(label, got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape or not np.array_equal(got, want):
+        bad = np.argwhere(got != want)[:5].tolist() if got.shape == \
+            want.shape else f"shape {got.shape} vs {want.shape}"
+        raise AssertionError(f"{label} differ: {bad}")
+
+
+def phase_sort_api(args, dev, scan):
+    """Phase 13: phase 6's stream through `Sort.predict` (the first
+    OBJECT_FRAMES frames, on Universal2DBox objects) and `predict_arrays`,
+    from 128 slots.  Auto-waste is held off for the run (set_auto_waste
+    past its end), so slots stay comparable with phase 6's scan, which
+    never wastes.  Returns the clip launches."""
+    scan_state, scan_out = scan
+    s = args.oriented_frames
+    boxes = oriented_stream(s, args.seed + 42)
+    conf = np.ones(OD, np.float32)
+    objs = [[(Universal2DBox(*map(float, r)), None) for r in boxes[f]]
+            for f in range(min(OBJECT_FRAMES, s))]
+
+    def make():
+        return Sort(method=PositionalMetricType.iou(0.3), max_idle_epochs=5,
+                    initial_capacity=128, assignment_backend="auction",
+                    device=dev)
+
+    for b in boxes[:2]:  # warm-up
+        make().predict_arrays(0, b, conf)
+    tr = make()
+    tr.set_auto_waste(s + 1)
+    obj_ms, arr_ms = [], []
+    zero_counts()
+    for f in range(s):
+        with DeviceTimer(dev) as timer:
+            if f < len(objs):
+                tracks = tr.predict(objs[f])
+            else:
+                _, ids, _, length, slot = tr.predict_arrays(0, boxes[f], conf)
+        if f < len(objs):
+            obj_ms.append(timer.seconds * 1e3)
+            ids = [t.id for t in tracks]
+            length = [t.length for t in tracks]
+        else:
+            arr_ms.append(timer.seconds * 1e3)
+            check_same(f"Sort frame {f}: slots", slot,
+                       scan_out.slot[f].cpu().numpy())
+        check_same(f"Sort frame {f}: ids", ids,
+                   scan_out.track_id[f].cpu().numpy())
+        check_same(f"Sort frame {f}: lengths", length,
+                   scan_out.length[f].cpu().numpy())
+    counts = read_counts()
+    expect_counts("Sort", counts, {"clip_pairs": s})
+    st = tr._scenes[0].state
+    cap = st.capacity
+    t = min(cap, OT)  # the slots both stores have; the others inactive
+    for fld in ("active", "track_id", "length", "last_epoch"):
+        a, b = getattr(st, fld), getattr(scan_state, fld)
+        check_same(f"Sort final state.{fld}", a[:t].cpu().numpy(),
+                   b[:t].cpu().numpy())
+    if bool(st.active[t:].any()) or bool(scan_state.active[t:].any()):
+        raise AssertionError("Sort: a slot only one store has is active")
+    n_ids = tr._next_track_id
+    busy, idle = api_idle_share(
+        dev, make, lambda t, i: t.predict_arrays(0, boxes[i], conf),
+        min(API_PROFILED_FRAMES, s))
+    tr.skip_epochs(tr._max_idle + 1)
+    wasted = sorted(w.id for w in tr.wasted())
+    if wasted != list(range(1, n_ids + 1)) or tr.wasted():
+        raise AssertionError(f"Sort: wasted() gave {len(wasted)} tracks "
+                             f"({len(set(wasted))} ids) for {n_ids} ids")
+    log(f"[13] Sort API, oriented D={OD} from 128 slots (grown to {cap}), "
+        f"{s} frames: ids, slots and lengths equal to phase 6's scan "
+        f"(T={OT}) every frame, final state equal; clip launches "
+        f"{counts['clip_pairs']} (one per predict); predict on "
+        f"Universal2DBox objects {np.mean(obj_ms):.3f} ms per call (first "
+        f"{len(obj_ms)} frames; without the first "
+        f"{np.mean(obj_ms[1:] or obj_ms):.3f}), predict_arrays "
+        f"{np.mean(arr_ms):.3f} ms per call ({1e3 / np.mean(arr_ms):.1f} "
+        f"frames/s; CUDA events); device busy {busy:.3f} ms per call, idle "
+        f"share {idle:.3f} (torch.profiler, first "
+        f"{min(API_PROFILED_FRAMES, s)} calls); wasted() after "
+        f"skip_epochs({tr._max_idle + 1}) returned each of the {n_ids} "
+        f"tracks once")
+    return counts["clip_pairs"]
+
+
+def phase_nms_api(args, dev, keeps):
+    """Phase 14: phase 7's frames through the public `nms()` on
+    Universal2DBox inputs, each scored in the frame's rank order.
+    Returns the clip launches."""
+    frames = nms_stream(args.nms_frames)
+    scores = 1.0 - np.arange(NMS_N) / NMS_N
+    dets = [[(Universal2DBox(*map(float, r)), float(sc))
+             for r, sc in zip(fr, scores)] for fr in frames]
+    nms(dets[0], NMS_THRESHOLD, device=dev)  # warm-up
+    zero_counts()
+    with DeviceTimer(dev) as timer:
+        kept = [nms(d, NMS_THRESHOLD, device=dev) for d in dets]
+    counts = read_counts()
+    expect_counts("nms()", counts, {"clip_pairs": len(frames)})
+    for f, (k, d) in enumerate(zip(kept, dets)):
+        index = {id(bb): i for i, (bb, _) in enumerate(d)}
+        check_same(f"nms() frame {f}: kept boxes", [index[id(b)] for b in k],
+                   keeps[f].nonzero().squeeze(1).cpu().numpy())
+    log(f"[14] nms() API, oriented n={NMS_N}, {len(frames)} frames: kept "
+        f"boxes equal to phase 7's nms_kernel every frame; clip launches "
+        f"{counts['clip_pairs']}; {timer.seconds * 1e3 / len(frames):.3f} ms "
+        f"per call (CUDA events; phase 7's kernel alone above)")
+    return counts["clip_pairs"]
+
+
+def visual_api_options(backend=None, **kw):
+    opts = VisualSortOptions().feature_precision("bf16")
+    for name, value in kw.items():
+        getattr(opts, name)(value)
+    if backend is not None:
+        opts.visual_minimal_own_area_percentage_use(OA_USE)
+        opts.visual_minimal_own_area_percentage_collect(OA_COLLECT)
+        opts.own_area_backend(backend)
+    return opts
+
+
+def run_visual_api(dev, opts, frames, inputs):
+    """`VisualSort.predict_arrays` over `frames` frames of
+    inputs(f) = (box, conf, feat); returns (tracker, per-frame ids,
+    seconds, launch counts)."""
+    def make():
+        return VisualSort(1, opts, initial_capacity=128,
+                          assignment_backend="auction", device=dev)
+
+    warm = make()
+    for f in range(2):
+        warm.predict_arrays(0, *inputs(f))
+    tr, ids = make(), []
+    zero_counts()
+    with DeviceTimer(dev) as timer:
+        for f in range(frames):
+            ids.append(tr.predict_arrays(0, *inputs(f))[1])
+    return tr, ids, timer.seconds, read_counts()
+
+
+def phase_visual_api(args, dev, dets, feats, step_out, oa_out):
+    """Phase 15: VisualSort on phase 4's stream (phase 11's engine='step'
+    config, bf16), then on phase 11's oriented own-area config with the
+    device and the host (f64 clipping oracle) shares."""
+    from similari_tpu_torch.eval.mot import ltwh_to_vec5
+
+    n = min(args.step_frames, args.main_frames)
+    frames = sorted(dets)[:n]
+    rows = [np.asarray(dets[f], np.float32) for f in frames]
+    arrays = [(ltwh_to_vec5(r), np.clip(r[:, 4], 0.0, 1.0),
+               np.asarray(feats[f], np.float32)) for r, f in zip(rows, frames)]
+    opts = visual_api_options(
+        visual_metric=VisualSortMetricType.cosine(0.5),
+        positional_metric=PositionalMetricType.iou(0.3),
+        visual_minimal_track_length=1, max_idle_epochs=10,
+        kept_history_length=1, visual_max_observations=K)
+    tr, ids, secs, counts = run_visual_api(dev, opts, n, arrays.__getitem__)
+    expect_counts("VisualSort", counts, {})
+    for i, f in enumerate(frames):
+        check_same(f"VisualSort frame {f}: ids", ids[i],
+                   [r[0] for r in step_out[f]])
+    log(f"[15] VisualSort API (phase 11's engine='step' config, bf16 "
+        f"gallery), {n} frames x {D_VALID} objects from 128 slots (grown to "
+        f"{tr._scenes[0].state.capacity}): ids equal to phase 11's every "
+        f"frame; {n / secs:.1f} frames/s ({secs * 1e3 / n:.3f} ms per "
+        f"predict_arrays, CUDA events); no kernel launched (the general "
+        f"step)")
+
+    box, feat = own_area_stream(args.seed)
+    ones = np.ones(OA_D, np.float32)
+    runs = {}
+    for backend in ("device", "host"):
+        opts = visual_api_options(
+            backend, visual_metric=VisualSortMetricType.euclidean(100.0),
+            visual_minimal_track_length=3, max_idle_epochs=5,
+            kept_history_length=OA_H, visual_max_observations=K)
+        runs[backend] = run_visual_api(
+            dev, opts, OA_FRAMES, lambda f: (box[f], ones, feat[f]))
+    tr, dev_ids, dev_secs, counts = runs["device"]
+    expect_counts("VisualSort own-area", counts, {})
+    cap = tr._scenes[0].state.capacity
+    # the API retires idle tracks by auto-waste, not in the step: the
+    # same config without recycle_idle, at the capacity the API grew to
+    ones_t = torch.ones((OA_FRAMES, OA_D), device=dev)
+    _, ref = visual_scan(own_area_config(), new_visual_state(
+        cap, OA_H, K, F, torch.bfloat16, device=dev),
+        torch.as_tensor(box, device=dev), ones_t, ones_t > 0,
+        torch.as_tensor(feat, device=dev), ones_t > 0, ones_t, ones_t, 1)
+    for f in range(OA_FRAMES):
+        check_same(f"VisualSort own-area frame {f}: ids", dev_ids[f],
+                   ref.track_id[f].cpu().numpy())
+    p11 = oa_out.track_id.cpu().numpy()
+    same11 = sum(np.array_equal(dev_ids[f], p11[f]) for f in range(OA_FRAMES))
+    _, host_ids, host_secs, _ = runs["host"]
+    differ = sum(not np.array_equal(a, b) for a, b in zip(dev_ids, host_ids))
+    log(f"[15] VisualSort API, phase 11's oriented own-area config (D={OA_D}, "
+        f"H={OA_H}, K={K}, F={F} bf16, use/collect {OA_USE}/{OA_COLLECT}) "
+        f"from 128 slots (grown to {cap}), {OA_FRAMES} frames: "
+        f"own_area_backend='device' ids equal to the general scan of that "
+        f"config without recycle_idle at T={cap} every frame, and to phase "
+        f"11's (recycle_idle, T={OA_T}) on {same11}/{OA_FRAMES} frames; "
+        f"{OA_FRAMES / dev_secs:.1f} frames/s; 'host' (the f64 clipping "
+        f"oracle) {OA_FRAMES / host_secs:.1f} frames/s, ids differing from "
+        f"'device' on {differ}/{OA_FRAMES} frames "
+        f"({differ / OA_FRAMES:.3f}; CUDA events)")
+
+
+def scene_id_maps(label, maps, api_ids, ref_ids):
+    """Per scene, the API's id of each detection must be a fixed
+    one-to-one function of the plain step's id (they differ only by the
+    per-scene reservation)."""
+    for sc, (a, r) in enumerate(zip(api_ids, ref_ids)):
+        m = maps.setdefault(sc, {})
+        if len(set(a)) != len(a):
+            raise AssertionError(f"{label} scene {sc}: ids not distinct")
+        for x, y in zip(a, r):
+            if m.setdefault(y, x) != x:
+                raise AssertionError(f"{label} scene {sc}: ids not stable")
+
+
+def run_batch_api(label, dev, tracker, requests, ref_step, ref_state, ref_in):
+    """Predict every request (counters zeroed before, read after; CUDA
+    events around each predict), then step the plain batched step over
+    the same frames and compare per frame: lengths, is_new (length 1),
+    voting types, the per-slot state (active, length, last_epoch, so
+    every slot allocation) and per-scene id maps.  Returns (scene-frames
+    per second, launch counts)."""
+    secs, snaps, results = 0.0, [], []
+    zero_counts()
+    for req in requests:
+        with DeviceTimer(dev) as timer:
+            res = tracker.predict(req)
+        secs += timer.seconds
+        scenes = dict(res.get() for _ in range(res.batch_size()))
+        results.append([scenes[sc] for sc in range(BS)])
+        st = tracker._engine.state
+        snaps.append([getattr(st, f).cpu().numpy()
+                      for f in ("active", "length", "last_epoch")])
+    counts = read_counts()
+    maps, cap = {}, tracker._engine.T
+    for i, (tracks, snap) in enumerate(zip(results, snaps)):
+        ref_state, out = ref_step(ref_state, *ref_in(i))
+        length = np.array([[t.length for t in ts] for ts in tracks])
+        vt = np.array([[t.voting_type.value for t in ts] for ts in tracks])
+        check_same(f"{label} frame {i}: lengths", length,
+                   out.length[:, :BD].cpu().numpy())
+        check_same(f"{label} frame {i}: is_new", length == 1,
+                   out.is_new[:, :BD].cpu().numpy())
+        if hasattr(out, "voting_type"):
+            check_same(f"{label} frame {i}: voting types", vt,
+                       out.voting_type[:, :BD].cpu().numpy())
+        # the capacities differ (the API's grows from 128): the slots both
+        # have must agree, and every other slot be inactive
+        ref_active = ref_state.active.cpu().numpy()
+        t = min(snap[0].shape[1], BT)
+        for fld, a in zip(("active", "length", "last_epoch"), snap):
+            check_same(f"{label} frame {i}: state.{fld}", a[:BS, :t],
+                       getattr(ref_state, fld)[:, :t].cpu().numpy())
+        if snap[0][:, t:].any() or snap[0][BS:].any() or \
+                ref_active[:, t:].any():
+            raise AssertionError(f"{label} frame {i}: a slot only one side "
+                                 "has is active")
+        scene_id_maps(label, maps,
+                      [[t.id for t in ts] for ts in tracks],
+                      out.track_id[:, :BD].cpu().numpy())
+    return BS * len(requests) / secs, counts, cap
+
+
+def phase_batch_api(args, dev, visual_rate, sort_rate):
+    """Phase 16: phase 10's stream through BatchVisualSort and phase 12's
+    through BatchSort (engine="device"), from 128 slots."""
+    n = args.batch_frames
+    boxes, feat = batch_stream(n, BS, dev)
+    boxes_np, feat_np = boxes.cpu().numpy(), feat.cpu().numpy()
+    t0 = time.perf_counter()
+    requests = []
+    for i in range(n):
+        req = VisualSortPredictionBatchRequest()
+        for sc in range(BS):
+            for j in range(BD):
+                req.add(sc, VisualSortObservation(
+                    feat_np[sc, j], 1.0,
+                    Universal2DBox.from_vec5(boxes_np[i, sc, j], 1.0)))
+        requests.append(req)
+    build_ms = (time.perf_counter() - t0) * 1e3 / n
+    opts = VisualSortOptions().feature_precision("bf16")
+    for name, value in (("visual_metric", VisualSortMetricType.euclidean(100.0)),
+                        ("visual_minimal_track_length", 3),
+                        ("max_idle_epochs", 5), ("kept_history_length", 1),
+                        ("visual_max_observations", K)):
+        getattr(opts, name)(value)
+    tracker = BatchVisualSort(opts=opts, initial_capacity=128,
+                              assignment_backend="auction", engine="device",
+                              device=dev)
+    ones = torch.ones((BS, BD), dtype=torch.float32, device=dev)
+    ep = lambda i: torch.full((BS,), 1 + i, dtype=torch.int32,  # noqa: E731
+                              device=dev)
+    rate, counts, cap = run_batch_api(
+        "BatchVisualSort", dev, tracker, requests,
+        mesh.batched_visual_step_inplace(bench_visual_config()),
+        mesh.new_batched_visual_state(BS, BT, 1, K, F, torch.bfloat16,
+                                      device=dev),
+        lambda i: (boxes[i], ones, ones > 0, feat, ones > 0, ones, ones,
+                   ep(i)))
+    expect_counts("BatchVisualSort", counts, {"lane_merge": 2 * n})
+    log(f"[16] BatchVisualSort API S={BS} x {BD} objects, F={F} bf16, from "
+        f"128 slots (grown to {cap}), {n} frames: lengths, is_new, voting "
+        f"types and every slot's state equal to phase 10's in-place step "
+        f"every frame, ids a fixed one-to-one map of its ids per scene; "
+        f"merge launches {counts['lane_merge']} (2 per predict); "
+        f"{rate:.1f} scene-frames/s in predict ({BS / rate * 1e3:.3f} ms "
+        f"per request; phase 10's bare in-place step {visual_rate:.1f}; "
+        f"building a request {build_ms:.3f} ms more; CUDA events)")
+    merge_launches = counts["lane_merge"]
+
+    sboxes = torch.as_tensor(box_stream(n, BS * BD, np.random.default_rng(42))
+                             .reshape(n, BS, BD, 5), device=dev)
+    sboxes_np = sboxes.cpu().numpy()
+    requests = []
+    for i in range(n):
+        req = SortPredictionBatchRequest()
+        for sc in range(BS):
+            for j in range(BD):
+                req.add(sc, Universal2DBox.from_vec5(sboxes_np[i, sc, j]))
+        requests.append(req)
+    tracker = BatchSort(max_idle_epochs=5,
+                        method=PositionalMetricType.iou(0.3),
+                        initial_capacity=128, assignment_backend="auction",
+                        engine="device", device=dev)
+    cfg = SortConfig(method="iou", assignment="auction", max_idle_epochs=5,
+                     oriented=False)
+    rate, counts, cap = run_batch_api(
+        "BatchSort", dev, tracker, requests, mesh.batched_sort_step(cfg),
+        mesh.new_batched_state(BS, BT, 1, device=dev),
+        lambda i: (sboxes[i], ones, ones > 0, ep(i)))
+    expect_counts("BatchSort", counts, {})
+    log(f"[16] BatchSort API S={BS} x {BD} objects from 128 slots (grown to "
+        f"{cap}), {n} frames: lengths, is_new and every slot's state equal "
+        f"to phase 12's step every frame, ids a fixed one-to-one map per "
+        f"scene; {rate:.1f} scene-frames/s in predict "
+        f"({BS / rate * 1e3:.3f} ms per request; phase 12's bare scan "
+        f"{sort_rate:.1f}; CUDA events); no kernel launched")
+    return merge_launches
 
 
 def main(argv=None) -> int:
@@ -1254,7 +1685,7 @@ def main(argv=None) -> int:
     ap.add_argument("--oriented-frames", type=int, default=256)
     ap.add_argument("--nms-frames", type=int, default=64)
     ap.add_argument("--batch-frames", type=int, default=32)
-    ap.add_argument("--step-frames", type=int, default=1024)
+    ap.add_argument("--step-frames", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.frames % CHUNK:
@@ -1290,7 +1721,13 @@ def main(argv=None) -> int:
         raise AssertionError("the bf16 gallery product does not run on "
                              "wgmma")
 
+    start = time.perf_counter()
+
+    def stamp(label):
+        log(f"[t] {label} at {time.perf_counter() - start:.1f} s")
+
     kernels = [phase_sort(args, dev), *phase_visual(args, dev)]
+    stamp("phases 1-3 done")
     dets, feats = synthetic_sequence(args.main_frames, args.seed + 2)
     launches, fused_out, dev_ms = phase_main(args, dets, feats)
     for k in kernels:
@@ -1300,19 +1737,37 @@ def main(argv=None) -> int:
     for k, name in zip(kernels, ("fused_sort_kernel", "fused_visual_kernel",
                                  "gallery_dots")):
         k["device_ms"] = dev_ms[name][0]
+    stamp("phase 4 done")
     clip_entry = phase_clip(args, dev)
-    clip_entry["launches"], err = phase_oriented_sort(args, dev)
+    clip_entry["launches"], err, scan = phase_oriented_sort(args, dev)
     clip_entry["max_abs_err"] = max(clip_entry["max_abs_err"], err)
-    nms_launches = phase_nms(args, dev)
+    nms_launches, keeps = phase_nms(args, dev)
     log(f"[7] clip launches: oriented SORT path {clip_entry['launches']}, "
         f"NMS path {nms_launches}")
+    stamp("phases 5-7 done")
     phase_maha(dets, args.main_frames)
     kernels.append(clip_entry)
     phase_merge(args, dev)
-    kernels.append(phase_batched_visual(args, dev))
-    phase_general_visual(args, dev, dets, feats, fused_out)
-    phase_own_area(args, dev)
-    phase_batched_sort(args, dev)
+    stamp("phases 8-9 done")
+    merge_entry, visual_rate = phase_batched_visual(args, dev)
+    kernels.append(merge_entry)
+    step_out = phase_general_visual(args, dev, dets, feats, fused_out)
+    oa_out = phase_own_area(args, dev)
+    sort_rate = phase_batched_sort(args, dev)
+    stamp("phases 10-12 done")
+    # the public API on the same paths; the clip and merge entries add
+    # their launches there
+    api_clip = phase_sort_api(args, dev, scan)
+    api_clip += phase_nms_api(args, dev, keeps)
+    stamp("phases 13-14 done")
+    phase_visual_api(args, dev, dets, feats, step_out, oa_out)
+    stamp("phase 15 done")
+    api_merge = phase_batch_api(args, dev, visual_rate, sort_rate)
+    stamp("phase 16 done")
+    clip_entry["launches"] += api_clip
+    merge_entry["launches"] += api_merge
+    log(f"[16] launches on the API paths: clip {api_clip} (Sort, nms()), "
+        f"merge {api_merge} (BatchVisualSort)")
     log(json.dumps({"kernels": kernels, "not_ported": []}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

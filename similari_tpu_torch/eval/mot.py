@@ -7,7 +7,9 @@ run consecutive epochs), and run the whole sequence through the fused SORT
 or VisualSORT kernel: on the card by default, or through the kernels'
 plain PyTorch versions when `device="cpu"`.  Both also run the general
 step (`engine="step"`: per-frame epochs, every method and assignment, and
-for VisualSORT own-area gates computed on the device).
+for VisualSORT own-area gates computed on the device).  Own-area shares
+from the f64 clipping oracle (`own_area_backend="host"`) feed either
+engine.
 """
 
 from __future__ import annotations
@@ -315,17 +317,18 @@ def run_sequence_device_visual(
     Remaining keyword args override `VisualConfig` fields.
     engine="fused" (the default here) runs the fused kernel over 16-frame
     chunks with its in-kernel auction (`assignment="auction"`); it takes
-    no own-area gates, and raises ValueError before any launch, on every
-    device, for more than 1024 detections in a frame or a state past the
-    kernel's shared memory (`ops/fused_visual.py::check_visual_shape`:
-    about 2,570 slots at 128 rows and 3 lanes).  engine="step" runs the
-    general step
+    own-area gates only as precomputed shares, and raises ValueError
+    before any launch, on every device, for more than 1024 detections in
+    a frame or a state past the kernel's shared memory
+    (`ops/fused_visual.py::check_visual_shape`: about 2,570 slots at 128
+    rows and 3 lanes).  engine="step" runs the general step
     (`trackers/visual_step.py::visual_scan`) frame by frame with per-frame
     epochs, any assignment, and own-area gates with shares computed on the
     device (`own_area_backend="device"`); the JAX package's `engine="xla"`.
-    Host-computed shares (`own_area_backend="host"`) need the polygon
-    clipping of `utils/clipping.py`, not ported yet.  Returns (per-frame
-    outputs, frames/s of the timed run: CUDA-event time on the card).
+    With `own_area_backend="host"` the shares of every frame come from the
+    f64 clipping oracle (`utils/clipping.py`), for either engine, as the
+    JAX runner does.  Returns (per-frame outputs, frames/s of the timed
+    run: CUDA-event time on the card).
     """
     from ..trackers.visual_state import new_visual_state
 
@@ -337,15 +340,11 @@ def run_sequence_device_visual(
             iou_threshold, max_idle_epochs, feature_precision,
             **cfg_overrides),
         assignment=assignment)
-    gates = cfg.own_area_use > 0.0 or cfg.own_area_collect > 0.0
-    if gates and cfg.own_area_backend == "host":
-        raise NotImplementedError(
-            "host own-area shares need utils/clipping.py, not ported yet "
-            "(ROADMAP queue 1, item 10); use own_area_backend='device'")
     if engine == "fused":
-        if gates:
+        if cfg.own_area_on_device:
             raise ValueError(
-                "the fused kernel takes no own-area gates; run "
+                "the fused kernel takes own-area gates only as precomputed "
+                "shares: pass own_area_backend='host', or run "
                 "engine='step', which computes the shares on the device")
         _auction_only(assignment)
     dev = resolve_device(device)
@@ -382,6 +381,13 @@ def run_sequence_device_visual(
         if qualities is not None:
             q = qualities.get(f, [])[:n]
             qual[s, : len(q)] = q
+    gates = cfg.own_area_use > 0.0 or cfg.own_area_collect > 0.0
+    if gates and cfg.own_area_backend == "host":
+        from ..trackers.visual import own_area_shares_host
+
+        for s in range(steps):
+            n = int(valid[s].sum())
+            oa[s, :n] = own_area_shares_host(box[s, :n], conf[s, :n])
 
     state = new_visual_state(capacity, 1, gallery, fdim, device=dev)
     if engine == "step":

@@ -76,3 +76,25 @@ def new_sort_state(capacity: int, history: int, next_id: int = 0,
         hist_conf=z(capacity, history),
         next_id=torch.tensor(next_id, dtype=torch.int32, device=dev),
     )
+
+
+def pad_rows(a: torch.Tensor, rows: int, axis: int = 0) -> torch.Tensor:
+    """`a` with `rows` rows of zeros appended on `axis`, on its device and
+    in its dtype; a tensor without that axis (`next_id`) comes back as it
+    is."""
+    if a.dim() <= axis:
+        return a
+    shape = list(a.shape)
+    shape[axis] = rows
+    return torch.cat([a, a.new_zeros(shape)], dim=axis)
+
+
+def grow_state(state: SortState, new_capacity: int) -> SortState:
+    """The store at `new_capacity` slots (the slot axis follows a leading
+    scene axis when the state has one): the new slots are zero, so
+    inactive.  The Sort API doubles capacity before a step that could
+    overflow it."""
+    t = state.capacity
+    assert new_capacity > t
+    axis = state.active.dim() - 1
+    return map_tensors(lambda a: pad_rows(a, new_capacity - t, axis), state)

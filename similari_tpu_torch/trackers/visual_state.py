@@ -13,6 +13,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..ops.kalman import KalmanState, empty_state
+from .state import grow_state
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,3 +91,13 @@ def new_visual_state(capacity: int, history: int, gallery: int,
         hist_feat=z(capacity, history, feature_dim, dtype=feature_dtype),
         hist_feat_valid=z(capacity, history, dtype=torch.bool),
     )
+
+
+def grow_visual_state(state: VisualState, new_capacity: int) -> VisualState:
+    """`state.grow_state` for the visual store: the new slots also take the
+    `voting_type` sentinel -1; the gallery and feature history keep their
+    dtype (bf16 stays bf16)."""
+    t = state.capacity
+    out = grow_state(state, new_capacity)
+    out.voting_type[..., t:] = -1  # a new tensor: nothing else holds it
+    return out

@@ -513,3 +513,92 @@ def test_inplace_batched_step_matches_plain_step(cuda, dtype):
 def test_f32_products_are_not_tf32(cuda):
     """The gallery distances take their f32 products in full f32."""
     assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+# the public trackers on the card ------------------------------------------
+
+def _api_frames(seed, steps, d):
+    """oriented_stream's frames, valid rows only, as (boxes, conf)."""
+    box, conf, valid = oriented_stream(seed, steps, d, spread=2500.0)
+    return [(box[s][valid[s]], conf[s][valid[s]]) for s in range(steps)]
+
+
+def _run_sort_api(dev, frames):
+    from similari_tpu_torch import PositionalMetricType, Sort
+
+    tr = Sort(method=PositionalMetricType.iou(0.3), initial_capacity=512,
+              device=dev)
+    return [tr.predict_arrays(0, b, c) for b, c in frames]
+
+
+def test_sort_api_oriented_matches_plain_clip(cuda, monkeypatch):
+    """`Sort` on rotated boxes at the sorted path's gate launches the clip
+    kernel once per predict and tracks exactly as the same tracker with
+    the plain version in the kernel's place."""
+    frames = _api_frames(5, 6, 100)
+    before = cl.clip_pairs.launches
+    kernel = _run_sort_api(cuda, frames)
+    assert cl.clip_pairs.launches == before + len(frames)
+    monkeypatch.setattr(cl, "clip_pairs", _plain_clip)
+    plain = _run_sort_api(cuda, frames)
+    for (_, ik, pk, lk, sk), (_, ip, pp, lp, sp) in zip(kernel, plain):
+        for a, b in ((ik, ip), (lk, lp), (sk, sp)):
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_allclose(pk, pp, rtol=RTOL, atol=ATOL)
+
+
+def _run_batch_visual_api(dev, n_frames):
+    from similari_tpu_torch import (BatchVisualSort, Universal2DBox,
+                                    VisualSortMetricType,
+                                    VisualSortObservation, VisualSortOptions,
+                                    VisualSortPredictionBatchRequest)
+
+    opts = (VisualSortOptions()
+            .visual_metric(VisualSortMetricType.euclidean(3.0))
+            .visual_minimal_track_length(2)
+            .visual_max_observations(3).kept_history_length(2)
+            .feature_precision("bf16"))
+    tr = BatchVisualSort(opts=opts, initial_capacity=16, device=dev)
+    streams = [visual_stream(k, n_frames, 12, 16) for k in range(3)]
+    out = []
+    for i in range(n_frames):
+        req = VisualSortPredictionBatchRequest()
+        for sid, (box, conf, valid, feat, fvalid, qual, _) in enumerate(
+                streams):
+            for r in np.nonzero(valid[i])[0]:
+                req.add(sid, VisualSortObservation(
+                    feat[i, r] if fvalid[i, r] else None, float(qual[i, r]),
+                    Universal2DBox.from_vec5(box[i, r], float(conf[i, r])),
+                    int(r)))
+        res = tr.predict(req)
+        while res.ready():
+            sid, tracks = res.get()
+            out.append((sid, [(t.id, t.length, t.voting_type.name,
+                               t.custom_object_id) for t in tracks]))
+    return out, tr
+
+
+def test_batch_visual_api_matches_plain_merge(cuda, monkeypatch):
+    """`BatchVisualSort` launches the merge kernel twice per predict and
+    tracks exactly as itself with the merge's plain version."""
+    before = mi.lane_merge_inplace.launches
+    kernel, tr = _run_batch_visual_api(cuda, 8)
+    assert mi.lane_merge_inplace.launches == before + 2 * 8
+    assert tr._engine.state.feats.dtype == torch.bfloat16
+    monkeypatch.setattr(pmesh, "lane_merge_inplace", mi.lane_merge_plain)
+    plain, _ = _run_batch_visual_api(cuda, 8)
+    assert kernel == plain
+    assert any(v == "Visual" for _, ts in kernel for _, _, v, _ in ts)
+
+
+def test_grow_visual_state_keeps_bf16_on_card(cuda):
+    from similari_tpu_torch.trackers.visual_state import grow_visual_state
+
+    st = new_visual_state(8, 2, 3, 16, torch.bfloat16, device=cuda)
+    st.voting_type[:] = 1
+    big = grow_visual_state(st, 32)
+    assert big.feats.dtype == big.hist_feat.dtype == torch.bfloat16
+    assert big.feats.device == big.voting_type.device == st.feats.device
+    assert big.capacity == 32 and big.feats.shape == (32, 3, 16)
+    assert (big.voting_type[8:] == -1).all() and (big.voting_type[:8] == 1).all()
+    assert not big.active.any()

@@ -48,7 +48,16 @@ def test_import_leaves_jax_out_of_sys_modules():
               "similari_tpu_torch.ops.gallery_dots",
               "similari_tpu_torch.ops.merge_inplace",
               "similari_tpu_torch.ops.ownarea",
-              "similari_tpu_torch.parallel.mesh"):
+              "similari_tpu_torch.parallel.mesh",
+              "similari_tpu_torch.utils.bbox",
+              "similari_tpu_torch.utils.clipping",
+              "similari_tpu_torch.utils.nms",
+              "similari_tpu_torch.trackers.waste",
+              "similari_tpu_torch.trackers.sort",
+              "similari_tpu_torch.trackers.visual",
+              "similari_tpu_torch.trackers.batch",
+              "similari_tpu_torch.trackers.batch_device",
+              "similari_tpu_torch.trackers.batch_visual_device"):
         assert m in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -104,6 +113,22 @@ def test_no_library_of_the_jax_package_is_loaded(path):
         if isinstance(node, ast.Attribute) and node.attr in ("CDLL",
                                                              "LoadLibrary"):
             assert path.endswith("_build.py"), f"{path}:{node.lineno}"
+
+
+def test_public_api_import_leaves_jax_out_of_sys_modules():
+    """The reference's top-level surface, imported from the package root."""
+    code = (
+        "import sys\n"
+        "from similari_tpu_torch import (\n"
+        "    Sort, VisualSort, BatchSort, BatchVisualSort, nms,\n"
+        "    Universal2DBox, sutherland_hodgman_clip, intersection_area,\n"
+        "    exclusively_owned_areas_normalized_shares, version)\n"
+        "print(' '.join(sorted(sys.modules)))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert [m for m in res.stdout.split() if _forbidden(m)] == []
 
 
 def test_forbidden_matches_only_the_jax_package():

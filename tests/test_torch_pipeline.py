@@ -124,10 +124,12 @@ def test_out_of_scope_runner_options_raise():
     dets, feats, _ = _sequence(0)
     with pytest.raises(NotImplementedError, match="engine='step'"):
         pmot.run_sequence_device(dets, method="maha", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # device-computed own-area shares need the general step; the fused
+    # engine takes only precomputed (host) shares
+    with pytest.raises(ValueError, match="precomputed"):
         pmot.run_sequence_device_visual(dets, feats, device="cpu",
                                         own_area_use=0.2,
-                                        own_area_backend="host")
+                                        own_area_backend="device")
 
 
 @pytest.mark.parametrize("runner,builder", [

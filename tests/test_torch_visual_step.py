@@ -303,10 +303,20 @@ def test_runner_engines_and_own_area_options():
     with pytest.raises(ValueError, match="engine='step'"):
         pmot.run_sequence_device_visual(dets, feats, device="cpu",
                                         own_area_use=0.3)
-    with pytest.raises(NotImplementedError, match="clipping"):
-        pmot.run_sequence_device_visual(dets, feats, device="cpu",
-                                        engine="step", own_area_use=0.3,
-                                        own_area_backend="host")
+    # host shares from the f64 clipping oracle: the step engine gives the
+    # JAX runner's ids, and the fused engine takes the same shares
+    kw = dict(capacity=16, own_area_use=0.3, own_area_collect=0.5,
+              own_area_backend="host", feature_precision="f32")
+    out_j, _ = jmot.run_sequence_device_visual(dets, feats, engine="xla",
+                                               **kw)
+    host_step, _ = pmot.run_sequence_device_visual(
+        dets, feats, device="cpu", engine="step", **kw)
+    host_fused, _ = pmot.run_sequence_device_visual(dets, feats,
+                                                    device="cpu", **kw)
+    for fr in out_j:
+        ids = [r[0] for r in out_j[fr]]
+        assert [r[0] for r in host_step[fr]] == ids, fr
+        assert [r[0] for r in host_fused[fr]] == ids, fr
     with pytest.raises(ValueError, match="engine"):
         pmot.run_sequence_device_visual(dets, feats, device="cpu",
                                         engine="xla")

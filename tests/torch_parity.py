@@ -117,6 +117,38 @@ def sort_stream(seed, steps, d, density=300.0):
     return box, valid
 
 
+# the public trackers' predicted boxes, as tests/test_host_sort.py holds
+# its two engines
+API_RTOL, API_ATOL = 2e-4, 1e-3
+
+
+def churn_stream(seed, steps, n, spread=2000.0, churn=0, angle=0.0):
+    """tests/test_host_sort.py's stream as a list of (boxes [n, 5], conf
+    [n]) frames: random-walk boxes of 30-60 px, and every `churn` frames a
+    third of the objects replaced by fresh far-away ones.  `angle` > 0
+    gives each object a fixed angle U(0, angle)."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, spread, (n, 2)).astype(np.float32)
+    wh = rng.uniform(30, 60, (n, 2)).astype(np.float32)
+    ang = (np.random.default_rng(seed + 1000).uniform(0, angle, n)
+           .astype(np.float32))
+    frames = []
+    for s in range(steps):
+        xy += rng.uniform(-2, 2, xy.shape).astype(np.float32)
+        if churn and s and s % churn == 0:
+            k = n // 3
+            idx = rng.choice(n, k, replace=False)
+            xy[idx] = rng.uniform(0, spread, (k, 2)).astype(np.float32)
+        boxes = np.zeros((n, 5), np.float32)
+        boxes[:, :2] = xy
+        boxes[:, 2] = ang
+        boxes[:, 3] = wh[:, 0] / wh[:, 1]
+        boxes[:, 4] = wh[:, 1]
+        conf = rng.uniform(0.5, 1.0, (n,)).astype(np.float32)
+        frames.append((boxes.copy(), conf))
+    return frames
+
+
 def sort_overflow_stream(steps, d, seed=3):
     """Far-apart fresh objects every frame (a new track per detection),
     with a varying count: the trailing rows stay all-zero padding."""
