@@ -91,8 +91,24 @@ Phases:
      scene, two merge launches per predict; scene-frames/s beside the
      bare steps'.  Each of phases 13-16 zeroes every launch counter
      before its run and reads them after;
- 17. one `kernels` JSON line (the clip's and the merge's launches include
-     the API paths'), then the result line.
+ 17. the host engines (engine="host": NumPy and the C++ LAP solver of
+     `csrc/lap.cpp`, built with the system C++ compiler) beside the device
+     engines on the same calls, at bench.py::bench_interactive_host's
+     per-call widths, with the host's CPU model and BLAS threads: `Sort`
+     IoU 0.3 aligned and oriented at n = 10, 100, 500, 1000; `VisualSort`
+     512-d f32 euclidean(10) at n = 10, 50, 100, and a bf16 `VisualSort`
+     under "host" (the device step); `BatchSort` one scene x n = 10, 100,
+     500 with constraint (1, 1.0), and phase 16's S=256 x 100; each with
+     ids equal call for call (or the two solutions' voting LP totals tied
+     within 1e-5 relative, counted) and wall-clock ms per call of both
+     engines, the host engine launching no kernel; `FeatureTracker` 256-d
+     at n = 10, 100, 500 (ids kept, ms per call); the general SORT step
+     with assignment="native" against "hungarian" on the main path's
+     stream (--step-frames frames, ids equal); the Kalman API's
+     `filter_sequence`.  Every launch counter is zeroed before each call
+     and read after it;
+ 18. one `kernels` JSON line (the clip's and the merge's launches include
+     the API paths' and phase 17's device Sort's), then the result line.
 
 The fused-kernel checks take the main path's configurations from the
 runners' own builders, the other configurations and the crowded stream
@@ -108,7 +124,10 @@ Exits non-zero, printing no result, when CUDA is missing or any phase fails.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
+import platform
 import re
 import shutil
 import subprocess
@@ -122,8 +141,10 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 
 from similari_tpu_torch import (  # noqa: E402
-    BatchSort, BatchVisualSort, PositionalMetricType, Sort,
-    SortPredictionBatchRequest, Universal2DBox, VisualSort,
+    BatchSort, BatchVisualSort, BoundingBox, FeatureTracker,
+    Point2DKalmanFilter, PositionalMetricType, Sort,
+    SortPredictionBatchRequest, SpatioTemporalConstraints, Universal2DBox,
+    Universal2DBoxKalmanFilter, Vec2DKalmanFilter, VisualSort,
     VisualSortMetricType, VisualSortObservation, VisualSortOptions,
     VisualSortPredictionBatchRequest, _build, nms)
 from similari_tpu_torch.eval.mot import (  # noqa: E402
@@ -146,7 +167,8 @@ from similari_tpu_torch.trackers.visual_step import (  # noqa: E402
     VT_VISUAL, VisualConfig, visual_scan)
 from similari_tpu_torch.utils.pad import pad_pow2  # noqa: E402
 from torch_parity import (  # noqa: E402
-    ATOL, EXACT_BOX_COLUMNS, RTOL, VISUAL_CONFIGS, crowded_stream)
+    ATOL, EXACT_BOX_COLUMNS, RTOL, VISUAL_CONFIGS, crowded_stream,
+    solutions_tie)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12  # non-tensor float32
@@ -1677,6 +1699,444 @@ def phase_batch_api(args, dev, visual_rate, sort_rate):
         f"{sort_rate:.1f}; CUDA events); no kernel launched")
     return merge_launches
 
+# ---------------------------------------------------------------------------
+# phase 17: the host engines (engine="host": NumPy and the C++ LAP solver)
+# beside the device engines on the same calls, at the per-call widths of
+# bench.py::bench_interactive_host
+# ---------------------------------------------------------------------------
+
+HOST_WARMUP = 2  # calls compared but not timed
+HOST_CALLS = {10: 16, 50: 16, 100: 16, 500: 8, 1000: 4}  # timed calls
+HOST_FEATURE_DIM = 256
+HOST_VISUAL_DIM = 512
+HOST_BATCH_REQUESTS = 4  # S=256 x 100 requests through both engines
+KF_STEPS = 10_000  # filter_sequence's track length
+
+
+def cpu_model():
+    """The host CPU's model name: /proc/cpuinfo, else lscpu, else the
+    machine type."""
+    cpuinfo = Path("/proc/cpuinfo")
+    if cpuinfo.exists():
+        for line in cpuinfo.read_text().splitlines():
+            if line.startswith("model name"):
+                return line.split(":", 1)[1].strip()
+    if shutil.which("lscpu"):
+        out = subprocess.run(["lscpu"], capture_output=True, text=True).stdout
+        for line in out.splitlines():
+            if line.startswith("Model name:"):
+                return line.split(":", 1)[1].strip()
+    return f"model not reported ({platform.machine()})"
+
+
+def blas_threads():
+    """The thread count of the OpenBLAS that numpy loaded, asked through
+    its own entry point (found in this process's memory map)."""
+    import ctypes
+
+    maps = Path("/proc/self/maps")
+    libs = sorted({line.split()[-1] for line in (
+        maps.read_text().splitlines() if maps.exists() else [])
+        if "openblas" in line.lower() and line.split()[-1].startswith("/")})
+    for path in libs:
+        lib = ctypes.CDLL(path)
+        for sym in ("scipy_openblas_get_num_threads64_",
+                    "openblas_get_num_threads64_", "openblas_get_num_threads"):
+            fn = getattr(lib, sym, None)
+            if fn is not None:
+                return f"{fn()} ({Path(path).name})"
+    return "not reported"
+
+
+def host_info():
+    """(CPU model, BLAS threads, torch threads, cores) of this host, written
+    beside every host timing."""
+    return cpu_model(), blas_threads(), torch.get_num_threads(), os.cpu_count()
+
+
+def timed(dev, fn):
+    """(fn(), wall ms): a device engine's call returns only after its
+    outputs are on the host."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def counted(dev, fn):
+    """(fn(), wall ms, launch counts of the call)."""
+    zero_counts()
+    out, ms = timed(dev, fn)
+    return out, ms, read_counts()
+
+
+def resync(dev_tr, host_tr, dev):
+    """Seed the device tracker's scene 0 with the host tracker's state
+    (after a frame whose two solutions tie)."""
+    from similari_tpu_torch.trackers.host_sort import state_to_device
+
+    hs, ds = host_tr._scenes[0], dev_tr._scenes[0]
+    ds.state = state_to_device(hs.state, dev)
+    ds.active_count = hs.active_count
+    dev_tr._next_track_id = host_tr._next_track_id
+
+
+def compare_engines(label, host_tr, dev_tr, frames, dev, visual, want_dev):
+    """Both trackers' predict_arrays on the same calls: ids equal, or the
+    two solutions tie in the voting LP (torch_parity.solutions_tie; for
+    VisualSort the visual winners equal and the positional LP tied), after
+    which the device tracker takes the host tracker's state.  The host
+    engine launches no kernel; each device call launches `want_dev(call)`.
+    Returns (host ms, device ms) per timed call, the tie count, the host
+    engine's visual matches and the device calls' clip launches."""
+    from similari_tpu_torch.trackers.host_sort import as_tensors, state_to_host
+
+    host_ms, dev_ms, ties, votes, clips = [], [], 0, 0, 0
+    for i, args in enumerate(frames):
+        store = host_tr._scenes.get(0)
+        before = (None if store is None
+                  else state_to_host(as_tensors(store.state)))
+        oh, h_ms, h_counts = counted(
+            dev, lambda: host_tr.predict_arrays(0, *args))
+        od, d_ms, d_counts = counted(
+            dev, lambda: dev_tr.predict_arrays(0, *args))
+        expect_counts(f"{label} host call {i}", h_counts, {})
+        expect_counts(f"{label} device call {i}", d_counts, want_dev(i))
+        clips += d_counts["clip_pairs"]
+        if i >= HOST_WARMUP:
+            host_ms.append(h_ms)
+            dev_ms.append(d_ms)
+        if visual:
+            votes += int((oh[5] == VT_VISUAL).sum())
+        if np.array_equal(oh[1], od[1]):
+            check_same(f"{label} call {i}: slots", od[4], oh[4])
+            check_same(f"{label} call {i}: lengths", od[3], oh[3])
+            if visual:
+                check_same(f"{label} call {i}: voting types", od[5], oh[5])
+            continue
+        rows = np.ones(len(oh[1]), bool)
+        if visual:
+            check_same(f"{label} call {i}: visual winners", od[5] == VT_VISUAL,
+                       oh[5] == VT_VISUAL)
+            rows = oh[5] != VT_VISUAL
+        cfg = dataclasses.replace(host_tr._cfg,
+                                  oriented=host_tr._scenes[0].oriented)
+        if before is None or not solutions_tie(
+                cfg, before, args[0], args[1], oh[0], rows,
+                (oh[4], oh[3] == 1), (od[4], od[3] == 1)):
+            raise AssertionError(f"{label} call {i}: ids differ and the "
+                                 "voting LP totals do not tie")
+        ties += 1
+        resync(dev_tr, host_tr, dev)
+    return host_ms, dev_ms, ties, votes, clips
+
+
+def log_pair(label, host_ms, dev_ms, agreement):
+    log(f"[17] {label}: host {np.median(host_ms):.3f} ms per call, device "
+        f"{np.median(dev_ms):.3f} (medians of {len(host_ms)} timed calls "
+        f"after {HOST_WARMUP}; wall clock); {agreement}")
+
+
+def ids_agree(calls, ties):
+    return f"ids equal on {calls - ties}/{calls} calls, {ties} LP ties"
+
+
+BATCH_AGREE = ("lengths and custom ids equal, ids one fixed one-to-one map "
+               "per scene, on every request")
+
+
+def host_sort_frames(n, oriented, calls):
+    """bench_interactive_host's SORT stream: n boxes of 30-60 px over
+    2000 x 2000 px moving +-2 px per call, fixed angles U(0, 1) when
+    oriented."""
+    rng = np.random.default_rng(1)
+    xy = rng.uniform(0, 2000, (n, 2)).astype(np.float32)
+    wh = rng.uniform(30, 60, (n, 2)).astype(np.float32)
+    ang = rng.uniform(0, 1.0, (n,)).astype(np.float32)
+    out = []
+    for _ in range(calls):
+        xy = xy + rng.uniform(-2, 2, xy.shape).astype(np.float32)
+        b = np.zeros((n, 5), np.float32)
+        b[:, :2] = xy
+        if oriented:
+            b[:, 2] = ang
+        b[:, 3] = wh[:, 0] / wh[:, 1]
+        b[:, 4] = wh[:, 1]
+        out.append((b, np.ones((n,), np.float32)))
+    return out
+
+
+def host_visual_frames(n, calls):
+    """bench_interactive_host's VisualSORT stream: n boxes 40 px tall over
+    600 sqrt(n / 10) px with 512-d identities plus N(0, 0.05) noise,
+    quality 0.9."""
+    rng = np.random.default_rng(3)
+    xy = rng.uniform(0, 600 * np.sqrt(n / 10), (n, 2)).astype(np.float32)
+    ident = rng.normal(size=(n, HOST_VISUAL_DIM)).astype(np.float32)
+    out = []
+    for _ in range(calls):
+        xy = xy + rng.uniform(-2, 2, xy.shape).astype(np.float32)
+        box = np.zeros((n, 5), np.float32)
+        box[:, :2] = xy
+        box[:, 3] = 0.5
+        box[:, 4] = 40.0
+        feat = ident + rng.normal(scale=0.05, size=ident.shape).astype(
+            np.float32)
+        out.append((box, np.ones((n,), np.float32), feat, np.ones((n,), bool),
+                    np.full((n,), 0.9, np.float32)))
+    return out
+
+
+def phase_host_sort(dev):
+    """Returns the device engine's clip launches."""
+    launches = 0
+    for oriented in (False, True):
+        for n in (10, 100, 500, 1000):
+            calls = HOST_WARMUP + HOST_CALLS[n]
+            frames = host_sort_frames(n, oriented, calls)
+
+            def make(engine):
+                return Sort(shards=1, bbox_history=1, max_idle_epochs=5,
+                            method=PositionalMetricType.iou(0.3),
+                            engine=engine, device=dev)
+
+            # the device step's sorted path: oriented, >= 512 slots (the
+            # store grows to the next power of two of n) and >= 64 rows
+            clip = oriented and pad_pow2(n) >= 512
+            host_tr, dev_tr = make("host"), make("device")
+            host_ms, dev_ms, ties, _, clips = compare_engines(
+                f"Sort {'oriented' if oriented else 'aligned'} n={n}",
+                host_tr, dev_tr, frames, dev, False,
+                lambda i: {"clip_pairs": 1} if clip else {})
+            launches += clips
+            log_pair(f"Sort IoU 0.3 {'oriented' if oriented else 'aligned'} "
+                     f"n={n}", host_ms, dev_ms, ids_agree(calls, ties)
+                     + f"; clip launches: host 0, device {clips}")
+    return launches
+
+
+def phase_host_visual(dev):
+    for n in (10, 50, 100):
+        calls = HOST_WARMUP + HOST_CALLS[n]
+        frames = host_visual_frames(n, calls)
+
+        def make(engine):
+            opts = (VisualSortOptions()
+                    .visual_metric(VisualSortMetricType.euclidean(10.0))
+                    .positional_metric(PositionalMetricType.iou(0.3))
+                    .visual_minimal_track_length(2).max_idle_epochs(5))
+            return VisualSort(1, opts, engine=engine, device=dev)
+
+        host_tr, dev_tr = make("host"), make("device")
+        host_ms, dev_ms, ties, votes, _ = compare_engines(
+            f"VisualSort n={n}", host_tr, dev_tr, frames, dev, True,
+            lambda i: {})
+        if votes == 0:
+            raise AssertionError(f"VisualSort n={n}: no visual match")
+        log_pair(f"VisualSort {HOST_VISUAL_DIM}-d f32 euclidean(10) n={n}",
+                 host_ms, dev_ms, ids_agree(calls, ties)
+                 + f"; {votes} visual matches over the calls")
+
+    # a bf16 gallery under "host" takes the device step, as in the JAX
+    # package: no numpy state, the same ids as engine="device"
+    frames = host_visual_frames(50, 6)
+    opts = (VisualSortOptions().feature_precision("bf16")
+            .visual_metric(VisualSortMetricType.euclidean(10.0))
+            .visual_minimal_track_length(2))
+    a = VisualSort(1, opts, engine="host", device=dev)
+    b = VisualSort(1, opts, engine="device", device=dev)
+    zero_counts()
+    for i, fr in enumerate(frames):
+        check_same(f"bf16 VisualSort call {i}: ids",
+                   a.predict_arrays(0, *fr)[1], b.predict_arrays(0, *fr)[1])
+    expect_counts("bf16 VisualSort", read_counts(), {})
+    st = a._scenes[0].state
+    if a._scenes[0].host or st.feats.dtype != torch.bfloat16 or \
+            st.feats.device.type != dev.type:
+        raise AssertionError("bf16 VisualSort under 'host' left the device")
+    log(f"[17] bf16 VisualSort under engine='host' n=50: the device step "
+        f"(bf16 gallery on {st.feats.device}), ids equal to "
+        f"engine='device' on {len(frames)}/{len(frames)} calls; no kernel "
+        f"launched (the general visual step has no sorted clip path)")
+
+
+def host_batch_boxes(n, calls):
+    """bench_interactive_host's BatchSORT stream: n 50 x 50 px boxes over
+    1000 n px, moving +-1 px per call."""
+    rng = np.random.default_rng(4)
+    xy = rng.uniform(0, 1000.0 * n, (n, 2)).astype(np.float32)
+    out = []
+    for _ in range(calls):
+        xy = xy + rng.uniform(-1, 1, xy.shape).astype(np.float32)
+        out.append([BoundingBox(float(xy[i, 0]), float(xy[i, 1]), 50.0,
+                                50.0).as_xyaah() for i in range(n)])
+    return out
+
+
+def batch_call(tracker, scenes):
+    """One request of `scenes` ({scene: boxes}) built and predicted, as
+    the reference's bench builds it inside its timed region; returns
+    {scene: tracks}."""
+    req = SortPredictionBatchRequest()
+    for sc, boxes in scenes.items():
+        for i, bb in enumerate(boxes):
+            req.add(sc, bb, i)
+    res = tracker.predict(req)
+    return dict(res.get() for _ in range(res.batch_size()))
+
+
+def compare_batches(label, host_tr, dev_tr, requests, dev):
+    """Lengths and custom ids equal per scene, ids a fixed one-to-one map
+    (the device engine reserves ids per scene); host engine launches
+    nothing."""
+    host_ms, dev_ms, maps = [], [], {}
+    for i, scenes in enumerate(requests):
+        rh, h_ms, h_counts = counted(dev, lambda: batch_call(host_tr, scenes))
+        rd, d_ms, d_counts = counted(dev, lambda: batch_call(dev_tr, scenes))
+        expect_counts(f"{label} host request {i}", h_counts, {})
+        expect_counts(f"{label} device request {i}", d_counts, {})
+        if i >= HOST_WARMUP:
+            host_ms.append(h_ms)
+            dev_ms.append(d_ms)
+        for sc in scenes:
+            for fld in ("length", "custom_object_id"):
+                check_same(f"{label} request {i} scene {sc}: {fld}s",
+                           [getattr(t, fld) for t in rh[sc]],
+                           [getattr(t, fld) for t in rd[sc]])
+        scene_id_maps(label, maps, [[t.id for t in rh[sc]] for sc in scenes],
+                      [[t.id for t in rd[sc]] for sc in scenes])
+    return host_ms, dev_ms
+
+
+def phase_host_batch(dev):
+    for n in (10, 100, 500):
+        calls = HOST_WARMUP + HOST_CALLS[n]
+
+        def make(engine):
+            stc = SpatioTemporalConstraints()
+            stc.add_constraints([(1, 1.0)])
+            return BatchSort(1, 1, bbox_history=10, max_idle_epochs=1,
+                             method=PositionalMetricType.iou(0.3),
+                             spatio_temporal_constraints=stc, engine=engine,
+                             device=dev)
+
+        requests = [{0: b} for b in host_batch_boxes(n, calls)]
+        host_ms, dev_ms = compare_batches(f"BatchSort 1 x {n}", make("host"),
+                                          make("device"), requests, dev)
+        log_pair(f"BatchSort one scene x {n}, constraint (1, 1.0), request "
+                 f"built in the timed call", host_ms, dev_ms, BATCH_AGREE)
+
+    # phase 16's shape: S=256 scenes x 100 objects per request
+    calls = HOST_WARMUP + HOST_BATCH_REQUESTS
+    boxes = box_stream(calls, BS * BD, np.random.default_rng(42)).reshape(
+        calls, BS, BD, 5)
+    requests = [{sc: [Universal2DBox.from_vec5(r) for r in boxes[i, sc]]
+                 for sc in range(BS)} for i in range(calls)]
+
+    def make(engine):
+        return BatchSort(max_idle_epochs=5,
+                         method=PositionalMetricType.iou(0.3),
+                         initial_capacity=128, engine=engine, device=dev)
+
+    host_ms, dev_ms = compare_batches(f"BatchSort {BS} x {BD}", make("host"),
+                                      make("device"), requests, dev)
+    log_pair(f"BatchSort {BS} scenes x {BD} objects (phase 16's shape), "
+             f"request built in the timed call", host_ms, dev_ms, BATCH_AGREE)
+
+
+def phase_host_feature(dev):
+    for n in (10, 100, 500):
+        calls = HOST_WARMUP + HOST_CALLS[n]
+        rng = np.random.default_rng(2)
+        base = np.zeros((n, HOST_FEATURE_DIM), np.float32)
+        base[:, 0] = 1000.0 * np.arange(n)
+        ft = FeatureTracker(HOST_FEATURE_DIM, gallery=3)
+        want = np.arange(1, n + 1)
+        times = []
+        zero_counts()
+        for i in range(calls):
+            base = base + rng.uniform(-0.1, 0.1, base.shape).astype(
+                np.float32)
+            ids, ms = timed(dev, lambda: ft.predict(base))
+            check_same(f"FeatureTracker n={n} call {i}: ids", ids, want)
+            if i >= HOST_WARMUP:
+                times.append(ms)
+        expect_counts(f"FeatureTracker n={n}", read_counts(), {})
+        log(f"[17] FeatureTracker {HOST_FEATURE_DIM}-d n={n}: "
+            f"{np.median(times):.3f} ms per call (median of {len(times)} "
+            f"after {HOST_WARMUP}); every object kept its id; host only")
+
+
+def phase_native_assignment(args, dev, dets):
+    """The general SORT step with assignment='native' (the C++ solver)
+    against 'hungarian' (scipy) on the main path's stream."""
+    frames = sorted(dets)[:args.step_frames]
+    sub = {f: dets[f] for f in frames}
+    outs = {}
+    for assignment in ("native", "hungarian"):
+        zero_counts()
+        outs[assignment] = run_sequence_device(
+            sub, engine="step", assignment=assignment, capacity=T,
+            device=dev)
+        expect_counts(f"step assignment={assignment}", read_counts(), {})
+    (nat, nat_fps), (hun, hun_fps) = outs["native"], outs["hungarian"]
+    for f in frames:
+        check_same(f"native vs hungarian frame {f}: ids",
+                   [r[0] for r in nat[f]], [r[0] for r in hun[f]])
+    log(f"[17] general SORT step (engine='step'), main path's stream, "
+        f"{len(frames)} frames x {D_VALID} objects: assignment='native' "
+        f"ids equal to 'hungarian' every frame; {nat_fps:.1f} frames/s "
+        f"native, {hun_fps:.1f} hungarian (CUDA events)")
+
+
+def phase_kalman_api(dev):
+    rng = np.random.default_rng(9)
+    z = np.zeros((KF_STEPS, 5), np.float32)
+    z[:, 0] = np.cumsum(rng.normal(size=KF_STEPS))
+    z[:, 1] = np.cumsum(rng.normal(size=KF_STEPS))
+    z[:, 3] = 2.0
+    z[:, 4] = 5.0 + rng.uniform(0, 1, KF_STEPS)
+    kf = Universal2DBoxKalmanFilter()
+    got, ms = timed(dev, lambda: kf.filter_sequence(z))
+    st = kf.initiate(Universal2DBox.from_vec5(z[0]))
+    for i in range(1, 200):
+        st = kf.update(kf.predict(st), Universal2DBox.from_vec5(z[i]))
+    check_same("filter_sequence row 199", got[199], st._state.mean_pos)
+    pts = np.cumsum(rng.normal(size=(KF_STEPS // 10, 17, 2)), axis=0).astype(
+        np.float32)
+    vec, vms = timed(dev, lambda: Vec2DKalmanFilter().filter_sequence(pts))
+    check_same("Vec2D chain 3", vec[:, 3],
+               Point2DKalmanFilter().filter_sequence(pts[:, 3]))
+    if not (np.isfinite(got).all() and np.isfinite(vec).all()):
+        raise AssertionError("filter_sequence: non-finite output")
+    log(f"[17] Kalman API filter_sequence: box track of {KF_STEPS} steps "
+        f"{ms:.3f} ms ({ms * 1e3 / KF_STEPS:.3f} us per step), equal to the "
+        f"per-call API at step 199; Vec2D {KF_STEPS // 10} steps x 17 "
+        f"keypoints {vms:.3f} ms, each chain equal to the point filter's; "
+        f"host only (NumPy)")
+
+
+def phase_host_engines(args, dev, dets):
+    """Phase 17: the host engines beside the device engines.  Returns the
+    device Sort's clip launches."""
+    model, blas, threads, cores = host_info()
+    log(f"[17] host: {model}, {cores} cores; BLAS threads {blas}, torch "
+        f"threads {threads}; card {gpu_line()}")
+    t0 = time.perf_counter()
+    _build.host_library()
+    secs, _ = _build.host_build_info()
+    log(f"[17] host LAP solver (csrc/lap.cpp) built in {secs:.2f} s, loaded "
+        f"in {time.perf_counter() - t0:.2f} s; flags "
+        f"{' '.join(_build.HOST_FLAGS)}")
+    launches = phase_host_sort(dev)
+    phase_host_visual(dev)
+    phase_host_batch(dev)
+    phase_host_feature(dev)
+    phase_native_assignment(args, dev, dets)
+    phase_kalman_api(dev)
+    return launches
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1764,10 +2224,14 @@ def main(argv=None) -> int:
     stamp("phase 15 done")
     api_merge = phase_batch_api(args, dev, visual_rate, sort_rate)
     stamp("phase 16 done")
-    clip_entry["launches"] += api_clip
+    host_clip = phase_host_engines(args, dev, dets)
+    stamp("phase 17 done")
+    clip_entry["launches"] += api_clip + host_clip
     merge_entry["launches"] += api_merge
     log(f"[16] launches on the API paths: clip {api_clip} (Sort, nms()), "
-        f"merge {api_merge} (BatchVisualSort)")
+        f"merge {api_merge} (BatchVisualSort); [17] clip {host_clip} (the "
+        f"device Sort beside the host engine; the host engines launch "
+        f"none)")
     log(json.dumps({"kernels": kernels, "not_ported": []}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -39,10 +39,18 @@ from .utils.clipping import (  # noqa: F401
     sutherland_hodgman_clip,
 )
 from .utils.nms import nms  # noqa: F401
+from .utils.kalman import (  # noqa: F401
+    Point2DKalmanFilter,
+    Point2DKalmanFilterState,
+    Universal2DBoxKalmanFilter,
+    Universal2DBoxKalmanFilterState,
+    Vec2DKalmanFilter,
+)
 from .ops.distances import cosine, euclidean  # noqa: F401
 from .trackers import (  # noqa: F401
     BatchSort,
     BatchVisualSort,
+    FeatureTracker,
     PositionalMetricType,
     PredictionBatchResult,
     SortPredictionBatchRequest,

@@ -1,10 +1,21 @@
-"""Build the CUDA kernels with nvcc on first use and bind them with ctypes.
+"""Build the port's native libraries on first use and bind them with ctypes.
 
-Each source under `csrc/` compiles to an object file, all of them in
-parallel (one nvcc each, started together); the objects link into one
-shared library with a plain C interface, written to `_build/` beside this
-file (listed in .gitignore) and named by a hash of the sources and flags,
-so an edited source rebuilds.  Nothing here runs at import time.
+Two libraries, both written to `_build/` beside this file (listed in
+.gitignore) and named by a hash of their sources and flags, so an edited
+source rebuilds:
+
+* the CUDA kernels (`library()`): each `.cu` source under `csrc/` compiles
+  to an object file, all of them in parallel (one nvcc each, started
+  together), and the objects link into one shared library with a plain C
+  interface.  It builds on a machine with the CUDA toolkit.
+* the host LAP solver (`host_library()`, `csrc/lap.cpp`): the system C++
+  compiler (`$CXX`, else `c++`) with the JAX package's native flags, so
+  its solutions are the JAX package's bit for bit.  It builds wherever a
+  C++ compiler is, the CPU included; a failed build raises.
+
+Nothing here runs at import time.  A build writes a temporary file named
+by the process id and moves it into place, so concurrent first builds
+(parallel test workers) never interleave.
 """
 
 from __future__ import annotations
@@ -12,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import time
@@ -54,6 +66,16 @@ CLIP_ARGTYPES = [_P] * 4 + [_I] * 3 + [_P]
 MERGE_ARGTYPES = [_P] * 4 + [_I] * 3 + [ctypes.c_longlong] + [_P]
 
 
+# csrc/lap.cpp: the flags of the JAX package's native build
+HOST_SOURCE = "lap.cpp"
+HOST_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
+              "-pthread")
+# lap_solve_max: weights, R, C, out; lap_solve_batch_max: weights, B, R, C,
+# out, threads
+LAP_ARGTYPES = [_P, _I, _I, _P]
+LAP_BATCH_ARGTYPES = [_P, _I, _I, _I, _P, _I]
+
+
 class _Library:
     def __init__(self):
         self.lib: Optional[ctypes.CDLL] = None
@@ -62,6 +84,7 @@ class _Library:
 
 
 _LIB = _Library()
+_HOST = _Library()
 
 
 def _nvcc() -> str:
@@ -149,6 +172,63 @@ def library() -> ctypes.CDLL:
 def build_info():
     """(seconds the last nvcc run took in this process, its output)."""
     return _LIB.build_seconds, _LIB.build_log
+
+
+def _cxx() -> str:
+    return os.environ.get("CXX") or "c++"
+
+
+def build_host() -> Path:
+    """Compile `csrc/lap.cpp` if this exact source, compiler and flag set
+    is not built yet.  Raises RuntimeError with the compiler's output."""
+    cxx = _cxx()
+    # -march=native: the machine is part of the name, as in the JAX
+    # package's build
+    h = hashlib.sha256(" ".join((cxx, platform.machine()) + HOST_FLAGS)
+                       .encode())
+    h.update((CSRC / HOST_SOURCE).read_bytes())
+    out = BUILD_DIR / f"libsimilari_host_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [cxx, *HOST_FLAGS, str(CSRC / HOST_SOURCE), "-o", str(tmp)]
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True, timeout=300)
+    except OSError as e:
+        raise RuntimeError(
+            f"the host LAP solver did not build ({' '.join(cmd)}): {e}; "
+            "set CXX to a C++ compiler, or use assignment='hungarian'") from e
+    finally:
+        _HOST.build_seconds = time.perf_counter() - t0
+    _HOST.build_log = res.stdout
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"the host LAP solver did not build ({' '.join(cmd)}, exit "
+            f"{res.returncode}); use assignment='hungarian' where no C++ "
+            f"compiler is available:\n{res.stdout}")
+    os.replace(tmp, out)
+    return out
+
+
+def host_library() -> ctypes.CDLL:
+    """The loaded host LAP library (`csrc/lap.cpp`), built on first use."""
+    if _HOST.lib is None:
+        lib = ctypes.CDLL(str(build_host()))
+        lib.lap_solve_max.argtypes = LAP_ARGTYPES
+        lib.lap_solve_max.restype = ctypes.c_int
+        lib.lap_solve_batch_max.argtypes = LAP_BATCH_ARGTYPES
+        lib.lap_solve_batch_max.restype = ctypes.c_int
+        _HOST.lib = lib
+    return _HOST.lib
+
+
+def host_build_info():
+    """(seconds the last C++ build took in this process, its output)."""
+    return _HOST.build_seconds, _HOST.build_log
 
 
 def check(code: int, what: str) -> None:

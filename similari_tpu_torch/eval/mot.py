@@ -1,5 +1,10 @@
-"""MOTChallenge-format IO and whole-sequence runners (mirrors
+"""MOTChallenge-format IO and sequence runners (mirrors
 `similari_tpu/eval/mot.py`).
+
+`read_detections`, `read_gt` and `write_csv` read and write the MOT csv
+format.  `run_sequence_interactive` and `run_sequence_interactive_visual`
+run a sequence frame by frame through a tracker's `predict_arrays`, with
+whichever engine the tracker passed in was built with.
 
 `run_sequence_device` and `run_sequence_device_visual` pad a sequence into
 SoA buffers, expand frame gaps into all-invalid frames (the fused kernels
@@ -46,6 +51,23 @@ def read_detections(file_path) -> Detections:
     return frame_detections
 
 
+def read_gt(file_path) -> Outputs:
+    """MOT gt csv rows -> {frame: [(track id, left, top, width, height)]}."""
+    out: Dict[int, List] = {}
+    with open(file_path, "r") as f:
+        for row in csv.reader(f):
+            frame = int(row[0])
+            tid = int(row[1])
+            l, t, w, h = map(float, row[2:6])
+            out.setdefault(frame, []).append((tid, l, t, w, h))
+    return out
+
+
+def write_csv(file_path, rows):
+    with open(file_path, "w", newline="") as f:
+        csv.writer(f, lineterminator="\n").writerows(rows)
+
+
 def ltwh_to_vec5(dets: np.ndarray) -> np.ndarray:
     """[N, >=4] LTWH (col 4, when present, = confidence) -> [N,5]
     (xc, yc, angle, aspect, height).  Only an exactly-6-column input
@@ -67,6 +89,66 @@ def vec5_to_ltwh(v: np.ndarray) -> np.ndarray:
     out[:, 1] = v[:, 1] - v[:, 4] / 2.0
     out[:, 2] = w
     out[:, 3] = v[:, 4]
+    return out
+
+
+def run_sequence_interactive(tracker, detections: Detections) -> Outputs:
+    """Frame by frame through `tracker.predict_arrays` (a `Sort`, on
+    either engine), reporting the predicted box per track id.  Frame-number
+    gaps advance the epoch clock (`skip_epochs_for_scene`), so idle aging
+    matches a run that steps every frame."""
+    out: Dict[int, List] = {}
+    prev = None
+    for frame in sorted(detections):
+        if prev is not None and frame - prev > 1:
+            tracker.skip_epochs_for_scene(0, int(frame - prev - 1))
+        prev = frame
+        dets = np.asarray(detections[frame], np.float32)
+        boxes = ltwh_to_vec5(dets)
+        confs = np.clip(dets[:, 4], 0.0, 1.0).astype(np.float32)
+        _, ids, pred, _, _ = tracker.predict_arrays(0, boxes, confs)
+        ltwh = vec5_to_ltwh(pred)
+        out[frame] = [
+            (int(ids[i]), *map(float, ltwh[i])) for i in range(len(ids))
+        ]
+    return out
+
+
+def run_sequence_interactive_visual(
+    tracker, detections: Detections, features: Dict[int, List],
+    qualities: Optional[Dict[int, List[float]]] = None,
+) -> Outputs:
+    """Frame by frame through `VisualSort.predict_arrays` (either engine).
+    `features[frame][i]` aligns with `detections[frame][i]` (None = no
+    ReID); reports the observed box per track id, as
+    `run_sequence_device_visual`'s `report_observed=True` default does."""
+    out: Dict[int, List] = {}
+    prev = None
+    for frame in sorted(detections):
+        if prev is not None and frame - prev > 1:
+            tracker.skip_epochs_for_scene(0, int(frame - prev - 1))
+        prev = frame
+        dets = np.asarray(detections[frame], np.float32)
+        boxes = ltwh_to_vec5(dets)
+        confs = np.clip(dets[:, 4], 0.0, 1.0).astype(np.float32)
+        frow = features.get(frame, [])
+        fdim = max((len(x) for x in frow if x is not None), default=1)
+        feat = np.zeros((len(dets), fdim), np.float32)
+        fvalid = np.zeros((len(dets),), bool)
+        for i, fv in enumerate(frow[: len(dets)]):
+            if fv is not None:
+                feat[i, : len(fv)] = fv
+                fvalid[i] = True
+        qual = np.ones((len(dets),), np.float32)
+        if qualities is not None:
+            q = qualities.get(frame, [])[: len(dets)]
+            qual[: len(q)] = q
+        _, ids, _pred, _, _, _ = tracker.predict_arrays(
+            0, boxes, confs, feat, fvalid, qual)
+        ltwh = dets[:, :4]
+        out[frame] = [
+            (int(ids[i]), *map(float, ltwh[i])) for i in range(len(ids))
+        ]
     return out
 
 
@@ -221,10 +303,10 @@ def run_sequence_device(
     (`assignment="auction"`) only.  engine="step" runs the general step
     (`trackers/sort_step.py::sort_scan`) frame by frame with per-frame
     epochs: IoU or Mahalanobis (`method="maha"`), assignment "auction",
-    "hungarian" or "auto".  The JAX package's default is its general step
-    (`engine="xla"`); both engines give the same ids.  The fused engine
-    raises ValueError, before any launch and on every device, for more
-    than 1024 detections in a frame (`ops/fused_sort.py::
+    "hungarian", "native" or "auto".  The JAX package's default is its
+    general step (`engine="xla"`); both engines give the same ids.  The
+    fused engine raises ValueError, before any launch and on every device,
+    for more than 1024 detections in a frame (`ops/fused_sort.py::
     check_sort_shape`).  Returns (per-frame outputs, frames/s of the timed
     run: CUDA-event time on the card).
     """

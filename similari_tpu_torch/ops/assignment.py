@@ -15,10 +15,13 @@ col >= D is track col - D.
   problems at once, each with its own eps, as the JAX package's vmap does.
 * `hungarian_host`: the exact optimum by scipy's `linear_sum_assignment`;
   the matrix goes to the host and the columns come back.
+* `native_host`: the exact optimum by the port's host C++ solver
+  (`csrc/lap.cpp`, `ops/lap.py`), the JAX package's `native` backend: the
+  matrix goes to the host, a scene batch is solved in one call over a
+  thread pool, and the columns come back.
 
 The JAX package's general step solves the auction in XLA, not in a Pallas
-kernel, so it stays plain PyTorch here.  The C++ LAP solver of the JAX
-package (`native`) is not part of the port yet (ROADMAP queue 1, item 5).
+kernel, so it stays plain PyTorch here.
 """
 
 from __future__ import annotations
@@ -33,11 +36,6 @@ MAX_AUCTION_ROUNDS = 3000
 # rounds run before the first convergence check; tracking-shaped matrices
 # converge in 1-3 rounds, and a round changes nothing once all rows hold
 UNROLLED_ROUNDS = 3
-
-_NATIVE_NOT_PORTED = (
-    "the native C++ LAP solver is not part of the port yet (ROADMAP queue "
-    "1, item 5): use assignment='hungarian' or 'auction'")
-
 
 def first_argmax(values: torch.Tensor, dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(max, lowest index of the max) along `dim`."""
@@ -231,8 +229,25 @@ def hungarian_host(weights: torch.Tensor) -> torch.Tensor:
     return torch.from_numpy(out).to(weights.device)
 
 
+def native_host(weights: torch.Tensor) -> torch.Tensor:
+    """Exact C++ solver on the host for [S?, D, N]: every scene in one call
+    (`lap_max_batch`); the columns come back to the weights' device."""
+    from .lap import lap_max_batch
+
+    w = weights.detach().cpu().numpy()
+    out = lap_max_batch(w if w.ndim == 3 else w[None])
+    out = out if w.ndim == 3 else out[0]
+    return torch.from_numpy(out.astype(np.int64)).to(weights.device)
+
+
 def resolve_backend(backend: str, device: torch.device) -> str:
-    """'auto' -> the auction on CUDA, the exact host solver on the CPU."""
+    """'auto' -> the auction on CUDA, scipy's exact Hungarian on the CPU.
+
+    The JAX package's 'auto' takes its C++ solver on the CPU when it is
+    built.  Both host solvers are exact, but they break ties between equal
+    optima differently, so moving 'auto' to 'native' here would move
+    existing CPU results for no gain in semantics; 'native' is the
+    caller's explicit choice."""
     if backend != "auto":
         return backend
     return "auction" if device.type == "cuda" else "hungarian"
@@ -244,7 +259,7 @@ def solve_lap(weights: torch.Tensor, backend: str = "auction") -> torch.Tensor:
     if backend == "hungarian":
         return hungarian_host(weights)
     if backend == "native":
-        raise NotImplementedError(_NATIVE_NOT_PORTED)
+        return native_host(weights)
     raise ValueError(f"unknown assignment backend: {backend}")
 
 

@@ -12,7 +12,7 @@ large coordinates.
 Each expression keeps the reference's operation order, so the values
 agree with the JAX package's to rounding.  The radius-pruned top-k form
 (`rotated_intersection_topk`) and the Sutherland-Hodgman polygon clip are
-not ported yet (ROADMAP queue 1, item 3).
+not ported yet (ROADMAP queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ EPS = 1e-5
 
 TOPK_NOT_PORTED = (
     "the radius-pruned top-k clip (neighbors > 0) is not ported yet: "
-    "ROADMAP queue 1, item 3 (rotated_intersection_topk)")
+    "ROADMAP queue 1, item 11 (rotated_intersection_topk)")
 
 
 def box_radius(boxes: torch.Tensor) -> torch.Tensor:

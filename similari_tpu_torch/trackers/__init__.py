@@ -1,6 +1,7 @@
 """Tracker states, configurations and the public trackers."""
 
 from .constraints import SpatioTemporalConstraints  # noqa: F401
+from .feature import FeatureTracker  # noqa: F401
 from .sort import (  # noqa: F401
     PositionalMetricType,
     Sort,

@@ -2,13 +2,19 @@
 result types (mirrors `similari_tpu/trackers/batch.py`; the reference's
 `batch.rs`, `sort/batch_api.rs` and `visual_sort/batch_api.rs`).
 
-Every scene is a row of one batched state on the tracker's device
-(`device=None` means CUDA), and a whole request runs as one step over the
-scene axis (`trackers/batch_device.py`, `trackers/batch_visual_device.py`).
-Engines: "auto" and "device" take these device engines.  The JAX
-package's "auto" runs each scene of a request through its per-scene host
-engine instead; the port's "host" raises NotImplementedError, as in
-`trackers/sort.py`.
+Engines:
+
+* "auto" and "device": every scene is a row of one batched state on the
+  tracker's device (`device=None` means CUDA), and a whole request runs as
+  one step over the scene axis (`trackers/batch_device.py`,
+  `trackers/batch_visual_device.py`).
+* "host": each scene of a request runs through a `Sort` / `VisualSort`
+  with engine="host" (`_HostBatchEngine`, `_HostVisualBatchEngine`), the
+  reference's per-scene epochs behind its worker threads
+  (`sort/batch_api.rs:68-153`), one scene after another.
+
+The JAX package's "auto" takes its host engines; the port's "auto" stays
+on the device, as in `trackers/sort.py`.
 
 `distance_shards` / `voting_shards` are accepted for API compatibility.
 """
@@ -25,11 +31,52 @@ from .batch_device import SceneBatchEngine
 from .batch_visual_device import VisualSceneBatchEngine
 from .constraints import SpatioTemporalConstraints
 from .sort import (DEFAULT_AUTO_WASTE_PERIODICITY, PositionalMetricType,
-                   SortTrack, check_engine)
+                   Sort, SortTrack, check_engine)
 from .sort_step import DEFAULT_MINIMAL_SORT_CONFIDENCE, SortConfig
-from .visual import VisualSortObservation, VisualSortOptions
+from .visual import (VisualSort, VisualSortObservation,
+                     VisualSortObservationSet, VisualSortOptions)
 
 SceneTracks = Tuple[int, List[SortTrack]]
+
+
+class _HostBatchEngine:
+    """The per-scene host engine of the batch APIs: each scene of a request
+    runs through `tracker` (a `Sort` with engine="host"), with the device
+    batch engines' surface (`epochs`, `predict_scenes`, `collect_wasted`,
+    `idle_tracks`, `total_active`)."""
+
+    def __init__(self, tracker):
+        self._tracker = tracker
+
+    @property
+    def epochs(self):
+        return self._tracker._epochs
+
+    def predict_scenes(self, batch):
+        return {scene_id: self._predict_one(scene_id, items)
+                for scene_id, items in batch.items()}
+
+    def _predict_one(self, scene_id, items):
+        return self._tracker.predict_with_scene(scene_id, items)
+
+    def collect_wasted(self):
+        return self._tracker.wasted()
+
+    def idle_tracks(self, scene_id):
+        return self._tracker.idle_tracks_with_scene(scene_id)
+
+    def total_active(self):
+        return self._tracker.shard_stats()[0]
+
+
+class _HostVisualBatchEngine(_HostBatchEngine):
+    """`_HostBatchEngine` over a `VisualSort` with engine="host"."""
+
+    def _predict_one(self, scene_id, items):
+        obs_set = VisualSortObservationSet()
+        for o in items:
+            obs_set.add(o)
+        return self._tracker.predict_with_scene(scene_id, obs_set)
 
 
 class PredictionBatchResult:
@@ -152,9 +199,9 @@ class _BatchTracker:
 
 
 class BatchSort(_BatchTracker):
-    """Multi-scene SORT (`sort/batch_api.rs:35-317`) on the device-batched
-    engine: every scene is a row of one batched state, one step per
-    request."""
+    """Multi-scene SORT (`sort/batch_api.rs:35-317`): on the device-batched
+    engine every scene is a row of one batched state, one step per
+    request; engine="host" steps each scene on the host."""
 
     def __init__(
         self,
@@ -177,6 +224,18 @@ class BatchSort(_BatchTracker):
         check_engine(engine)
         method = method or PositionalMetricType.maha()
         stc = spatio_temporal_constraints or SpatioTemporalConstraints()
+        if engine == "host":
+            super().__init__(_HostBatchEngine(Sort(
+                shards=distance_shards, bbox_history=bbox_history,
+                max_idle_epochs=max_idle_epochs, method=method,
+                min_confidence=min_confidence,
+                spatio_temporal_constraints=stc,
+                kalman_position_weight=kalman_position_weight,
+                kalman_velocity_weight=kalman_velocity_weight,
+                initial_capacity=initial_capacity,
+                assignment_backend=assignment_backend, engine="host",
+                device=device)))
+            return
         cfg = SortConfig(
             method=method.kind,
             iou_threshold=method.threshold or 0.3,
@@ -192,8 +251,9 @@ class BatchSort(_BatchTracker):
 
 
 class BatchVisualSort(_BatchTracker):
-    """Multi-scene VisualSORT (`visual_sort/batch_api.rs:54-335`) on the
-    device-batched visual engine: one in-place step per request."""
+    """Multi-scene VisualSORT (`visual_sort/batch_api.rs:54-335`): on the
+    device-batched visual engine one in-place step per request;
+    engine="host" steps each scene through a host `VisualSort`."""
 
     def __init__(
         self,
@@ -208,6 +268,12 @@ class BatchVisualSort(_BatchTracker):
     ):
         check_engine(engine)
         opts = opts or VisualSortOptions()
+        if engine == "host":
+            super().__init__(_HostVisualBatchEngine(VisualSort(
+                distance_shards, opts, initial_capacity=initial_capacity,
+                assignment_backend=assignment_backend, engine="host",
+                device=device)))
+            return
         cfg = dataclasses.replace(opts._build_config(),
                                   assignment=assignment_backend)
         super().__init__(VisualSceneBatchEngine(

@@ -5,19 +5,27 @@
 `idle_tracks[_with_scene]`, `skip_epochs[_for_scene]`,
 `current_epoch[_with_scene]`, the shard stats and `set_auto_waste`.
 
-Each scene owns a `SortState` on the tracker's device (`device=None` means
-CUDA and raises without it).  A predict call pads the detections to a power
-of two, writes the global id counter into the state, doubles the capacity
-first when the call could overflow it, and runs the general step
-(`trackers/sort_step.py::sort_step`): oriented IoU at 512 slots and 64 rows
-or more reaches the clip kernel there.  Its outputs come back in one copy.
-Epochs, custom object ids and the wasted-track bin are host bookkeeping.
+Each scene owns a `SortState`.  A predict call writes the global id
+counter into the state, doubles the capacity first when the call could
+overflow it, and runs one step.  Epochs, custom object ids and the
+wasted-track bin are host bookkeeping.
 
-Engines: "auto" and "device" run the step on the tracker's device (on the
-CPU, the plain versions).  The JAX package's "auto" takes its NumPy/native
-host engine per call instead; that engine is held to the device step id
-for id, so the ids are the same and only the engine differs.  "host"
-raises NotImplementedError: the host engines are not ported yet.
+Engines:
+
+* "auto" and "device" (the port's rule: entry points run on the card)
+  keep the state on the tracker's device (`device=None` means CUDA and
+  raises without it) and run the general step
+  (`trackers/sort_step.py::sort_step`) on detections padded to a power of
+  two: oriented IoU at 512 slots and 64 rows or more reaches the clip
+  kernel there.  Its outputs come back in one copy.  On the CPU the plain
+  versions run.
+* "host", the caller's explicit choice, keeps the state as numpy arrays
+  and runs the NumPy step of `trackers/host_sort.py` with the port's C++
+  LAP solver, aligned and oriented, per call with no device work.
+
+The JAX package's "auto" takes its host engine per call; that engine is
+held to the device step id for id, so "auto" differs between the packages
+in the engine only, not in the ids.
 """
 
 from __future__ import annotations
@@ -33,22 +41,19 @@ from ..device import DeviceLike, resolve_device
 from ..utils.bbox import Universal2DBox
 from ..utils.pad import pad_pow2
 from .constraints import SpatioTemporalConstraints
+from .host_sort import as_tensors, host_grow, host_sort_step, state_to_host
 from .sort_step import DEFAULT_MINIMAL_SORT_CONFIDENCE, SortConfig, sort_step
 from .state import SortState, grow_state, new_sort_state
 from .waste import build_wasted_records
 
 DEFAULT_AUTO_WASTE_PERIODICITY = 100  # the reference's `sort.rs:378`
-HOST_ENGINE_NOT_PORTED = (
-    "engine='host': the NumPy/native host engines are not part of the port "
-    "yet (ROADMAP queue 1, item 3); engine='auto' or 'device' runs the "
-    "device step, which gives the same ids")
+ENGINES = ("auto", "device", "host")
 
 
 def check_engine(engine: str) -> None:
-    if engine == "host":
-        raise NotImplementedError(HOST_ENGINE_NOT_PORTED)
-    if engine not in ("auto", "device"):
-        raise ValueError(f"unknown engine {engine!r}: 'auto' or 'device'")
+    if engine not in ENGINES:
+        raise ValueError(
+            f"unknown engine {engine!r}: 'auto', 'device' or 'host'")
 
 
 class VotingType(Enum):
@@ -253,15 +258,23 @@ def wasted_fields(state, index):
 
 
 class _SceneStore:
-    """The device state of one scene and its host bookkeeping."""
+    """The state of one scene and its host bookkeeping.  `host`: the
+    state's leaves are numpy arrays (the host engine), else tensors on
+    `device`."""
 
-    def __init__(self, capacity: int, history: int, device: torch.device):
-        self.state: SortState = new_sort_state(capacity, history,
-                                               device=device)
+    def __init__(self, capacity: int, history: int, device: torch.device,
+                 host: bool = False):
+        self.host = host
+        self.state: SortState = self._placed(
+            new_sort_state(capacity, history,
+                           device="cpu" if host else device))
         self.custom_ids = np.full((capacity,), -1, np.int64)
         self.has_custom = np.zeros((capacity,), bool)
         self.active_count = 0
         self.oriented = False  # sticky: flips when a rotated box is seen
+
+    def _placed(self, state):
+        return state_to_host(state) if self.host else state
 
     def grow_to(self, state_grow, min_capacity: int):
         cap = self.state.capacity
@@ -269,7 +282,8 @@ class _SceneStore:
         while new_cap < min_capacity:
             new_cap *= 2
         if new_cap != cap:
-            self.state = state_grow(self.state, new_cap)
+            grow = host_grow if self.host else state_grow
+            self.state = grow(self.state, new_cap)
             self.custom_ids = np.concatenate(
                 [self.custom_ids, np.full((new_cap - cap,), -1, np.int64)])
             self.has_custom = np.concatenate(
@@ -349,7 +363,7 @@ class TrackerBase:
         """Move dead tracks to the wasted bin, `tracker_api.rs:81-88`."""
         for scene_id, store in self._scenes.items():
             cur = self._epochs.get(scene_id, 0)
-            st = store.state
+            st = as_tensors(store.state)
             mask = st.active & (st.last_epoch + self._max_idle < cur)
             slots = mask.nonzero().squeeze(1)
             if slots.numel():
@@ -357,7 +371,9 @@ class TrackerBase:
 
     def _export_wasted(self, scene_id: int, store: _SceneStore,
                        slots: torch.Tensor):
-        st = store.state
+        # a host state's tensor view shares its memory: index_fill_ writes
+        # through to the numpy arrays
+        st = as_tensors(store.state)
         (sl,), host, extra = wasted_fields(st, (slots,))
         self._wasted_bin.extend(build_wasted_records(
             self._wasted_cls, scene_id, st.history, *host, **extra))
@@ -385,8 +401,9 @@ class TrackerBase:
         store = self._scenes.get(scene_id)
         if store is None:
             return []
-        return idle_tracks_of(store.state, self._epochs.get(scene_id, 0),
-                              scene_id, store.custom_of)
+        return idle_tracks_of(as_tensors(store.state),
+                              self._epochs.get(scene_id, 0), scene_id,
+                              store.custom_of)
 
     # ----------------------------------------------------------------- stats
     def shard_stats(self) -> List[int]:
@@ -419,11 +436,13 @@ class Sort(TrackerBase):
     ):
         """`shards` is accepted for API compatibility.  engine: "auto" /
         "device" run the general step on `device` (None = CUDA); "host"
-        raises NotImplementedError (see the module doc)."""
+        runs the NumPy step with the C++ LAP solver (see the module
+        doc)."""
         assert bbox_history > 0
         check_engine(engine)
         super().__init__(max_idle_epochs, initial_capacity, device)
         self._engine = engine
+        self._host = engine == "host"
         method = method or PositionalMetricType.maha()
         stc = spatio_temporal_constraints or SpatioTemporalConstraints()
         self._cfg = SortConfig(
@@ -441,7 +460,7 @@ class Sort(TrackerBase):
     def _get_store(self, scene_id: int) -> _SceneStore:
         if scene_id not in self._scenes:
             self._scenes[scene_id] = _SceneStore(
-                self._capacity0, self._history, self._device)
+                self._capacity0, self._history, self._device, self._host)
         return self._scenes[scene_id]
 
     # ---------------------------------------------------------------- predict
@@ -487,12 +506,34 @@ class Sort(TrackerBase):
         store = self._get_store(scene_id)
         store.grow(store.active_count + d)
         store.oriented = store.oriented or bool((det_box[:, 2] != 0).any())
+        cfg = dataclasses.replace(self._cfg, oriented=store.oriented)
+        step = self._step_host if self._host else self._step_device
+        slot, track_id, is_new, length, pred_box = step(
+            cfg, store, det_box, det_conf, epoch)
+        store.active_count += int(is_new.sum())
+        if customs is not None:
+            store.set_customs(slot, customs)
+        return epoch, track_id, pred_box, length, slot
 
+    def _step_host(self, cfg, store, det_box, det_conf, epoch):
+        """The NumPy step on the store's numpy leaves: (slot, track_id,
+        is_new, length, pred_box)."""
+        state = dataclasses.replace(store.state,
+                                    next_id=np.int32(self._next_track_id))
+        store.state, out = host_sort_step(cfg, state, det_box, det_conf,
+                                          epoch)
+        self._next_track_id = int(store.state.next_id)
+        return tuple(out[k] for k in ("slot", "track_id", "is_new", "length",
+                                      "pred_box"))
+
+    def _step_device(self, cfg, store, det_box, det_conf, epoch):
+        """The general step on the tracker's device, outputs back in one
+        copy: (slot, track_id, is_new, length, pred_box)."""
+        d = det_box.shape[0]
         box, conf, valid = to_device(self._device,
                                      *padded(det_box, det_conf))
         state = dataclasses.replace(store.state, next_id=torch.full(
             (), self._next_track_id, dtype=torch.int32, device=self._device))
-        cfg = dataclasses.replace(self._cfg, oriented=store.oriented)
         state, out = sort_step(cfg, state, box, conf, valid, epoch)
         store.state = state
 
@@ -504,8 +545,5 @@ class Sort(TrackerBase):
             raise RuntimeError(
                 f"track store overflow (capacity {store.state.capacity})")
         self._next_track_id = int(next_id[0])
-        slot, track_id, is_new = slot[:d], track_id[:d], is_new[:d]
-        store.active_count += int(is_new.sum())
-        if customs is not None:
-            store.set_customs(slot, customs)
-        return epoch, track_id, pred_box[:d], length[:d], slot
+        return (slot[:d], track_id[:d], is_new[:d], length[:d],
+                pred_box[:d])

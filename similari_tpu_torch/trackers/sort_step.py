@@ -65,7 +65,7 @@ class SortConfig:
     position_weight: float = kal.DEFAULT_POSITION_WEIGHT
     velocity_weight: float = kal.DEFAULT_VELOCITY_WEIGHT
     # "auto": the auction on CUDA, scipy's Hungarian on the CPU
-    assignment: str = "auto"  # "auto" | "auction" | "hungarian"
+    assignment: str = "auto"  # "auto" | "auction" | "hungarian" | "native"
     # static flag: False uses the exact axis-aligned IoU
     oriented: bool = True
     # > 0 asks for the radius-pruned top-k clip, not ported yet

@@ -12,10 +12,16 @@ longer one arrives.  `VisualSortOptions.feature_precision("bf16")` keeps
 the gallery and feature history in bf16 and rounds the distance inputs to
 bf16 (products summed in f32); growth keeps the dtype.
 
-Own-area gates: with `own_area_backend("device")` the step computes the
-shares itself (`ops/ownarea.py`); with "host" they come from the f64
-clipping oracle (`utils/clipping.py`) on every call that has not passed
-its own.  Engines as in `trackers/sort.py`.
+Own-area gates: with `own_area_backend("device")` the device step
+computes the shares itself (`ops/ownarea.py`); with "host", and always on
+the host engine, they come from the f64 clipping oracle
+(`utils/clipping.py`) on every call that has not passed its own.
+
+Engines as in `trackers/sort.py`: "auto" and "device" run the general
+step on the tracker's device; "host" runs the NumPy step of
+`trackers/host_visual.py` on numpy leaves for f32 galleries, while a bf16
+`VisualSort` under "host" runs the device step on the tracker's device, as
+the JAX package's does (bf16 is a device storage type).
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from ..device import DeviceLike
 from ..utils.bbox import Universal2DBox
 from ..utils.clipping import exclusively_owned_areas_normalized_shares
 from .constraints import SpatioTemporalConstraints
+from .host_visual import host_visual_step
 from .sort import (PositionalMetricType, SortTrack, TrackerBase,
                    _SceneStore, check_engine, fetch, padded, to_device,
                    track_list)
@@ -259,18 +266,22 @@ class WastedVisualSortTrack:
         )
 
 
-def pad_features(a: torch.Tensor, new_dim: int) -> torch.Tensor:
-    """Zero-pad the last (feature) axis to `new_dim`, keeping the dtype."""
+def pad_features(a, new_dim: int):
+    """Zero-pad the last (feature) axis of a tensor or a numpy array to
+    `new_dim`, keeping the dtype."""
+    if isinstance(a, np.ndarray):
+        widths = [(0, 0)] * (a.ndim - 1) + [(0, new_dim - a.shape[-1])]
+        return np.pad(a, widths)
     return torch.nn.functional.pad(a, (0, new_dim - a.shape[-1]))
 
 
 class _VisualSceneStore(_SceneStore):
     def __init__(self, capacity, history, gallery, feature_dim, feature_dtype,
-                 device):
-        super().__init__(capacity, history, device)
-        self.state: VisualState = new_visual_state(
+                 device, host=False):
+        super().__init__(capacity, history, device, host)
+        self.state: VisualState = self._placed(new_visual_state(
             capacity, history, gallery, feature_dim,
-            feature_dtype=feature_dtype, device=device)
+            feature_dtype=feature_dtype, device="cpu" if host else device))
 
     def grow(self, min_capacity: int):
         self.grow_to(grow_visual_state, min_capacity)
@@ -307,7 +318,8 @@ class VisualSort(TrackerBase):
     ):
         """`shards` is accepted for API compatibility.  engine: "auto" /
         "device" run the general step on `device` (None = CUDA); "host"
-        raises NotImplementedError (see `trackers/sort.py`)."""
+        runs the NumPy step for f32 galleries and the device step for bf16
+        ones (see the module doc)."""
         check_engine(engine)
         opts = opts or VisualSortOptions()
         super().__init__(opts._max_idle_epochs, initial_capacity, device)
@@ -318,6 +330,8 @@ class VisualSort(TrackerBase):
         self._history = opts._kept_history_length
         self._gallery = opts._visual_max_observations
         self._feature_dtype = FEATURE_DTYPES[self._cfg.feature_precision]
+        self._host = (engine == "host"
+                      and self._cfg.feature_precision == "f32")
         self._feature_dim = 0  # lazily fixed at the first feature
 
     def _get_store(self, scene_id: int) -> _VisualSceneStore:
@@ -325,7 +339,7 @@ class VisualSort(TrackerBase):
             self._scenes[scene_id] = _VisualSceneStore(
                 self._capacity0, self._history, self._gallery,
                 max(self._feature_dim, 1), self._feature_dtype,
-                self._device)
+                self._device, self._host)
         return self._scenes[scene_id]
 
     # --------------------------------------------------------------- predict
@@ -421,25 +435,48 @@ class VisualSort(TrackerBase):
         store.grow(store.active_count + d)
         store.oriented = store.oriented or bool((det_box[:, 2] != 0).any())
 
-        # own-area shares from the f64 oracle when a gate is on, the config
-        # says "host" and the caller passed none (the device backend
-        # computes them inside the step)
+        # own-area shares from the f64 oracle when a gate is on, the caller
+        # passed none and the config says "host" or the host engine runs
+        # (the device backend computes them inside the device step)
         gating = self._cfg.own_area_use + self._cfg.own_area_collect > 0.0
-        if (gating and own_area is None
-                and self._cfg.own_area_backend == "host"):
+        if gating and own_area is None and (
+                self._host or self._cfg.own_area_backend == "host"):
             own_area = own_area_shares_host(det_box, det_conf)
 
         if own_area is None:
             own_area = np.ones((d,), np.float32)
-        box, conf, feat, fv, quality, oa, valid = padded(
-            det_box, det_conf, det_feat, det_feat_valid, det_quality,
-            own_area)
+        cfg = dataclasses.replace(self._cfg, oriented=store.oriented)
+        step = self._step_host if self._host else self._step_device
+        slot, track_id, is_new, length, pred_box, vt = step(
+            cfg, store, (det_box, det_conf, det_feat, det_feat_valid,
+                         det_quality, own_area), epoch)
+        store.active_count += int(is_new.sum())
+        # new tracks report Positional voting (reference `SortTrack` contract)
+        vt = np.where(is_new, np.int32(VT_POSITIONAL), vt)
+        if customs is not None:
+            store.set_customs(slot, customs)
+        return epoch, track_id, pred_box, length, slot, vt
+
+    def _step_host(self, cfg, store, dets, epoch):
+        """The NumPy step on the store's numpy leaves: (slot, track_id,
+        is_new, length, pred_box, voting_type)."""
+        state = dataclasses.replace(store.state,
+                                    next_id=np.int32(self._next_track_id))
+        store.state, out = host_visual_step(cfg, state, *dets, epoch)
+        self._next_track_id = int(store.state.next_id)
+        return tuple(out[k] for k in ("slot", "track_id", "is_new", "length",
+                                      "pred_box", "voting_type"))
+
+    def _step_device(self, cfg, store, dets, epoch):
+        """The general step on the tracker's device, outputs back in one
+        copy: (slot, track_id, is_new, length, pred_box, voting_type)."""
+        d = dets[0].shape[0]
+        box, conf, feat, fv, quality, oa, valid = padded(*dets)
         dpad = len(valid)
         dev = self._device
         inputs = to_device(dev, box, conf, valid, feat, fv, quality, oa)
         state = dataclasses.replace(store.state, next_id=torch.full(
             (), self._next_track_id, dtype=torch.int32, device=dev))
-        cfg = dataclasses.replace(self._cfg, oriented=store.oriented)
         state, out = visual_step(cfg, state, *inputs, epoch)
         store.state = state
 
@@ -451,10 +488,6 @@ class VisualSort(TrackerBase):
             raise RuntimeError(
                 f"track store overflow (capacity {store.state.capacity})")
         self._next_track_id = int(next_id[0])
-        slot, is_new = slot[:d], is_new[:d]
-        store.active_count += int(is_new.sum())
-        # new tracks report Positional voting (reference `SortTrack` contract)
-        vt = np.where(is_new, np.int32(VT_POSITIONAL), vt[:d])
-        if customs is not None:
-            store.set_customs(slot, customs)
-        return epoch, track_id[:d], pred_box[:d], length[:d], slot, vt
+        return (slot[:d], track_id[:d], is_new[:d], length[:d], pred_box[:d],
+                vt[:d])
+

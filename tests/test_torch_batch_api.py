@@ -179,8 +179,18 @@ def test_batch_visual_sort_host_own_area_matches_jax():
 
 def test_batch_engine_rule_and_single_use_requests():
     for cls in (pt.BatchSort, pt.BatchVisualSort):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cls(engine="host", device="cpu")
+        with pytest.raises(ValueError, match="engine"):
+            cls(engine="xla", device="cpu")
+    host = pt.BatchSort(method=pt.PositionalMetricType.iou(0.3),
+                        engine="host", device="cpu")
+    req = pt.SortPredictionBatchRequest()
+    req.add(3, pt.Universal2DBox(10, 10, None, 1.0, 20))
+    assert host.predict(req).get()[1][0].id == 1
+    vhost = pt.BatchVisualSort(engine="host", device="cpu")
+    req = pt.VisualSortPredictionBatchRequest()
+    req.add(2, pt.VisualSortObservation(
+        [1.0, 0.0], 1.0, pt.Universal2DBox(10, 10, None, 1.0, 20)))
+    assert vhost.predict(req).get()[1][0].id == 1
     tr = pt.BatchSort(method=pt.PositionalMetricType.iou(0.3), device="cpu")
     req = pt.SortPredictionBatchRequest()
     req.add(0, pt.Universal2DBox(10, 10, None, 1.0, 20))

@@ -602,3 +602,40 @@ def test_grow_visual_state_keeps_bf16_on_card(cuda):
     assert big.capacity == 32 and big.feats.shape == (32, 3, 16)
     assert (big.voting_type[8:] == -1).all() and (big.voting_type[:8] == 1).all()
     assert not big.active.any()
+
+
+def test_native_assignment_returns_to_the_card(cuda):
+    """assignment="native": the weights go to the host C++ solver and the
+    columns come back to the card, equal to the solver on the host copy."""
+    from similari_tpu_torch.ops import assignment as asg
+    from similari_tpu_torch.ops.lap import lap_max_batch
+
+    rng = np.random.default_rng(8)
+    w = rng.integers(0, 5, (3, 9, 20)).astype(np.float32)
+    cols = asg.solve_lap(torch.tensor(w, device=cuda), "native")
+    assert cols.device.type == "cuda"
+    np.testing.assert_array_equal(cols.cpu().numpy(), lap_max_batch(w))
+
+
+def test_host_engines_with_the_default_device(cuda):
+    """device=None means the card: engine="host" keeps a numpy state and
+    gives the device engine's ids; a bf16 VisualSort under "host" keeps
+    its bf16 state on the card."""
+    import similari_tpu_torch as pt
+
+    box = np.array([[10.0, 10.0, 0.0, 0.5, 20.0],
+                    [90.0, 10.0, 0.3, 0.5, 20.0]], np.float32)
+    conf = np.ones(2, np.float32)
+    ids = []
+    for engine in ("host", "device"):
+        tr = pt.Sort(method=pt.PositionalMetricType.iou(0.3), engine=engine)
+        for _ in range(3):
+            ids.append(tr.predict_arrays(0, box, conf)[1].tolist())
+        leaf = tr._scenes[0].state.active
+        assert isinstance(leaf, np.ndarray) == (engine == "host")
+    assert ids[:3] == ids[3:] == [[1, 2]] * 3
+    vs = pt.VisualSort(opts=pt.VisualSortOptions().feature_precision("bf16"),
+                       engine="host")
+    vs.predict_arrays(0, box, conf, np.ones((2, 4), np.float32))
+    st = vs._scenes[0].state
+    assert st.feats.device.type == "cuda" and st.feats.dtype == torch.bfloat16

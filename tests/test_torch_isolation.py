@@ -57,7 +57,13 @@ def test_import_leaves_jax_out_of_sys_modules():
               "similari_tpu_torch.trackers.visual",
               "similari_tpu_torch.trackers.batch",
               "similari_tpu_torch.trackers.batch_device",
-              "similari_tpu_torch.trackers.batch_visual_device"):
+              "similari_tpu_torch.trackers.batch_visual_device",
+              "similari_tpu_torch.trackers.host_sort",
+              "similari_tpu_torch.trackers.host_visual",
+              "similari_tpu_torch.trackers.host_geometry",
+              "similari_tpu_torch.trackers.feature",
+              "similari_tpu_torch.utils.kalman",
+              "similari_tpu_torch.ops.lap"):
         assert m in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -122,7 +128,9 @@ def test_public_api_import_leaves_jax_out_of_sys_modules():
         "from similari_tpu_torch import (\n"
         "    Sort, VisualSort, BatchSort, BatchVisualSort, nms,\n"
         "    Universal2DBox, sutherland_hodgman_clip, intersection_area,\n"
-        "    exclusively_owned_areas_normalized_shares, version)\n"
+        "    exclusively_owned_areas_normalized_shares, version,\n"
+        "    FeatureTracker, Universal2DBoxKalmanFilter, Point2DKalmanFilter,\n"
+        "    Vec2DKalmanFilter)\n"
         "print(' '.join(sorted(sys.modules)))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

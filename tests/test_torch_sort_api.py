@@ -166,11 +166,21 @@ def test_api_ids_equal_a_fixed_capacity_scan():
 
 
 def test_engine_rule():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 3"):
-        pt.Sort(engine="host", device="cpu")
+    """"host" runs the NumPy step on numpy leaves; "auto" and "device" keep
+    the state on the tracker's device; unknown engines raise."""
     with pytest.raises(ValueError, match="engine"):
         pt.Sort(engine="xla", device="cpu")
     assert pt.Sort(engine="device", device="cpu").device.type == "cpu"
+    boxes, conf = churn_stream(0, steps=1, n=4)[0]
+    ids = {}
+    for engine in ("host", "auto", "device"):
+        tr = pt.Sort(engine=engine, device="cpu")
+        ids[engine] = tr.predict_arrays(0, boxes, conf)[1]
+        leaf = tr._scenes[0].state.active
+        assert isinstance(leaf, np.ndarray if engine == "host"
+                          else torch.Tensor), engine
+    np.testing.assert_array_equal(ids["host"], ids["device"])
+    np.testing.assert_array_equal(ids["auto"], ids["device"])
 
 
 def test_sort_without_cuda_raises(monkeypatch):

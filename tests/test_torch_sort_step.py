@@ -130,8 +130,10 @@ def test_resolve_backend():
     assert asg.resolve_backend("auto", torch.device("cuda")) == "auction"
     assert asg.resolve_backend("auto", CPU) == "hungarian"
     assert asg.resolve_backend("hungarian", torch.device("cuda")) == "hungarian"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        asg.solve_lap(torch.zeros(2, 4), "native")
+    w = torch.tensor([[0.0, 2.0, 1.0], [3.0, 0.0, 1.0]])
+    np.testing.assert_array_equal(asg.solve_lap(w, "native").numpy(), [1, 0])
+    np.testing.assert_array_equal(asg.solve_lap(w, "native").numpy(),
+                                  asg.solve_lap(w, "hungarian").numpy())
     with pytest.raises(ValueError):
         asg.solve_lap(torch.zeros(2, 4), "bogus")
 

@@ -192,9 +192,20 @@ def test_missing_features_idle_and_waste_match_jax():
 
 
 def test_engine_rule_and_device():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 3"):
-        pt.VisualSort(engine="host", device="cpu")
+    """"host" runs the NumPy step for f32 galleries (numpy leaves) and the
+    device step for bf16 ones; unknown engines raise."""
+    with pytest.raises(ValueError, match="engine"):
+        pt.VisualSort(engine="xla", device="cpu")
     assert pt.VisualSort(engine="auto", device="cpu").device.type == "cpu"
+    box = np.array([[10.0, 10.0, 0.0, 0.5, 20.0]], np.float32)
+    one = np.ones((1,), np.float32)
+    for precision, host in (("f32", True), ("bf16", False)):
+        tr = pt.VisualSort(opts=pt.VisualSortOptions().feature_precision(
+            precision), engine="host", device="cpu")
+        _, ids, *_ = tr.predict_arrays(0, box, one, one[:, None])
+        assert ids.tolist() == [1]
+        leaf = tr._scenes[0].state.feats
+        assert isinstance(leaf, np.ndarray) == host, precision
 
 
 def test_visual_sort_without_cuda_raises(monkeypatch):

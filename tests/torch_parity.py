@@ -344,3 +344,49 @@ def assert_state_dicts_match(a: dict, b: dict) -> None:
                                        err_msg=k)
         else:
             np.testing.assert_allclose(y, x, rtol=RTOL, atol=ATOL, err_msg=k)
+
+
+# The host engines solve the voting LP exactly; the device step solves it
+# with the auction on CUDA and with scipy on the CPU.  Where two solutions
+# of one frame differ, they are accepted only if their LP totals tie within
+# this relative tolerance.
+LP_TIE_RTOL = 1e-5
+
+
+def voting_lp_total(weights, theta, cols, rows, slot, is_new):
+    """The voting LP's total of one solution: weights [D, C] against the
+    state's compatible slots `cols` [C]; over the rows in `rows` (a bool
+    mask), a matched row scores its slot's weight and a new row `theta`
+    (its private diagonal)."""
+    col_of = {int(c): i for i, c in enumerate(np.asarray(cols))}
+    total = 0.0
+    for r in np.flatnonzero(rows):
+        if is_new[r]:
+            total += float(theta)
+        else:
+            total += float(weights[r, col_of[int(slot[r])]])
+    return total
+
+
+def solutions_tie(cfg, state, box, conf, epoch, rows, a, b) -> bool:
+    """Whether two solutions (slot, is_new) of one frame's voting LP tie
+    within LP_TIE_RTOL over the rows in `rows`.  `state` is the numpy-leaf
+    state before the step; `cfg` a SORT config, or a visual config, whose
+    positional LP is the SORT one with its positional fields."""
+    from similari_tpu_torch.trackers.host_sort import _host_weights
+    from similari_tpu_torch.trackers.sort_step import SortConfig
+
+    if not isinstance(cfg, SortConfig):
+        cfg = SortConfig(method=cfg.positional_kind,
+                         iou_threshold=cfg.iou_threshold,
+                         min_confidence=cfg.positional_min_confidence,
+                         max_idle_epochs=cfg.max_idle_epochs,
+                         constraints=cfg.constraints, oriented=cfg.oriented)
+    cols = np.flatnonzero(state.active & (
+        epoch - state.last_epoch <= cfg.max_idle_epochs))
+    w = _host_weights(cfg, state, np.asarray(box, np.float32),
+                      np.asarray(conf, np.float32), epoch, cols)
+    th = cfg.new_track_threshold
+    ta = voting_lp_total(w, th, cols, rows, *a)
+    tb = voting_lp_total(w, th, cols, rows, *b)
+    return abs(ta - tb) <= LP_TIE_RTOL * max(abs(ta), abs(tb), 1.0)
