@@ -107,8 +107,29 @@ Phases:
      stream (--step-frames frames, ids equal); the Kalman API's
      `filter_sequence`.  Every launch counter is zeroed before each call
      and read after it;
- 18. one `kernels` JSON line (the clip's and the merge's launches include
-     the API paths' and phase 17's device Sort's), then the result line.
+ 18. the sharded scene paths on an NCCL process group of one rank
+     (`parallel/mesh.py::scene_mesh(1)`): `sharded_visual_scan` at phase
+     10's shape and stream, ids, voting types, overflow and state
+     bit-equal to phase 10's plain step, the reduced new-track count equal
+     to is_new's sum, scene-frames/s beside phase 10's, 2 merge launches
+     per frame; the sharded step frame by frame under `StepTimer`, one
+     frame under `trace()` (its Chrome trace must name
+     `lane_merge_kernel`); `sharded_sort_scan` at phase 12's equal to
+     phase 12, and oriented on 8 scenes of phase 6's stream equal to the
+     unsharded batched scan (0 clip launches: the batched step's dense
+     path); `global_gallery_query` (Q=256, k=16, cosine and euclidean)
+     on the visual scan's state equal to a stable full sort of the score
+     matrix, and `merge_shard_topk` of the state's 2, 4 and 8 blocks
+     equal to it, ms per query batch and the products' share;
+     `track_migration` / `track_merge` with M=64 entries bit-equal to the
+     same calls on the CPU through a gloo group, ms per call; a bf16
+     `VisualSort` checkpoint saved halfway through phase 4's stream,
+     loaded and resumed with the uninterrupted tracker's ids, save and
+     load seconds; `dryrun_multichip` in one NCCL rank per card when the
+     machine has two or more (else printed as unverified);
+ 19. one `kernels` JSON line (the clip's and the merge's launches include
+     the API paths', phase 17's device Sort's and phase 18's), then the
+     result line.
 
 The fused-kernel checks take the main path's configurations from the
 runners' own builders, the other configurations and the crowded stream
@@ -126,12 +147,15 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import multiprocessing
 import os
 import platform
 import re
 import shutil
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -157,6 +181,9 @@ from similari_tpu_torch.ops import gallery_dots as gd  # noqa: E402
 from similari_tpu_torch.ops import merge_inplace as mi  # noqa: E402
 from similari_tpu_torch.ops.nms import nms_kernel, use_block_skip  # noqa: E402
 from similari_tpu_torch.ops.ownarea import own_area_shares  # noqa: E402
+from similari_tpu_torch.parallel import dryrun_multichip  # noqa: E402
+from similari_tpu_torch.parallel import gallery as pgallery  # noqa: E402
+from similari_tpu_torch.parallel import handoff as phandoff  # noqa: E402
 from similari_tpu_torch.parallel import mesh  # noqa: E402
 from similari_tpu_torch.trackers.sort_step import (  # noqa: E402
     SortConfig, sort_scan, use_sorted_path)
@@ -165,6 +192,8 @@ from similari_tpu_torch.trackers.state import (  # noqa: E402
 from similari_tpu_torch.trackers.visual_state import new_visual_state  # noqa: E402
 from similari_tpu_torch.trackers.visual_step import (  # noqa: E402
     VT_VISUAL, VisualConfig, visual_scan)
+from similari_tpu_torch.utils import (  # noqa: E402
+    StepTimer, load_tracker, save_tracker, trace)
 from similari_tpu_torch.utils.pad import pad_pow2  # noqa: E402
 from torch_parity import (  # noqa: E402
     ATOL, EXACT_BOX_COLUMNS, RTOL, VISUAL_CONFIGS, crowded_stream,
@@ -812,20 +841,32 @@ def compare_scans(name, k, p):
     two `sort_scan` runs.  Returns the largest float difference."""
     (ks, ko), (ps, po) = k, p
     err = 0.0
-    pairs = [(f"out.{f}", getattr(ko, f), getattr(po, f))
-             for f in ("slot", "track_id", "is_new", "length", "overflow",
-                       "pred_box")]
-    for f in ("pred_box", "obs_box", "conf", "active", "last_epoch",
-              "length", "track_id", "next_id"):
-        pairs.append((f"state.{f}", getattr(ks, f), getattr(ps, f)))
-    for f in ("mean_pos", "mean_vel", "cpp", "cpv", "cvv"):
-        pairs.append((f"state.kf.{f}", getattr(ks.kf, f), getattr(ps.kf, f)))
-    for label, a, b in pairs:
+    for f in ("slot", "track_id", "is_new", "length", "overflow",
+              "pred_box"):
+        a, b = getattr(ko, f), getattr(po, f)
         if a.dtype.is_floating_point:
             err = max(err, float((a - b).abs().max()))
             torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
         elif not torch.equal(a, b):
-            raise AssertionError(f"{name}: {label} differs")
+            raise AssertionError(f"{name}: out.{f} differs")
+    return max(err, compare_sort_states(name, ks, ps))
+
+
+def compare_sort_states(label, a, b):
+    """SortState fields: integers equal, floats within RTOL/ATOL; returns
+    the largest float difference."""
+    err = 0.0
+    for fld in dataclasses.fields(a):
+        x, y = getattr(a, fld.name), getattr(b, fld.name)
+        pairs = ([(getattr(x, f.name), getattr(y, f.name))
+                  for f in dataclasses.fields(x)] if fld.name == "kf"
+                 else [(x, y)])
+        for u, v in pairs:
+            if u.dtype.is_floating_point:
+                err = max(err, float((u - v).abs().max()))
+                torch.testing.assert_close(u, v, rtol=RTOL, atol=ATOL)
+            elif not torch.equal(u, v):
+                raise AssertionError(f"{label}: state.{fld.name} differs")
     return err
 
 
@@ -1074,7 +1115,8 @@ def device_profile(run, frames):
 
 def phase_batched_visual(args, dev):
     """Phase 10; returns (the merge kernel's `kernels` entry, its time and
-    launches taken on this path; the in-place form's scene-frames/s)."""
+    launches taken on this path; the in-place form's scene-frames/s; the
+    plain form's final state and per-frame outputs)."""
     s, n = BS, args.batch_frames
     cfg = bench_visual_config()
     boxes, feat = batch_stream(n, s, dev)
@@ -1193,7 +1235,7 @@ def phase_batched_visual(args, dev):
     log(f"[10] the last frame's merge inputs in a loop of repeats (mean of "
         f"gallery and history): kernel {loop_k:.5f} ms  plain {loop_p:.5f} "
         f"ms  index_put_ {loop_lib:.5f} ms")
-    return entry, s * n / t_in
+    return entry, s * n / t_in, (st_pl, out_pl)
 
 
 def phase_general_visual(args, dev, dets, feats, fused_out):
@@ -1284,7 +1326,8 @@ def phase_own_area(args, dev):
 
 
 def phase_batched_sort(args, dev):
-    """Phase 12: bench.py's batched SORT.  Returns its scene-frames/s."""
+    """Phase 12: bench.py's batched SORT.  Returns (its scene-frames/s,
+    (the final state, ids [N, S, D], overflow [N, S]))."""
     s, n = BS, args.batch_frames
     cfg = SortConfig(method="iou", assignment="auction", max_idle_epochs=5,
                      oriented=False)
@@ -1306,7 +1349,7 @@ def phase_batched_sort(args, dev):
         f"({timer.seconds * 1e3 / n:.3f} ms/frame, CUDA events); "
         f"{float(np.mean(ids == ids[:1])):.4f} of ids equal their first "
         f"frame's")
-    return s * n / timer.seconds
+    return s * n / timer.seconds, (st, torch.as_tensor(ids), ovf)
 
 
 # ---------------------------------------------------------------------------
@@ -2138,6 +2181,413 @@ def phase_host_engines(args, dev, dets):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the sharded scene paths on an NCCL mesh of this card
+# ---------------------------------------------------------------------------
+
+GALLERY_Q, GALLERY_K = 256, 16  # one query per scene; the top k kept
+MERGE_BLOCKS = (2, 4, 8)  # the state split into this many shards' blocks
+HANDOFF_M = 64  # entries of one migration or merge call
+ORIENTED_SCENES, ORIENTED_SHARDED_FRAMES = 8, 16
+CKPT_FRAMES = 64  # the checkpoint's stream; saved halfway
+TIMED_CALLS = 5
+
+
+def same_tensors(label, got, want):
+    """Bit-equal tensors, pair by pair."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        check_same(f"{label} [{i}]", bits(a.detach().cpu()).numpy(),
+                   bits(b.detach().cpu()).numpy())
+
+
+def phase_sharded_visual(args, dev, gmesh, visual_ref, visual_rate, card):
+    """The sharded VisualSORT scan, bit-equal to phase 10's unsharded
+    batched step; then the sharded step frame by frame under `StepTimer`,
+    one frame of it under `trace()`.  Returns (the scan's final state,
+    merge launches)."""
+    s, n = BS, args.batch_frames
+    cfg = bench_visual_config()
+    boxes, feat = batch_stream(n, s, dev)
+    ones = torch.ones((n, s, BD), dtype=torch.float32, device=dev)
+    tru = ones > 0
+    feats = feat[None].expand(n, *feat.shape)
+    st0 = mesh.new_batched_visual_state(s, BT, 1, K, F, torch.bfloat16,
+                                        device=dev)
+    ep0 = torch.ones(s, dtype=torch.int32, device=dev)
+    scan = mesh.sharded_visual_scan(cfg, gmesh)
+    scan(mesh.shard_batched_state(st0, gmesh), boxes[:2], ones[:2], tru[:2],
+         feats[:2], tru[:2], ones[:2], ones[:2], ep0)  # warm-up
+    zero_counts()
+    with DeviceTimer(dev) as timer:
+        st, ids, new, ovf = scan(mesh.shard_batched_state(st0, gmesh), boxes,
+                                 ones, tru, feats, tru, ones, ones, ep0)
+    expect_counts("sharded VisualSORT scan", read_counts(),
+                  {"lane_merge": 2 * n})
+    st_ref, out_ref = visual_ref
+    same_tensors("sharded VisualSORT scan ids", [ids],
+                 [torch.stack([o.track_id for o in out_ref])])
+    want_new = sum(int(o.is_new.sum()) for o in out_ref)
+    want_ovf = sum(int(o.overflow.sum()) for o in out_ref)
+    if (int(new), int(ovf)) != (want_new, want_ovf):
+        raise AssertionError(f"sharded VisualSORT scan: counts {int(new)}, "
+                             f"{int(ovf)}; the step's {want_new}, {want_ovf}")
+    # voting types and the feature arrays bit for bit, floats RTOL/ATOL
+    err = compare_states("sharded VisualSORT scan", st, st_ref)
+    log(f"[18] sharded_visual_scan, NCCL mesh of 1 rank, S={s} D={BD} "
+        f"T={BT} K={K} F={F} bf16, {n} frames: ids, voting types, overflow "
+        f"({int(ovf)}) and state bit-equal to phase 10's unsharded step "
+        f"(other floats max_abs_err {err:.3e}); new tracks reduced "
+        f"{int(new)} = is_new.sum(); {s * n / timer.seconds:.1f} "
+        f"scene-frames/s ({timer.seconds * 1e3 / n:.3f} ms/frame, CUDA "
+        f"events) against phase 10's in-place step {visual_rate:.1f}; merge "
+        f"launches {2 * n}; {card}")
+
+    step = mesh.sharded_visual_step(cfg, gmesh)
+    timer = StepTimer()
+    stp = mesh.shard_batched_state(st0, gmesh)
+    zero_counts()
+    with tempfile.TemporaryDirectory() as tdir:
+        for i in range(n):
+            frame = (boxes[i], ones[i], tru[i], feat, tru[i], ones[i],
+                     ones[i], ep0 + i)
+            if i == 1:
+                with trace(tdir):
+                    stp, out, _ = step(stp, *frame)
+            else:
+                with timer.step(scenes=s):
+                    stp, out, new_i = step(stp, *frame)
+                    int(new_i)  # the count's copy back ends the frame
+            same_tensors(f"sharded VisualSORT step frame {i}",
+                         [out.track_id, out.voting_type],
+                         [out_ref[i].track_id, out_ref[i].voting_type])
+        traces = list(Path(tdir).glob("trace_*.json"))
+        text = traces[0].read_text() if len(traces) == 1 else ""
+        if "lane_merge_kernel" not in text:
+            raise AssertionError(f"trace(): {len(traces)} files, none "
+                                 "naming lane_merge_kernel")
+    expect_counts("sharded VisualSORT steps", read_counts(),
+                  {"lane_merge": 2 * n})
+    rates = timer.summary()
+    log(f"[18] sharded_visual_step frame by frame: ids and voting types "
+        f"equal to phase 10's every frame; StepTimer {rates['scenes_per_sec']}"
+        f" scenes/s, {rates['steps_per_sec']} steps/s over "
+        f"{rates['total_steps']} steps (host clock, each step ending in the "
+        f"new-track count's copy back); trace() of frame 1 wrote a Chrome "
+        f"trace of {len(text) / 1e6:.2f} MB naming lane_merge_kernel; {card}")
+    return st, 4 * n
+
+
+def phase_sharded_sort(args, dev, gmesh, sort_ref, sort_rate, card):
+    """The sharded SORT scan, equal to phase 12's; an oriented one on
+    8 scenes of phase 6's stream, equal to the unsharded batched scan.
+    Returns its clip launches."""
+    s, n = BS, args.batch_frames
+    cfg = SortConfig(method="iou", assignment="auction", max_idle_epochs=5,
+                     oriented=False)
+    boxes = box_stream(n, s * BD, np.random.default_rng(42))
+    boxes = torch.as_tensor(boxes.reshape(n, s, BD, 5), device=dev)
+    conf = torch.ones((n, s, BD), dtype=torch.float32, device=dev)
+    ep0 = torch.ones(s, dtype=torch.int32, device=dev)
+    scan = mesh.sharded_sort_scan(cfg, gmesh)
+    scan(mesh.new_batched_state(s, BT, 1, device=dev), boxes[:2], conf[:2],
+         conf[:2] > 0, ep0)
+    zero_counts()
+    with DeviceTimer(dev) as timer:
+        st, ids, new, ovf = scan(mesh.new_batched_state(s, BT, 1, device=dev),
+                                 boxes, conf, conf > 0, ep0)
+    expect_counts("sharded SORT scan", read_counts(), {})
+    st_ref, ids_ref, ovf_ref = sort_ref
+    same_tensors("sharded SORT scan ids", [ids], [ids_ref])
+    if int(ovf) != int(ovf_ref.sum()):
+        raise AssertionError("sharded SORT scan: overflow count differs")
+    err = compare_sort_states("sharded SORT scan", st, st_ref)
+    log(f"[18] sharded_sort_scan, S={s} x {BD} objects, T={BT}, aligned "
+        f"IoU, {n} frames: ids and overflow equal to phase 12's scan, state "
+        f"max_abs_err {err:.3e}; new tracks reduced {int(new)}; "
+        f"{s * n / timer.seconds:.1f} scene-frames/s against phase 12's "
+        f"{sort_rate:.1f} (CUDA events); {card}")
+
+    total = args.oriented_frames
+    src = oriented_stream(total, args.seed + 42)
+    idx = (8 * np.arange(ORIENTED_SCENES)[None, :]
+           + np.arange(ORIENTED_SHARDED_FRAMES)[:, None]) % total
+    obox = torch.as_tensor(src[idx], device=dev)  # [N, 8, OD, 5]
+    oconf = torch.ones(obox.shape[:3], dtype=torch.float32, device=dev)
+    ocfg = SortConfig(method="iou", assignment="auction", max_idle_epochs=5,
+                      oriented=True)
+    oep = torch.ones(ORIENTED_SCENES, dtype=torch.int32, device=dev)
+    zero_counts()
+    with DeviceTimer(dev) as timer:
+        ost, oids, onew, oovf = mesh.sharded_sort_scan(ocfg, gmesh)(
+            mesh.new_batched_state(ORIENTED_SCENES, OT, 1, device=dev), obox,
+            oconf, oconf > 0, oep)
+    clip = read_counts()["clip_pairs"]
+    expect_counts("oriented sharded SORT scan", read_counts(), {})
+    rst, (rids, rovf) = mesh.batched_sort_scan(ocfg)(
+        mesh.new_batched_state(ORIENTED_SCENES, OT, 1, device=dev), obox,
+        oconf, oconf > 0, oep)
+    same_tensors("oriented sharded SORT scan ids", [oids], [rids])
+    if int(oovf) != int(rovf.sum()):
+        raise AssertionError("oriented sharded SORT scan: overflow count "
+                             "differs")
+    err = compare_sort_states("oriented sharded SORT scan", ost, rst)
+    log(f"[18] oriented sharded_sort_scan, {ORIENTED_SCENES} scenes of phase "
+        f"6's stream (frames offset by 8) x D={OD}, T={OT}, "
+        f"{ORIENTED_SHARDED_FRAMES} frames: ids and overflow equal to the "
+        f"unsharded batched scan, state max_abs_err {err:.3e}; "
+        f"{ORIENTED_SCENES * ORIENTED_SHARDED_FRAMES / timer.seconds:.1f} "
+        f"scene-frames/s (CUDA events); clip launches {clip}: the batched "
+        f"step turns the sorted clip-kernel matcher off and scores every "
+        f"pair on the dense path, as the JAX package's vmapped step does; "
+        f"{card}")
+    return clip
+
+
+def phase_sharded_gallery(dev, gmesh, state, card):
+    """`global_gallery_query` on phase 10's stream's state: equal to a
+    plain stable sort of the whole score matrix, and the merge of 2, 4 and
+    8 blocks' local answers equal to the one-shard answer."""
+    s, t, g, f = state.feats.shape
+    _, feat = batch_stream(1, s, dev)
+    q = feat[:, 0].contiguous()  # each scene's first detection's feature
+    valid = (state.feat_valid & state.active[:, :, None]).reshape(-1)
+    for kind in pgallery.KINDS:
+        query = pgallery.global_gallery_query(kind, GALLERY_K, gmesh)
+        zero_counts()
+        got = query(state, q)
+        expect_counts(f"gallery query {kind}", read_counts(), {})
+        scores = pgallery._score_rows(state.feats.reshape(-1, f), q, kind)
+        scores = torch.where(valid[None], scores, -torch.inf)
+        negzero = int(((scores == 0) & torch.signbit(scores)).sum())
+        if negzero:  # the plain sort orders -0.0 as 0.0, top_k below it
+            raise AssertionError(f"gallery {kind}: {negzero} scores -0.0")
+        ref = torch.sort(scores, dim=1, descending=True, stable=True)
+        top, idx = ref.values[:, :GALLERY_K], ref.indices[:, :GALLERY_K]
+        scene = idx // (t * g)
+        same_tensors(f"gallery {kind} vs the stable sort", got, [
+            top, torch.zeros_like(scene), scene,
+            state.track_id[scene, (idx // g) % t]])
+        # the blocked product against one product of the whole gallery
+        qf, gf = q.float(), state.feats.reshape(-1, f).float()
+        if kind == "cosine":
+            qf = qf / qf.norm(dim=-1, keepdim=True).clamp(min=1e-9)
+            gf = gf / gf.norm(dim=-1, keepdim=True).clamp(min=1e-9)
+            plain = gd.f32_dots(qf, gf)
+            scale = 1.0
+        else:
+            plain = -((qf * qf).sum(-1)[:, None] + (gf * gf).sum(-1)[None]
+                      - 2.0 * gd.f32_dots(qf, gf))
+            scale = float(plain.abs().max())
+        perr = float((torch.where(valid[None], plain, 0.0)
+                      - torch.where(valid[None], scores, 0.0)).abs().max())
+        if perr > 1e-5 * scale:
+            raise AssertionError(f"gallery {kind}: blocked product off the "
+                                 f"whole product by {perr}")
+        local = pgallery.local_gallery_query(kind, GALLERY_K, gmesh)
+        for blocks in MERGE_BLOCKS:
+            n = s // blocks
+            parts = [local(map_tensors(lambda a: a[b * n:(b + 1) * n], state),
+                           q) for b in range(blocks)]
+            sc, se, tr = (torch.stack(x) for x in zip(*parts))
+            sh = torch.arange(blocks, dtype=torch.int32, device=dev)[
+                :, None, None].expand(se.shape)
+            m = pgallery.merge_shard_topk(sc, sh, se, tr)
+            same_tensors(f"gallery {kind} merge of {blocks} blocks",
+                         [m[0], m[1] * n + m[2], m[3]],
+                         [got[0], got[2], got[3]])
+        q_ms = time_ms(dev, lambda: query(state, q), TIMED_CALLS)
+        rows = pgallery.GALLERY_ROWS
+        blocks = [torch.nn.functional.pad(
+            gf[lo:lo + rows], (0, 0, 0, max(0, lo + rows - gf.shape[0])))
+            for lo in range(0, gf.shape[0], rows)]
+        p_ms = time_ms(dev, lambda: [gd.f32_dots(qf, b) for b in blocks],
+                       TIMED_CALLS)
+        hits = float((got[3][:, 0] > 0).float().mean())
+        log(f"[18] global_gallery_query {kind}, Q={q.shape[0]} x "
+            f"{s * t * g} gallery lanes (F={f} bf16), k={GALLERY_K}: equal "
+            f"to a stable full sort of the score matrix (blocked product "
+            f"within {perr:.2e} of one whole product); merge_shard_topk of "
+            f"{', '.join(map(str, MERGE_BLOCKS))} blocks equal to the "
+            f"one-shard answer; {q_ms:.3f} ms per query batch, the f32 "
+            f"products {p_ms:.3f} ms of it ({p_ms / q_ms:.3f}; CUDA events, "
+            f"mean of {TIMED_CALLS}); top-1 a live track for {hits:.3f} of "
+            f"queries; {card}")
+
+
+def handoff_entries(state, rng):
+    """(migration, merge) entries [M] of live tracks between scenes of the
+    one shard: the last 4 migrations ask for missing ids, and the last 4
+    merges repeat the first 4's destinations (all 8 fail)."""
+    s = state.active.shape[0]
+    act = state.active.cpu().numpy()
+    ids = state.track_id.cpu().numpy()
+
+    def live(scene):
+        return int(rng.choice(ids[scene][act[scene]]))
+
+    src = rng.choice(s, HANDOFF_M, replace=False)
+    dst = (src + 1 + rng.integers(0, s - 1, HANDOFF_M)) % s
+    src_id = [live(sc) for sc in src]
+    src_id[-4:] = [10 ** 6] * 4
+    mig = (src, src_id, dst, np.full(HANDOFF_M, 1000))
+    order = rng.permutation(s)
+    msrc, mdst = order[:HANDOFF_M], order[HANDOFF_M:2 * HANDOFF_M].copy()
+    mdst_id = [live(sc) for sc in mdst]
+    mdst[-4:], mdst_id[-4:] = mdst[:4], mdst_id[:4]
+    mer = (msrc, [live(sc) for sc in msrc], mdst, mdst_id)
+    return [[torch.tensor(np.asarray(x), dtype=torch.int32) for x in e]
+            for e in (mig, mer)]
+
+
+def phase_sharded_handoff(dev, gmesh, state, card):
+    """`track_migration` and `track_merge`, M=64 entries between scenes of
+    the one shard: bit-equal to the same calls on the CPU through a gloo
+    group of the same rank."""
+    cpu_mesh = mesh.scene_mesh(1, device="cpu")
+    entries = handoff_entries(state, np.random.default_rng(18))
+    host = map_tensors(lambda a: a.cpu(), state)
+    for name, op, ent, landed in (
+            ("track_migration", phandoff.track_migration, entries[0],
+             HANDOFF_M - 4),
+            ("track_merge", phandoff.track_merge, entries[1],
+             HANDOFF_M - 8)):
+        card_op, cpu_op = op(gmesh), op(cpu_mesh)
+        on_card = [e.to(dev) for e in ent]
+        zero_counts()
+        got_state, *got = card_op(map_tensors(torch.clone, state), *on_card)
+        expect_counts(name, read_counts(), {})
+        if int(got[0].sum()) != landed:
+            raise AssertionError(f"{name}: {int(got[0].sum())} entries "
+                                 f"succeeded, expected {landed}")
+        want_state, *want = cpu_op(map_tensors(torch.clone, host), *ent)
+        same_tensors(f"{name} outputs", got, want)
+        for fld in dataclasses.fields(got_state):
+            a, b = getattr(got_state, fld.name), getattr(want_state, fld.name)
+            pairs = ([(getattr(a, k.name), getattr(b, k.name))
+                      for k in dataclasses.fields(a)] if fld.name == "kf"
+                     else [(a, b)])
+            same_tensors(f"{name} state.{fld.name}", *zip(*pairs))
+        ms = []
+        for _ in range(TIMED_CALLS):
+            st = map_tensors(torch.clone, state)
+            with DeviceTimer(dev) as timer:
+                card_op(st, *on_card)
+            ms.append(timer.seconds * 1e3)
+        log(f"[18] {name}, M={HANDOFF_M} entries on S={state.active.shape[0]}"
+            f" scenes (phase 10's stream's state): {int(got[0].sum())} "
+            f"succeed; outputs and every state leaf bit-equal to the port's "
+            f"CPU run on a gloo group of the same rank; "
+            f"{float(np.median(ms)):.3f} ms per call (CUDA events, median of "
+            f"{TIMED_CALLS}, state copies outside); {card}")
+
+
+def phase_checkpoint(args, dev, dets, feats, card):
+    """A bf16 VisualSort on phase 4's stream saved halfway, loaded into a
+    fresh tracker: the rest of the stream gives the uninterrupted
+    tracker's ids."""
+    from similari_tpu_torch.eval.mot import ltwh_to_vec5
+
+    frames = sorted(dets)[:min(CKPT_FRAMES, args.main_frames)]
+    rows = [np.asarray(dets[f], np.float32) for f in frames]
+    arrays = [(ltwh_to_vec5(r), np.clip(r[:, 4], 0.0, 1.0),
+               np.asarray(feats[f], np.float32)) for r, f in zip(rows, frames)]
+    opts = visual_api_options(
+        visual_metric=VisualSortMetricType.cosine(0.5),
+        positional_metric=PositionalMetricType.iou(0.3),
+        visual_minimal_track_length=1, max_idle_epochs=10,
+        kept_history_length=1, visual_max_observations=K)
+
+    def make():
+        return VisualSort(1, opts, initial_capacity=128,
+                          assignment_backend="auction", device=dev)
+
+    half = len(arrays) // 2
+    run = make()
+    for a in arrays[:half]:
+        run.predict_arrays(0, *a)
+    with tempfile.TemporaryDirectory() as tdir:
+        path = Path(tdir) / "visual_sort.npz"
+        t0 = time.perf_counter()
+        save_tracker(run, path)
+        t_save = time.perf_counter() - t0
+        size = path.stat().st_size
+        resumed = make()
+        t0 = time.perf_counter()
+        load_tracker(resumed, path)
+        t_load = time.perf_counter() - t0
+    st = resumed._scenes[0].state
+    if st.feats.dtype != torch.bfloat16 or st.feats.device.type != dev.type:
+        raise AssertionError("checkpoint: the gallery did not come back as "
+                             "bf16 on the card")
+    for i, a in enumerate(arrays[half:], half):
+        check_same(f"checkpoint frame {i}: ids", resumed.predict_arrays(
+            0, *a)[1], run.predict_arrays(0, *a)[1])
+    log(f"[18] checkpoint: bf16 VisualSort on phase 4's stream saved after "
+        f"{half} frames (capacity {st.capacity}, {size / 1e6:.2f} MB npz) "
+        f"in {t_save:.3f} s, loaded into a fresh tracker in {t_load:.3f} s; "
+        f"the next {len(arrays) - half} frames' ids equal the uninterrupted "
+        f"tracker's (host clock); {card}")
+
+
+def dryrun_rank(rank, world, port):
+    """One NCCL rank of the multi-card dry run (a spawned process)."""
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{port}", world_size=world,
+        rank=rank)
+    torch.cuda.set_device(rank)
+    try:
+        dryrun_multichip(world)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_multi_card(card):
+    n = torch.cuda.device_count()
+    dryrun_multichip(1)  # on this process's NCCL world of one rank
+    if n < 2:
+        log(f"[18] dryrun_multichip(1) passed on the NCCL world of one rank;"
+            f" multi-rank NCCL is unverified on this machine ({n} card); "
+            f"{card}")
+        return
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=dryrun_rank, args=(r, n, port))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        raise AssertionError(f"dryrun_multichip({n}) ranks exited {codes}")
+    log(f"[18] dryrun_multichip({n}) passed in {n} NCCL ranks, one per card;"
+        f" {card}")
+
+
+def phase_sharded(args, dev, visual_ref, visual_rate, sort_ref, sort_rate,
+                  dets, feats):
+    """Phase 18; returns (merge launches, clip launches)."""
+    card = gpu_line()
+    gmesh = mesh.scene_mesh(1)
+    if gmesh.backend != "nccl":
+        raise AssertionError(f"phase 18's mesh runs {gmesh.backend}")
+    state, merge = phase_sharded_visual(args, dev, gmesh, visual_ref,
+                                        visual_rate, card)
+    clip = phase_sharded_sort(args, dev, gmesh, sort_ref, sort_rate, card)
+    phase_sharded_gallery(dev, gmesh, state, card)
+    phase_sharded_handoff(dev, gmesh, state, card)
+    phase_checkpoint(args, dev, dets, feats, card)
+    phase_multi_card(card)
+    torch.distributed.destroy_process_group()
+    return merge, clip
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=256)
@@ -2209,11 +2659,11 @@ def main(argv=None) -> int:
     kernels.append(clip_entry)
     phase_merge(args, dev)
     stamp("phases 8-9 done")
-    merge_entry, visual_rate = phase_batched_visual(args, dev)
+    merge_entry, visual_rate, visual_ref = phase_batched_visual(args, dev)
     kernels.append(merge_entry)
     step_out = phase_general_visual(args, dev, dets, feats, fused_out)
     oa_out = phase_own_area(args, dev)
-    sort_rate = phase_batched_sort(args, dev)
+    sort_rate, sort_ref = phase_batched_sort(args, dev)
     stamp("phases 10-12 done")
     # the public API on the same paths; the clip and merge entries add
     # their launches there
@@ -2226,12 +2676,18 @@ def main(argv=None) -> int:
     stamp("phase 16 done")
     host_clip = phase_host_engines(args, dev, dets)
     stamp("phase 17 done")
-    clip_entry["launches"] += api_clip + host_clip
-    merge_entry["launches"] += api_merge
+    sharded_merge, sharded_clip = phase_sharded(args, dev, visual_ref,
+                                                visual_rate, sort_ref,
+                                                sort_rate, dets, feats)
+    stamp("phase 18 done")
+    clip_entry["launches"] += api_clip + host_clip + sharded_clip
+    merge_entry["launches"] += api_merge + sharded_merge
     log(f"[16] launches on the API paths: clip {api_clip} (Sort, nms()), "
         f"merge {api_merge} (BatchVisualSort); [17] clip {host_clip} (the "
         f"device Sort beside the host engine; the host engines launch "
-        f"none)")
+        f"none); [18] merge {sharded_merge} (the sharded visual scan and "
+        f"steps), clip {sharded_clip} (the batched SORT step matches "
+        f"oriented boxes on the dense path)")
     log(json.dumps({"kernels": kernels, "not_ported": []}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

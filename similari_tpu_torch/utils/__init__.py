@@ -1,4 +1,5 @@
-"""Box types, polygon clipping, NMS and shape helpers."""
+"""Box types, polygon clipping, NMS, shape helpers, checkpoints and
+step timing."""
 
 from .bbox import (  # noqa: F401
     BoundingBox,
@@ -7,3 +8,5 @@ from .bbox import (  # noqa: F401
     Universal2DBox,
     normalize_angle,
 )
+from .checkpoint import load_tracker, save_tracker  # noqa: F401
+from .profiling import StepTimer, trace  # noqa: F401

@@ -639,3 +639,59 @@ def test_host_engines_with_the_default_device(cuda):
     vs.predict_arrays(0, box, conf, np.ones((2, 4), np.float32))
     st = vs._scenes[0].state
     assert st.feats.device.type == "cuda" and st.feats.dtype == torch.bfloat16
+
+
+@pytest.fixture
+def world():
+    """The process groups a test's meshes build, destroyed after it."""
+    yield
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+
+
+def test_sharded_visual_step_on_nccl_matches_inplace_step(cuda, world):
+    """The sharded visual step on an NCCL mesh of one rank: the unsharded
+    in-place step's outputs and state, the new-track count reduced, two
+    merge launches per frame."""
+    cfg = VisualConfig(**VISUAL_CONFIGS["euclid_iou"])
+    mesh = pmesh.scene_mesh(1)
+    assert mesh.backend == "nccl" and mesh.device.type == "cuda"
+    s, n, d, t, f = 3, 6, 8, 32, 16
+    arrs = [np.stack([x[i] for x in (visual_stream(k, n, d, f)
+                                     for k in range(s))], axis=1)
+            for i in range(7)]
+    ref = pmesh.new_batched_visual_state(s, t, 2, 3, f, torch.bfloat16,
+                                         device=cuda)
+    alt = map_tensors(torch.clone, ref)
+    sstep = pmesh.sharded_visual_step(cfg, mesh)
+    istep = pmesh.batched_visual_step_inplace(cfg)
+    before = mi.lane_merge_inplace.launches
+    for i in range(n):
+        args = [torch.tensor(a[i], device=cuda) for a in arrs]
+        ep = torch.full((s,), i + 1, device=cuda)
+        ref, out_r = istep(ref, *args, ep)
+        alt, out_s, new = sstep(alt, *args, ep)
+        for name in ("track_id", "voting_type", "is_new", "overflow"):
+            assert torch.equal(getattr(out_r, name), getattr(out_s, name))
+        assert int(new) == int(out_r.is_new.sum())
+    assert mi.lane_merge_inplace.launches == before + 4 * n
+    for fld in dataclasses.fields(ref):
+        if fld.name != "kf":
+            assert torch.equal(getattr(ref, fld.name),
+                               getattr(alt, fld.name)), fld.name
+
+
+def test_gloo_mesh_refuses_card_tensors(cuda, world):
+    """A mesh on the CPU's backend (gloo) given tensors on the card raises
+    rather than copying them."""
+    cfg = VisualConfig(**VISUAL_CONFIGS["euclid_iou"])
+    mesh = pmesh.scene_mesh(1, device="cpu")
+    assert mesh.backend == "gloo"
+    st = pmesh.new_batched_visual_state(2, 8, 1, 3, 4, device=cuda)
+    box = torch.zeros((2, 4, 5), device=cuda)
+    ones = torch.ones((2, 4), device=cuda)
+    with pytest.raises(ValueError, match="gloo"):
+        pmesh.sharded_visual_step(cfg, mesh)(
+            st, box, ones, ones > 0, torch.zeros((2, 4, 4), device=cuda),
+            ones > 0, ones, ones, torch.ones(2, dtype=torch.int32,
+                                             device=cuda))

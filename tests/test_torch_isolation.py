@@ -63,7 +63,12 @@ def test_import_leaves_jax_out_of_sys_modules():
               "similari_tpu_torch.trackers.host_geometry",
               "similari_tpu_torch.trackers.feature",
               "similari_tpu_torch.utils.kalman",
-              "similari_tpu_torch.ops.lap"):
+              "similari_tpu_torch.ops.lap",
+              "similari_tpu_torch.parallel.gallery",
+              "similari_tpu_torch.parallel.handoff",
+              "similari_tpu_torch.parallel.dryrun",
+              "similari_tpu_torch.utils.checkpoint",
+              "similari_tpu_torch.utils.profiling"):
         assert m in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -93,7 +98,8 @@ def test_chip_smoke_without_cuda_fails_and_prints_no_result():
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
-    + ["chip_smoke.py", "tests/torch_parity.py"]))
+    + ["chip_smoke.py", "tests/torch_parity.py",
+       "tests/torch_dist_worker.py"]))
 def test_no_forbidden_import_statement(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):
@@ -137,6 +143,25 @@ def test_public_api_import_leaves_jax_out_of_sys_modules():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert [m for m in res.stdout.split() if _forbidden(m)] == []
+
+
+def test_parallel_import_leaves_jax_out_of_sys_modules():
+    """The sharded paths and the rank worker of the sharded tests, which
+    spawned processes import, load neither JAX nor the JAX package."""
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import similari_tpu_torch.parallel\n"
+        "from similari_tpu_torch.utils import load_tracker, trace\n"
+        "import torch_dist_worker\n"
+        "print(' '.join(sorted(sys.modules)))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    loaded = res.stdout.split()
+    assert "similari_tpu_torch.parallel.handoff" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
 
 
 def test_forbidden_matches_only_the_jax_package():
