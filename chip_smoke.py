@@ -91,22 +91,28 @@ Phases:
      scene, two merge launches per predict; scene-frames/s beside the
      bare steps'.  Each of phases 13-16 zeroes every launch counter
      before its run and reads them after;
- 17. the host engines (engine="host": NumPy and the C++ LAP solver of
-     `csrc/lap.cpp`, built with the system C++ compiler) beside the device
-     engines on the same calls, at bench.py::bench_interactive_host's
-     per-call widths, with the host's CPU model and BLAS threads: `Sort`
-     IoU 0.3 aligned and oriented at n = 10, 100, 500, 1000; `VisualSort`
-     512-d f32 euclidean(10) at n = 10, 50, 100, and a bf16 `VisualSort`
-     under "host" (the device step); `BatchSort` one scene x n = 10, 100,
-     500 with constraint (1, 1.0), and phase 16's S=256 x 100; each with
-     ids equal call for call (or the two solutions' voting LP totals tied
+ 17. the host engines (engine="host": the C++ steps of `csrc/sortstep.cpp`
+     and `csrc/visualstep.cpp` with the LAP solver, one host library built
+     with the system C++ compiler) beside the device engines on the same
+     calls, at bench.py::bench_interactive_host's per-call widths, with the
+     host's CPU model and BLAS threads: `Sort` IoU 0.3 aligned at n = 10,
+     100, 500, 1000 and oriented at n = 10, 100, 500; `VisualSort` 512-d
+     f32 euclidean(10) at n = 10, 50, 100, and a bf16 `VisualSort` under
+     "host" (the device step); `BatchSort` one scene x n = 10, 100, 500
+     with constraint (1, 1.0), and phase 16's S=256 x 100; each with ids
+     equal call for call (or the two solutions' voting LP totals tied
      within 1e-5 relative, counted) and wall-clock ms per call of both
-     engines, the host engine launching no kernel; `FeatureTracker` 256-d
-     at n = 10, 100, 500 (ids kept, ms per call); the general SORT step
-     with assignment="native" against "hungarian" on the main path's
-     stream (--step-frames frames, ids equal); the Kalman API's
-     `filter_sequence`.  Every launch counter is zeroed before each call
-     and read after it;
+     engines, the host engine launching no kernel; at each width the same
+     calls again through the NumPy twins (`host_sort_step_numpy`,
+     `host_visual_step_numpy`: the host engine before the C++ steps), ms
+     per call and the calls whose ids equal the C++ step's;
+     `FeatureTracker` 256-d at n = 10, 100, 500 (ids kept, ms per call);
+     the general SORT step with assignment="native" against "hungarian" on
+     the main path's stream (--step-frames frames, ids equal); the Kalman
+     API's `filter_sequence` (C++ `kf_box_sequence`) beside its NumPy
+     twin; `nms(device="cpu")` (C++ `nms_host`) on phase 7's frames cut to
+     64 boxes, the kept boxes equal to `nms_kernel`'s on the card.  Every
+     launch counter is zeroed before each call and read after it;
  18. the sharded scene paths on an NCCL process group of one rank
      (`parallel/mesh.py::scene_mesh(1)`): `sharded_visual_scan` at phase
      10's shape and stream, ids, voting types, overflow and state
@@ -127,9 +133,16 @@ Phases:
      loaded and resumed with the uninterrupted tracker's ids, save and
      load seconds; `dryrun_multichip` in one NCCL rank per card when the
      machine has two or more (else printed as unverified);
- 19. one `kernels` JSON line (the clip's and the merge's launches include
-     the API paths', phase 17's device Sort's and phase 18's), then the
-     result line.
+ 19. the MOT-file route: phase 4's SORT sequence written as a MOT det csv
+     with 7 columns, with 6 (no confidence: read as 1.0) and with 7 behind
+     a header line, each run as `run_sequence_device(path)` (the C++
+     loader `native.load_sequence_soa`, then the fused SORT kernel on the
+     card): outputs equal to phase 4's in-memory run, the fused kernel's
+     launches counted; the loader's ms beside its NumPy version's, their
+     buffers equal;
+ 20. one `kernels` JSON line (the clip's and the merge's launches include
+     the API paths', phase 17's device Sort's and phase 18's; the fused
+     SORT kernel's, phase 19's), then the result line.
 
 The fused-kernel checks take the main path's configurations from the
 runners' own builders, the other configurations and the crowded stream
@@ -145,6 +158,7 @@ Exits non-zero, printing no result, when CUDA is missing or any phase fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import multiprocessing
@@ -171,6 +185,7 @@ from similari_tpu_torch import (  # noqa: E402
     Universal2DBoxKalmanFilter, Vec2DKalmanFilter, VisualSort,
     VisualSortMetricType, VisualSortObservation, VisualSortOptions,
     VisualSortPredictionBatchRequest, _build, nms)
+from similari_tpu_torch import native  # noqa: E402
 from similari_tpu_torch.eval.mot import (  # noqa: E402
     CHUNK, DeviceTimer, run_sequence_device, run_sequence_device_visual,
     sequence_sort_config, sequence_visual_config)
@@ -185,6 +200,10 @@ from similari_tpu_torch.parallel import dryrun_multichip  # noqa: E402
 from similari_tpu_torch.parallel import gallery as pgallery  # noqa: E402
 from similari_tpu_torch.parallel import handoff as phandoff  # noqa: E402
 from similari_tpu_torch.parallel import mesh  # noqa: E402
+from similari_tpu_torch.trackers.host_sort import (  # noqa: E402
+    host_sort_step_numpy)
+from similari_tpu_torch.trackers.host_visual import (  # noqa: E402
+    host_visual_step_numpy)
 from similari_tpu_torch.trackers.sort_step import (  # noqa: E402
     SortConfig, sort_scan, use_sorted_path)
 from similari_tpu_torch.trackers.state import (  # noqa: E402
@@ -194,10 +213,12 @@ from similari_tpu_torch.trackers.visual_step import (  # noqa: E402
     VT_VISUAL, VisualConfig, visual_scan)
 from similari_tpu_torch.utils import (  # noqa: E402
     StepTimer, load_tracker, save_tracker, trace)
+from similari_tpu_torch.utils.kalman import box_sequence_numpy  # noqa: E402
+from similari_tpu_torch.utils.nms import HOST_MAX_BOXES  # noqa: E402
 from similari_tpu_torch.utils.pad import pad_pow2  # noqa: E402
 from torch_parity import (  # noqa: E402
     ATOL, EXACT_BOX_COLUMNS, RTOL, VISUAL_CONFIGS, crowded_stream,
-    solutions_tie)
+    solutions_tie, write_mot_det)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12  # non-tensor float32
@@ -698,7 +719,7 @@ def phase_main(args, dets, feats):
         f"{CHUNK}-frame chunk")
     log(f"[4] SORT device ms per launch (torch.profiler, first {n} chunks): "
         f"fused_sort_kernel {f_ms:.5f} per {CHUNK}-frame launch")
-    return launches, vout, dev_ms
+    return launches, vout, sout, dev_ms
 
 
 # ---------------------------------------------------------------------------
@@ -1757,19 +1778,31 @@ KF_STEPS = 10_000  # filter_sequence's track length
 
 
 def cpu_model():
-    """The host CPU's model name: /proc/cpuinfo, else lscpu, else the
-    machine type."""
+    """The host CPU's model name from /proc/cpuinfo (or lscpu); where the
+    name reads "unknown", as in a sandboxed VM, its vendor, family, model
+    and vector extensions instead."""
+    fields = {}
     cpuinfo = Path("/proc/cpuinfo")
     if cpuinfo.exists():
         for line in cpuinfo.read_text().splitlines():
-            if line.startswith("model name"):
-                return line.split(":", 1)[1].strip()
-    if shutil.which("lscpu"):
+            key, _, value = line.partition(":")
+            fields.setdefault(key.strip(), value.strip())
+    elif shutil.which("lscpu"):
         out = subprocess.run(["lscpu"], capture_output=True, text=True).stdout
         for line in out.splitlines():
-            if line.startswith("Model name:"):
-                return line.split(":", 1)[1].strip()
-    return f"model not reported ({platform.machine()})"
+            key, _, value = line.partition(":")
+            fields.setdefault(key.strip().replace("Model name", "model name"),
+                              value.strip())
+    name = fields.get("model name", "")
+    if name and name.lower() != "unknown":
+        return name
+    flags = set(fields.get("flags", "").split())
+    ext = [f for f in ("avx2", "avx512f", "amx_tile") if f in flags]
+    return (f"model name {name or 'not reported'} (vendor "
+            f"{fields.get('vendor_id', '?')}, family "
+            f"{fields.get('cpu family', '?')}, model "
+            f"{fields.get('model', '?')}; {', '.join(ext) or 'no avx2'}; "
+            f"{platform.machine()})")
 
 
 def blas_threads():
@@ -1823,6 +1856,69 @@ def resync(dev_tr, host_tr, dev):
     ds.state = state_to_device(hs.state, dev)
     ds.active_count = hs.active_count
     dev_tr._next_track_id = host_tr._next_track_id
+
+
+class NumpySortSession:
+    """`native.SortStepSession`'s interface over the NumPy twin
+    (`host_sort_step_numpy`, the host engine before the C++ steps), for
+    timing it beside them."""
+
+    def __init__(self, cfg, state):
+        self.cfg, self.state = cfg, state
+
+    def step(self, det_box, det_conf, epoch, next_id):
+        st = dataclasses.replace(self.state, next_id=np.int32(next_id))
+        st, o = host_sort_step_numpy(self.cfg, st, det_box, det_conf, epoch)
+        return (int(st.next_id), o["slot"], o["track_id"], o["is_new"],
+                o["pred_box"], o["length"])
+
+
+class NumpyVisualSession(NumpySortSession):
+    """`native.VisualStepSession`'s interface over
+    `host_visual_step_numpy`."""
+
+    def step(self, *args):
+        *dets, epoch, next_id = args
+        st = dataclasses.replace(self.state, next_id=np.int32(next_id))
+        st, o = host_visual_step_numpy(self.cfg, st, *dets, epoch)
+        return (int(st.next_id), o["slot"], o["track_id"], o["is_new"],
+                o["pred_box"], o["length"], o["voting_type"])
+
+
+@contextlib.contextmanager
+def numpy_twins():
+    """Host stores made or grown inside take the NumPy twins' sessions."""
+    saved = native.SortStepSession, native.VisualStepSession
+    native.SortStepSession = NumpySortSession
+    native.VisualStepSession = NumpyVisualSession
+    try:
+        yield
+    finally:
+        native.SortStepSession, native.VisualStepSession = saved
+
+
+def twin_ms(dev, make, frames, call):
+    """A host tracker on the NumPy twins beside one on the C++ steps, on
+    the same calls (`call(tracker, args)` returns the ids as a list):
+    (median wall ms per timed call of the twin, calls whose ids equal the
+    C++ engine's).  Neither launches a kernel."""
+    native_tr, twin_tr = make(), make()
+    times, same = [], 0
+    for i, args in enumerate(frames):
+        want, _, n_counts = counted(dev, lambda: call(native_tr, args))
+        with numpy_twins():
+            got, ms, t_counts = counted(dev, lambda: call(twin_tr, args))
+        expect_counts(f"C++ host call {i}", n_counts, {})
+        expect_counts(f"NumPy twin call {i}", t_counts, {})
+        same += got == want
+        if i >= HOST_WARMUP:
+            times.append(ms)
+    return float(np.median(times)), same
+
+
+def log_twin(label, ms, same, calls):
+    log(f"[17] {label}: NumPy twin {ms:.3f} ms per call (median, wall "
+        f"clock), ids equal to the C++ step's on {same}/{calls} calls")
 
 
 def compare_engines(label, host_tr, dev_tr, frames, dev, visual, want_dev):
@@ -1935,7 +2031,8 @@ def phase_host_sort(dev):
     """Returns the device engine's clip launches."""
     launches = 0
     for oriented in (False, True):
-        for n in (10, 100, 500, 1000):
+        # the NumPy twin's oriented n=1000 took 1.1-1.9 s a call
+        for n in (10, 100, 500) if oriented else (10, 100, 500, 1000):
             calls = HOST_WARMUP + HOST_CALLS[n]
             frames = host_sort_frames(n, oriented, calls)
 
@@ -1953,9 +2050,13 @@ def phase_host_sort(dev):
                 host_tr, dev_tr, frames, dev, False,
                 lambda i: {"clip_pairs": 1} if clip else {})
             launches += clips
-            log_pair(f"Sort IoU 0.3 {'oriented' if oriented else 'aligned'} "
-                     f"n={n}", host_ms, dev_ms, ids_agree(calls, ties)
+            label = (f"Sort IoU 0.3 {'oriented' if oriented else 'aligned'} "
+                     f"n={n}")
+            log_pair(label, host_ms, dev_ms, ids_agree(calls, ties)
                      + f"; clip launches: host 0, device {clips}")
+            log_twin(label, *twin_ms(
+                dev, lambda: make("host"), frames,
+                lambda tr, a: tr.predict_arrays(0, *a)[1].tolist()), calls)
     return launches
 
 
@@ -1977,9 +2078,12 @@ def phase_host_visual(dev):
             lambda i: {})
         if votes == 0:
             raise AssertionError(f"VisualSort n={n}: no visual match")
-        log_pair(f"VisualSort {HOST_VISUAL_DIM}-d f32 euclidean(10) n={n}",
-                 host_ms, dev_ms, ids_agree(calls, ties)
+        label = f"VisualSort {HOST_VISUAL_DIM}-d f32 euclidean(10) n={n}"
+        log_pair(label, host_ms, dev_ms, ids_agree(calls, ties)
                  + f"; {votes} visual matches over the calls")
+        log_twin(label, *twin_ms(
+            dev, lambda: make("host"), frames,
+            lambda tr, a: tr.predict_arrays(0, *a)[1].tolist()), calls)
 
     # a bf16 gallery under "host" takes the device step, as in the JAX
     # package: no numpy state, the same ids as engine="device"
@@ -2029,6 +2133,12 @@ def batch_call(tracker, scenes):
     return dict(res.get() for _ in range(res.batch_size()))
 
 
+def batch_ids(tracker, scenes):
+    """The ids of one request's tracks, scene by scene."""
+    res = batch_call(tracker, scenes)
+    return [[t.id for t in res[sc]] for sc in sorted(res)]
+
+
 def compare_batches(label, host_tr, dev_tr, requests, dev):
     """Lengths and custom ids equal per scene, ids a fixed one-to-one map
     (the device engine reserves ids per scene); host engine launches
@@ -2067,8 +2177,11 @@ def phase_host_batch(dev):
         requests = [{0: b} for b in host_batch_boxes(n, calls)]
         host_ms, dev_ms = compare_batches(f"BatchSort 1 x {n}", make("host"),
                                           make("device"), requests, dev)
-        log_pair(f"BatchSort one scene x {n}, constraint (1, 1.0), request "
-                 f"built in the timed call", host_ms, dev_ms, BATCH_AGREE)
+        label = (f"BatchSort one scene x {n}, constraint (1, 1.0), request "
+                 f"built in the timed call")
+        log_pair(label, host_ms, dev_ms, BATCH_AGREE)
+        log_twin(label, *twin_ms(dev, lambda: make("host"), requests,
+                                 batch_ids), calls)
 
     # phase 16's shape: S=256 scenes x 100 objects per request
     calls = HOST_WARMUP + HOST_BATCH_REQUESTS
@@ -2084,8 +2197,11 @@ def phase_host_batch(dev):
 
     host_ms, dev_ms = compare_batches(f"BatchSort {BS} x {BD}", make("host"),
                                       make("device"), requests, dev)
-    log_pair(f"BatchSort {BS} scenes x {BD} objects (phase 16's shape), "
-             f"request built in the timed call", host_ms, dev_ms, BATCH_AGREE)
+    label = (f"BatchSort {BS} scenes x {BD} objects (phase 16's shape), "
+             f"request built in the timed call")
+    log_pair(label, host_ms, dev_ms, BATCH_AGREE)
+    log_twin(label, *twin_ms(dev, lambda: make("host"), requests, batch_ids),
+             calls)
 
 
 def phase_host_feature(dev):
@@ -2142,10 +2258,18 @@ def phase_kalman_api(dev):
     z[:, 4] = 5.0 + rng.uniform(0, 1, KF_STEPS)
     kf = Universal2DBoxKalmanFilter()
     got, ms = timed(dev, lambda: kf.filter_sequence(z))
+    twin, twin_ms_ = timed(dev, lambda: box_sequence_numpy(z, kf._f.pw,
+                                                           kf._f.vw))
     st = kf.initiate(Universal2DBox.from_vec5(z[0]))
     for i in range(1, 200):
         st = kf.update(kf.predict(st), Universal2DBox.from_vec5(z[i]))
-    check_same("filter_sequence row 199", got[199], st._state.mean_pos)
+    # the C++ loop may contract a multiply-add the NumPy loop rounds twice:
+    # the JAX package holds its own native loop at 1e-5
+    check_same("filter_sequence's NumPy twin row 199", twin[199],
+               st._state.mean_pos)
+    if not np.allclose(got, twin, rtol=1e-5, atol=1e-5):
+        raise AssertionError("filter_sequence: the C++ loop and its NumPy "
+                             "twin differ past 1e-5")
     pts = np.cumsum(rng.normal(size=(KF_STEPS // 10, 17, 2)), axis=0).astype(
         np.float32)
     vec, vms = timed(dev, lambda: Vec2DKalmanFilter().filter_sequence(pts))
@@ -2153,11 +2277,58 @@ def phase_kalman_api(dev):
                Point2DKalmanFilter().filter_sequence(pts[:, 3]))
     if not (np.isfinite(got).all() and np.isfinite(vec).all()):
         raise AssertionError("filter_sequence: non-finite output")
-    log(f"[17] Kalman API filter_sequence: box track of {KF_STEPS} steps "
-        f"{ms:.3f} ms ({ms * 1e3 / KF_STEPS:.3f} us per step), equal to the "
-        f"per-call API at step 199; Vec2D {KF_STEPS // 10} steps x 17 "
-        f"keypoints {vms:.3f} ms, each chain equal to the point filter's; "
-        f"host only (NumPy)")
+    log(f"[17] Kalman API filter_sequence (C++ kf_box_sequence): box track "
+        f"of {KF_STEPS} steps {ms:.3f} ms ({ms * 1e3 / KF_STEPS:.4f} us per "
+        f"step), its NumPy twin {twin_ms_:.3f} ms "
+        f"({twin_ms_ * 1e3 / KF_STEPS:.3f} us per step), equal to the "
+        f"per-call API at step 199, the two within 1e-5; Vec2D "
+        f"{KF_STEPS // 10} steps x 17 keypoints {vms:.3f} ms, each chain "
+        f"equal to the point filter's; host only")
+
+
+def nearest_boxes(frames, n):
+    """Each frame cut to the `n` boxes nearest its first one, in rank
+    order: a crowd, so that some are suppressed."""
+    out = []
+    for fr in frames:
+        d2 = ((fr[:, :2] - fr[0, :2]) ** 2).sum(1)
+        out.append(fr[np.sort(np.argsort(d2, kind="stable")[:n])])
+    return np.stack(out)
+
+
+def phase_host_nms(args, dev):
+    """`nms(device="cpu")`, the C++ loop, on phase 7's frames cut to
+    HOST_MAX_BOXES boxes each: the kept boxes equal `nms_kernel`'s on the
+    card."""
+    frames = nearest_boxes(nms_stream(args.nms_frames), HOST_MAX_BOXES)
+    scores = 1.0 - np.arange(HOST_MAX_BOXES) / NMS_N
+    valid = torch.ones(HOST_MAX_BOXES, dtype=torch.bool, device=dev)
+    host_ms, dev_ms, kept = [], [], 0
+    for f, fr in enumerate(frames):
+        dets = [(Universal2DBox(*map(float, r)), float(sc))
+                for r, sc in zip(fr, scores)]
+        got, h_ms, counts = counted(
+            dev, lambda: nms(dets, NMS_THRESHOLD, device="cpu"))
+        expect_counts(f"nms(device='cpu') frame {f}", counts, {})
+        keep, d_ms, counts = counted(dev, lambda: nms_kernel(
+            torch.as_tensor(fr, device=dev), valid, NMS_THRESHOLD).cpu())
+        expect_counts(f"nms_kernel n={HOST_MAX_BOXES} frame {f}", counts, {})
+        index = {id(bb): i for i, (bb, _) in enumerate(dets)}
+        check_same(f"nms(device='cpu') frame {f}: kept boxes",
+                   [index[id(b)] for b in got],
+                   keep.nonzero().squeeze(1).numpy())
+        kept += len(got)
+        host_ms.append(h_ms)
+        dev_ms.append(d_ms)
+    if kept == frames.shape[0] * HOST_MAX_BOXES:
+        raise AssertionError("nms(device='cpu'): no box was suppressed")
+    log(f"[17] nms(device='cpu') (C++ nms_host), phase 7's {len(frames)} "
+        f"frames cut to the {HOST_MAX_BOXES} oriented boxes nearest each "
+        f"frame's first: kept boxes equal "
+        f"to nms_kernel's on the card every frame ({kept / len(frames):.1f} "
+        f"kept per frame); {np.median(host_ms):.3f} ms per call against "
+        f"the kernel's {np.median(dev_ms):.3f} (medians, wall clock, the "
+        f"kernel's copy back included); no kernel launched")
 
 
 def phase_host_engines(args, dev, dets):
@@ -2169,15 +2340,64 @@ def phase_host_engines(args, dev, dets):
     t0 = time.perf_counter()
     _build.host_library()
     secs, _ = _build.host_build_info()
-    log(f"[17] host LAP solver (csrc/lap.cpp) built in {secs:.2f} s, loaded "
-        f"in {time.perf_counter() - t0:.2f} s; flags "
-        f"{' '.join(_build.HOST_FLAGS)}")
+    log(f"[17] host library ({', '.join(_build.HOST_SOURCES)}) built in "
+        f"{secs:.2f} s, loaded in {time.perf_counter() - t0:.2f} s; "
+        f"{_build._cxx()} {' '.join(_build.HOST_FLAGS)}")
     launches = phase_host_sort(dev)
     phase_host_visual(dev)
     phase_host_batch(dev)
     phase_host_feature(dev)
     phase_native_assignment(args, dev, dets)
     phase_kalman_api(dev)
+    phase_host_nms(args, dev)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the MOT-file route
+# ---------------------------------------------------------------------------
+
+MOT_FILES = (("7 columns", dict(columns=7)), ("6 columns", dict(columns=6)),
+             ("7 columns and a header line", dict(columns=7, header=True)))
+
+
+def phase_mot_file(dets, sort_out, want_launches):
+    """Phase 19: the main path's SORT sequence written as a MOT det csv
+    three ways and run from the path (`run_sequence_device(path)`: the C++
+    loader, then the fused kernel on the card): outputs equal to phase 4's
+    in-memory run.  Returns the fused SORT launches."""
+    launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, kw in MOT_FILES:
+            path = Path(tmp) / f"det_{kw['columns']}_{len(kw)}.txt"
+            if write_mot_det(path, dets, **kw) != dets:
+                raise AssertionError(f"MOT file, {label}: the file does not "
+                                     "hold the main path's detections")
+            zero_counts()
+            out, fps = run_sequence_device(path, capacity=T)
+            counts = read_counts()
+            expect_counts(f"MOT file, {label}", counts,
+                          {"fused_sort": want_launches})
+            launches += counts["fused_sort"]
+            if out != sort_out:
+                bad = [f for f in sort_out if out.get(f) != sort_out[f]][:5]
+                raise AssertionError(f"MOT file, {label}: outputs differ "
+                                     f"from the in-memory run at frames "
+                                     f"{bad}")
+            log(f"[19] run_sequence_device(path), {label}: {len(out)} frames "
+                f"x {D_VALID} objects, ids and boxes equal to phase 4's "
+                f"in-memory run; {fps:.1f} frames/s (CUDA events); "
+                f"fused_sort_kernel launches {counts['fused_sort']}")
+        loaded, c_ms = timed(torch.device("cpu"),
+                             lambda: native.load_sequence_soa(path))
+        plain, p_ms = timed(torch.device("cpu"),
+                            lambda: native._load_sequence_soa_numpy(path))
+        for a, b in zip(loaded, plain):
+            check_same("load_sequence_soa against its NumPy version", a, b)
+        rows = int(loaded[3].sum())
+        log(f"[19] load_sequence_soa (C++) {c_ms:.2f} ms for {rows} rows "
+            f"({path.stat().st_size} bytes), _load_sequence_soa_numpy "
+            f"{p_ms:.2f} ms, equal buffers; host {cpu_model()}")
     return launches
 
 
@@ -2639,7 +2859,7 @@ def main(argv=None) -> int:
     kernels = [phase_sort(args, dev), *phase_visual(args, dev)]
     stamp("phases 1-3 done")
     dets, feats = synthetic_sequence(args.main_frames, args.seed + 2)
-    launches, fused_out, dev_ms = phase_main(args, dets, feats)
+    launches, fused_out, sort_out, dev_ms = phase_main(args, dets, feats)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     # `ms` is a wrapper call's CUDA-event time (phase 3), host work
@@ -2680,6 +2900,9 @@ def main(argv=None) -> int:
                                                 visual_rate, sort_ref,
                                                 sort_rate, dets, feats)
     stamp("phase 18 done")
+    file_launches = phase_mot_file(dets, sort_out, launches["fused_sort"])
+    stamp("phase 19 done")
+    kernels[0]["launches"] += file_launches
     clip_entry["launches"] += api_clip + host_clip + sharded_clip
     merge_entry["launches"] += api_merge + sharded_merge
     log(f"[16] launches on the API paths: clip {api_clip} (Sort, nms()), "
@@ -2687,7 +2910,8 @@ def main(argv=None) -> int:
         f"device Sort beside the host engine; the host engines launch "
         f"none); [18] merge {sharded_merge} (the sharded visual scan and "
         f"steps), clip {sharded_clip} (the batched SORT step matches "
-        f"oriented boxes on the dense path)")
+        f"oriented boxes on the dense path); [19] fused_sort "
+        f"{file_launches} (the MOT-file route, three files)")
     log(json.dumps({"kernels": kernels, "not_ported": []}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -8,10 +8,13 @@ source rebuilds:
   to an object file, all of them in parallel (one nvcc each, started
   together), and the objects link into one shared library with a plain C
   interface.  It builds on a machine with the CUDA toolkit.
-* the host LAP solver (`host_library()`, `csrc/lap.cpp`): the system C++
-  compiler (`$CXX`, else `c++`) with the JAX package's native flags, so
-  its solutions are the JAX package's bit for bit.  It builds wherever a
-  C++ compiler is, the CPU included; a failed build raises.
+* the host library (`host_library()`): the C++ sources under `csrc/`
+  (`HOST_SOURCES`: the LAP solver, the MOT csv loader, the native SORT and
+  VisualSORT steps with the Kalman sequences and the rotated IoU, NMS) in
+  one command of the system C++ compiler (`$CXX`, else `c++`) with the
+  JAX package's native flags, so its results are the JAX package's bit
+  for bit.  It builds wherever a C++ compiler is, the CPU included; a
+  failed build raises.  `native.py` and `ops/lap.py` bind it.
 
 Nothing here runs at import time.  A build writes a temporary file named
 by the process id and moves it into place, so concurrent first builds
@@ -66,14 +69,51 @@ CLIP_ARGTYPES = [_P] * 4 + [_I] * 3 + [_P]
 MERGE_ARGTYPES = [_P] * 4 + [_I] * 3 + [ctypes.c_longlong] + [_P]
 
 
-# csrc/lap.cpp: the flags of the JAX package's native build
-HOST_SOURCE = "lap.cpp"
+# the host library's sources and headers, with the flags of the JAX
+# package's native build
+HOST_SOURCES = ("lap.cpp", "motloader.cpp", "sortstep.cpp", "nms.cpp",
+                "visualstep.cpp")
+HOST_HEADERS = ("kf.h", "clip.h")
 HOST_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
               "-pthread")
-# lap_solve_max: weights, R, C, out; lap_solve_batch_max: weights, B, R, C,
-# out, threads
-LAP_ARGTYPES = [_P, _I, _I, _P]
-LAP_BATCH_ARGTYPES = [_P, _I, _I, _I, _P, _I]
+_L = ctypes.c_int64
+# (restype, argtypes) of every export of the host library; pointers are
+# passed as addresses (`ndarray.ctypes.data`)
+HOST_EXPORTS = {
+    # weights, R, C, out
+    "lap_solve_max": (_I, [_P, _I, _I, _P]),
+    # weights, B, R, C, out, threads
+    "lap_solve_batch_max": (_I, [_P, _I, _I, _I, _P, _I]),
+    # csrc/motloader.cpp: path -> handle; dims[3]; frames; box, conf, valid
+    "mot_load": (_P, [ctypes.c_char_p]),
+    "mot_dims": (None, [_P, ctypes.POINTER(_L)]),
+    "mot_frames": (None, [_P, _P]),
+    "mot_fill": (None, [_P, _P, _P, _P]),
+    "mot_free": (None, [_P]),
+    # csrc/sortstep.cpp: method, oriented; iou threshold, min confidence,
+    # max idle; position, velocity weights, new-track threshold;
+    # constraints, their count; the Kalman state (5); pred, obs box; conf,
+    # active, last epoch, length, track id; histories (3); T, H, next id;
+    # det box, det conf, D, epoch; outputs (6)
+    "sort_step_host": (_I, [_I, _I, _F, _F, _I, _F, _F, _F, _P, _I]
+                       + [_P] * 15 + [_I] * 3 + [_P, _P, _I, _I]
+                       + [_P] * 6),
+    # z, N, position weight, velocity weight, out
+    "kf_box_sequence": (_I, [_P, _I, _F, _F, _P]),
+    # z, N, P, position weight, velocity weight, out
+    "kf_point_sequence": (_I, [_P, _I, _I, _F, _F, _P]),
+    # a, b, n, out
+    "rotated_iou_pairs": (_I, [_P, _P, _I, _P]),
+    # csrc/nms.cpp: boxes, n, threshold, oriented, keep; the batch with B
+    "nms_host": (_I, [_P, _I, _F, _I, _P]),
+    "nms_host_batch": (_I, [_P, _I, _I, _F, _I, _P]),
+    # csrc/visualstep.cpp: float and int config, constraints; the Kalman
+    # state (5); pred, obs, conf; active, last epoch, length, track id;
+    # the gallery (5); histories (5); T, H, K, F, next id; detections (6);
+    # dmat, its columns, D, epoch; outputs (7)
+    "visual_step_host": (_I, [_P] * 25 + [_I] * 5 + [_P] * 7
+                         + [_I] * 3 + [_P] * 7),
+}
 
 
 class _Library:
@@ -179,49 +219,53 @@ def _cxx() -> str:
 
 
 def build_host() -> Path:
-    """Compile `csrc/lap.cpp` if this exact source, compiler and flag set
-    is not built yet.  Raises RuntimeError with the compiler's output."""
+    """Compile the host library if this exact source set, compiler and
+    flag set is not built yet.  Raises RuntimeError with the compiler's
+    command and output."""
     cxx = _cxx()
     # -march=native: the machine is part of the name, as in the JAX
     # package's build
     h = hashlib.sha256(" ".join((cxx, platform.machine()) + HOST_FLAGS)
                        .encode())
-    h.update((CSRC / HOST_SOURCE).read_bytes())
+    for name in HOST_SOURCES + HOST_HEADERS:
+        h.update((CSRC / name).read_bytes())
     out = BUILD_DIR / f"libsimilari_host_{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [cxx, *HOST_FLAGS, str(CSRC / HOST_SOURCE), "-o", str(tmp)]
+    cmd = [cxx, *HOST_FLAGS, "-I", str(CSRC),
+           *(str(CSRC / s) for s in HOST_SOURCES), "-o", str(tmp)]
+    hint = ("set CXX to a C++ compiler: the host engines, the MOT file "
+            "loader, the Kalman sequences and NMS on the CPU need it, and "
+            "the LAP solver unless assignment='hungarian'")
     t0 = time.perf_counter()
     try:
         res = subprocess.run(cmd, stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True, timeout=300)
     except OSError as e:
-        raise RuntimeError(
-            f"the host LAP solver did not build ({' '.join(cmd)}): {e}; "
-            "set CXX to a C++ compiler, or use assignment='hungarian'") from e
+        raise RuntimeError(f"the host library did not build "
+                           f"({' '.join(cmd)}): {e}; {hint}") from e
     finally:
         _HOST.build_seconds = time.perf_counter() - t0
     _HOST.build_log = res.stdout
     if res.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"the host LAP solver did not build ({' '.join(cmd)}, exit "
-            f"{res.returncode}); use assignment='hungarian' where no C++ "
-            f"compiler is available:\n{res.stdout}")
+            f"the host library did not build ({' '.join(cmd)}, exit "
+            f"{res.returncode}); {hint}:\n{res.stdout}")
     os.replace(tmp, out)
     return out
 
 
 def host_library() -> ctypes.CDLL:
-    """The loaded host LAP library (`csrc/lap.cpp`), built on first use."""
+    """The loaded host library, built on first use."""
     if _HOST.lib is None:
         lib = ctypes.CDLL(str(build_host()))
-        lib.lap_solve_max.argtypes = LAP_ARGTYPES
-        lib.lap_solve_max.restype = ctypes.c_int
-        lib.lap_solve_batch_max.argtypes = LAP_BATCH_ARGTYPES
-        lib.lap_solve_batch_max.restype = ctypes.c_int
+        for name, (restype, argtypes) in HOST_EXPORTS.items():
+            fn = getattr(lib, name)
+            fn.restype = restype
+            fn.argtypes = argtypes
         _HOST.lib = lib
     return _HOST.lib
 

@@ -7,7 +7,9 @@ run a sequence frame by frame through a tracker's `predict_arrays`, with
 whichever engine the tracker passed in was built with.
 
 `run_sequence_device` and `run_sequence_device_visual` pad a sequence into
-SoA buffers, expand frame gaps into all-invalid frames (the fused kernels
+SoA buffers (`run_sequence_device` reads a MOT det csv path with the
+port's C++ loader, `native.py::load_sequence_soa`, as the JAX package's
+does), expand frame gaps into all-invalid frames (the fused kernels
 run consecutive epochs), and run the whole sequence through the fused SORT
 or VisualSORT kernel: on the card by default, or through the kernels'
 plain PyTorch versions when `device="cpu"`.  Both also run the general
@@ -28,6 +30,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..device import DeviceLike, resolve_device
 from ..trackers.sort_step import SortConfig
 from ..trackers.visual_step import VisualConfig
@@ -283,6 +286,24 @@ def sequence_visual_config(
     return dataclasses.replace(cfg, **cfg_overrides) if cfg_overrides else cfg
 
 
+def _sort_buffers(detections: Detections):
+    """(frames ascending, box [F, dpad, 5], conf [F, dpad] clipped to
+    [0, 1], valid [F, dpad]) of a detections dict, dpad a power of two
+    from 8."""
+    frames = sorted(detections)
+    dpad = _pad_pow2(max((len(detections[f]) for f in frames), default=1))
+    box = np.zeros((len(frames), dpad, 5), np.float32)
+    conf = np.zeros((len(frames), dpad), np.float32)
+    valid = np.zeros((len(frames), dpad), bool)
+    for s, f in enumerate(frames):
+        dets = np.asarray(detections[f], np.float32)
+        n = len(dets)
+        box[s, :n] = ltwh_to_vec5(dets)
+        conf[s, :n] = np.clip(dets[:, 4], 0.0, 1.0)
+        valid[s, :n] = True
+    return frames, box, conf, valid
+
+
 def run_sequence_device(
     detections: Detections,
     method: str = "iou",
@@ -297,7 +318,10 @@ def run_sequence_device(
 ) -> Tuple[Outputs, float]:
     """Whole-sequence SORT on the device.
 
-    `detections` may also be a path to a MOT det csv.  engine="fused" (the
+    `detections` may also be a path to a MOT det csv: the C++ loader
+    (`native.py::load_sequence_soa`) reads it into the padded buffers
+    (6-column files with confidence 1.0, header lines skipped), the
+    confidences clipped to [0, 1].  engine="fused" (the
     default here) runs the fused SORT kernel over 16-frame chunks: aligned
     IoU matching (`method="iou"`) with its in-kernel auction
     (`assignment="auction"`) only.  engine="step" runs the general step
@@ -322,25 +346,18 @@ def run_sequence_device(
         _auction_only(assignment)
     dev = resolve_device(device)
     if isinstance(detections, (str, Path)):
-        detections = read_detections(detections)
-    frames = sorted(detections)
+        frames_arr, box, conf, valid = native.load_sequence_soa(detections)
+        frames = frames_arr.tolist()
+        conf = np.clip(conf, 0.0, 1.0) * valid
+    else:
+        frames, box, conf, valid = _sort_buffers(detections)
     steps = len(frames)
     if steps == 0:
         return {}, 0.0
-    dpad = _pad_pow2(max(len(detections[f]) for f in frames))
     if engine == "fused":
         from ..ops.fused_sort import check_sort_shape
 
-        check_sort_shape(dpad, capacity)
-    box = np.zeros((steps, dpad, 5), np.float32)
-    conf = np.zeros((steps, dpad), np.float32)
-    valid = np.zeros((steps, dpad), bool)
-    for s, f in enumerate(frames):
-        dets = np.asarray(detections[f], np.float32)
-        n = len(dets)
-        box[s, :n] = ltwh_to_vec5(dets)
-        conf[s, :n] = np.clip(dets[:, 4], 0.0, 1.0)
-        valid[s, :n] = True
+        check_sort_shape(box.shape[1], capacity)
 
     cfg = sequence_sort_config(iou_threshold, max_idle_epochs, recycle_idle)
     state = new_sort_state(capacity, 1, device=dev)

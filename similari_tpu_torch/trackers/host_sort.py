@@ -1,11 +1,11 @@
-"""Host (NumPy) SORT step: the interactive engine for per-call use
+"""Host SORT step: the interactive engine for per-call use
 (mirrors `similari_tpu/trackers/host_sort.py`).
 
 A per-call predict on the device pays a fixed cost of launches, copies and
 synchronisation; at one frame of tens to hundreds of detections that cost
 dwarfs the math.  This module runs the same step semantics as
 `sort_step.sort_step` (the same formulas, the same f32 op order, the same
-assignment LP) in NumPy on a `SortState` whose leaves are numpy arrays:
+assignment LP) on a `SortState` whose leaves are numpy arrays:
 
 * distance weights as `sort_step`'s (`sort/metric.rs:38-77`, the
   compatible gate of `sort.rs:250-270`);
@@ -16,8 +16,13 @@ assignment LP) in NumPy on a `SortState` whose leaves are numpy arrays:
   diagonal) and then split into bipartite connected components;
 * the Kalman update is the block recurrence of `ops/kalman.py`.
 
-The JAX module also has a native C++ step; the port takes the NumPy path,
-op for op the JAX module's, so the states of the two are bit-equal.
+`host_sort_step` runs the whole epoch in one call of the port's C++ step
+(`native.py::sort_step_host`, `csrc/sortstep.cpp`), as the JAX module
+does when its library builds; its states are the JAX native step's bit
+for bit.  `host_sort_step_numpy` is the NumPy step above, op for op the
+JAX module's NumPy path: the plain twin the tests hold the native step
+against (ids equal, states within rounding).
+
 `state_to_host` / `state_to_device` / `host_grow` move a state between
 numpy leaves and torch tensors; `as_tensors` views numpy leaves as CPU
 tensors that share their memory, for the trackers' waste and idle paths.
@@ -31,6 +36,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..ops.kalman import CHI2INV95, CHI2_UPPER_BOUND
 from ..ops.lap import lap_max
 from .sort_step import SortConfig
@@ -263,9 +269,26 @@ def host_sort_step(
     det_conf: np.ndarray,  # [D] f32
     epoch: int,
 ) -> Tuple[SortState, dict]:
-    """One SORT epoch on the host; mutates array leaves of `state` in place
-    and returns (state', outputs).  Semantics == `sort_step.sort_step`.
-    """
+    """One SORT epoch on the host in one native call; mutates the array
+    leaves of `state` in place and returns (state', outputs).  Semantics
+    == `sort_step.sort_step`."""
+    nid, slot, track_id, is_new, pred_box, length = native.sort_step_host(
+        cfg, state, det_box, det_conf, int(epoch))
+    out = {"slot": slot, "track_id": track_id, "is_new": is_new,
+           "pred_box": pred_box, "length": length}
+    return dataclasses.replace(state, next_id=np.array(nid, np.int32)), out
+
+
+def host_sort_step_numpy(
+    cfg: SortConfig,
+    state: SortState,  # leaves are np.ndarray
+    det_box: np.ndarray,  # [D, 5] f32 (no padding)
+    det_conf: np.ndarray,  # [D] f32
+    epoch: int,
+) -> Tuple[SortState, dict]:
+    """`host_sort_step` in NumPy, op for op the JAX module's NumPy path:
+    mutates the array leaves of `state` in place and returns (state',
+    outputs)."""
     d = det_box.shape[0]
     det_box = np.ascontiguousarray(det_box, np.float32)
     det_conf = np.ascontiguousarray(det_conf, np.float32)

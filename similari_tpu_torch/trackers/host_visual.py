@@ -1,9 +1,9 @@
-"""Host (NumPy) VisualSORT step: the interactive engine for per-call use
+"""Host VisualSORT step: the interactive engine for per-call use
 (mirrors `similari_tpu/trackers/host_visual.py`).
 
 The same engine split as SORT (`host_sort.py`): this module runs the step
-semantics of `visual_step.py` in NumPy on a `VisualState` whose leaves are
-numpy arrays:
+semantics of `visual_step.py` on a `VisualState` whose leaves are numpy
+arrays:
 
 * positional metric and compatible gate (`visual_sort/metric.rs:156-198`,
   `track_attributes.rs:188-208`);
@@ -20,9 +20,15 @@ numpy arrays:
 Scope: f32 galleries (a bf16 `VisualSort` takes the device step).  Boxes
 may be aligned or oriented: the rotated IoU is `host_geometry.py`'s.  The
 own-area shares come in as `det_own_area`; the trackers compute them with
-the f64 clipping oracle (`utils/clipping.py`).  The JAX module also has a
-native C++ step for small frames; the port takes the NumPy path, op for op
-the JAX module's.
+the f64 clipping oracle (`utils/clipping.py`).
+
+`host_visual_step` takes the JAX module's split: a frame of at most
+`NATIVE_MAX_DETECTIONS` detections runs in one call of the port's C++ step
+(`native.py::visual_step_host`, `csrc/visualstep.cpp`), bit-equal to the
+JAX native step; a larger frame runs `host_visual_step_numpy`, the NumPy
+step op for op the JAX module's (one BLAS product for the gallery
+distances).  That NumPy step is also the plain twin the tests hold the
+native step against.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from typing import Tuple
 
 import numpy as np
 
+from .. import native
 from ..ops.kalman import CHI2_UPPER_BOUND
 from .host_sort import (
     _CHI2_GATE,
@@ -45,6 +52,9 @@ from .host_sort import (
 from .visual_state import VisualState
 
 _NEG = np.float32(-1e30)
+# the JAX module's split between its C++ step and its NumPy step, kept so
+# that both packages take the same step (and round alike) on every frame
+NATIVE_MAX_DETECTIONS = 128
 
 
 def host_visual_step(
@@ -58,6 +68,40 @@ def host_visual_step(
     det_own_area: np.ndarray,  # [D]
     epoch: int,
 ) -> Tuple[VisualState, dict]:
+    """One VisualSORT epoch on the host; mutates the array leaves of
+    `state` in place and returns (state', outputs).  Frames of at most
+    `NATIVE_MAX_DETECTIONS` detections with an f32 gallery take the C++
+    step, the rest `host_visual_step_numpy`."""
+    dets = (det_box, det_conf, det_feat, det_feat_valid, det_quality,
+            det_own_area)
+    if not native_scope(state, det_box.shape[0]):
+        return host_visual_step_numpy(cfg, state, *dets, epoch)
+    nid, slot, tid, is_new, pred, length, vt = native.visual_step_host(
+        cfg, state, *dets, int(epoch))
+    out = {"slot": slot, "track_id": tid, "is_new": is_new,
+           "pred_box": pred, "length": length, "voting_type": vt}
+    return dataclasses.replace(state, next_id=np.array(nid, np.int32)), out
+
+
+def native_scope(state: VisualState, d: int) -> bool:
+    """Whether a frame of `d` detections on `state` takes the C++ step:
+    at most `NATIVE_MAX_DETECTIONS` of them and an f32 gallery."""
+    return d <= NATIVE_MAX_DETECTIONS and state.feats.dtype == np.float32
+
+
+def host_visual_step_numpy(
+    cfg,
+    state: VisualState,  # np leaves
+    det_box: np.ndarray,  # [D, 5]
+    det_conf: np.ndarray,  # [D]
+    det_feat: np.ndarray,  # [D, F]
+    det_feat_valid: np.ndarray,  # [D] bool
+    det_quality: np.ndarray,  # [D]
+    det_own_area: np.ndarray,  # [D]
+    epoch: int,
+) -> Tuple[VisualState, dict]:
+    """`host_visual_step` in NumPy, op for op the JAX module's NumPy
+    path."""
     d = det_box.shape[0]
     k = state.gallery_size
     det_box = np.ascontiguousarray(det_box, np.float32)

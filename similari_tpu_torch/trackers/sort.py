@@ -20,8 +20,12 @@ Engines:
   kernel there.  Its outputs come back in one copy.  On the CPU the plain
   versions run.
 * "host", the caller's explicit choice, keeps the state as numpy arrays
-  and runs the NumPy step of `trackers/host_sort.py` with the port's C++
-  LAP solver, aligned and oriented, per call with no device work.
+  and runs the port's C++ SORT step (`native.py::SortStepSession`, one
+  per scene, built on the store's leaves), aligned and oriented, per call
+  with no device work, as the JAX package's host engine does when its
+  library builds.  The session holds raw pointers to the leaves, so the
+  store drops it wherever they are replaced: a grow, the oriented flip
+  (the session bakes the config), a checkpoint load.
 
 The JAX package's "auto" takes its host engine per call; that engine is
 held to the device step id for id, so "auto" differs between the packages
@@ -37,11 +41,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..device import DeviceLike, resolve_device
 from ..utils.bbox import Universal2DBox
 from ..utils.pad import pad_pow2
 from .constraints import SpatioTemporalConstraints
-from .host_sort import as_tensors, host_grow, host_sort_step, state_to_host
+from .host_sort import as_tensors, host_grow, state_to_host
 from .sort_step import DEFAULT_MINIMAL_SORT_CONFIDENCE, SortConfig, sort_step
 from .state import SortState, grow_state, new_sort_state
 from .waste import build_wasted_records
@@ -272,6 +277,9 @@ class _SceneStore:
         self.has_custom = np.zeros((capacity,), bool)
         self.active_count = 0
         self.oriented = False  # sticky: flips when a rotated box is seen
+        # the host engine's native step on this state's leaves (rebuilt
+        # after they are replaced)
+        self.session = None
 
     def _placed(self, state):
         return state_to_host(state) if self.host else state
@@ -284,6 +292,7 @@ class _SceneStore:
         if new_cap != cap:
             grow = host_grow if self.host else state_grow
             self.state = grow(self.state, new_cap)
+            self.session = None
             self.custom_ids = np.concatenate(
                 [self.custom_ids, np.full((new_cap - cap,), -1, np.int64)])
             self.has_custom = np.concatenate(
@@ -291,6 +300,12 @@ class _SceneStore:
 
     def grow(self, min_capacity: int):
         self.grow_to(grow_state, min_capacity)
+
+    def set_next_id(self, nid: int):
+        """The id counter into a host state (the native step advanced
+        the leaves in place; a checkpoint reads the counter)."""
+        self.state = dataclasses.replace(self.state,
+                                         next_id=np.array(nid, np.int32))
 
     def set_customs(self, slots: np.ndarray,
                     customs: Sequence[Optional[int]]):
@@ -505,7 +520,9 @@ class Sort(TrackerBase):
         d = det_box.shape[0]
         store = self._get_store(scene_id)
         store.grow(store.active_count + d)
-        store.oriented = store.oriented or bool((det_box[:, 2] != 0).any())
+        if not store.oriented and (det_box[:, 2] != 0).any():
+            store.oriented = True
+            store.session = None  # it bakes the oriented flag
         cfg = dataclasses.replace(self._cfg, oriented=store.oriented)
         step = self._step_host if self._host else self._step_device
         slot, track_id, is_new, length, pred_box = step(
@@ -516,15 +533,15 @@ class Sort(TrackerBase):
         return epoch, track_id, pred_box, length, slot
 
     def _step_host(self, cfg, store, det_box, det_conf, epoch):
-        """The NumPy step on the store's numpy leaves: (slot, track_id,
+        """The native step on the store's numpy leaves: (slot, track_id,
         is_new, length, pred_box)."""
-        state = dataclasses.replace(store.state,
-                                    next_id=np.int32(self._next_track_id))
-        store.state, out = host_sort_step(cfg, state, det_box, det_conf,
-                                          epoch)
-        self._next_track_id = int(store.state.next_id)
-        return tuple(out[k] for k in ("slot", "track_id", "is_new", "length",
-                                      "pred_box"))
+        if store.session is None:
+            store.session = native.SortStepSession(cfg, store.state)
+        nid, slot, track_id, is_new, pred_box, length = store.session.step(
+            det_box, det_conf, epoch, self._next_track_id)
+        store.set_next_id(nid)
+        self._next_track_id = nid
+        return slot, track_id, is_new, length, pred_box
 
     def _step_device(self, cfg, store, det_box, det_conf, epoch):
         """The general step on the tracker's device, outputs back in one

@@ -18,10 +18,14 @@ the host engine, they come from the f64 clipping oracle
 (`utils/clipping.py`) on every call that has not passed its own.
 
 Engines as in `trackers/sort.py`: "auto" and "device" run the general
-step on the tracker's device; "host" runs the NumPy step of
-`trackers/host_visual.py` on numpy leaves for f32 galleries, while a bf16
-`VisualSort` under "host" runs the device step on the tracker's device, as
-the JAX package's does (bf16 is a device storage type).
+step on the tracker's device; "host" keeps numpy leaves for f32 galleries
+and runs the port's C++ step (`native.py::VisualStepSession`, one per
+scene, dropped wherever the leaves are replaced: a grow of the capacity or
+of the feature dimension, the oriented flip, a checkpoint load) on frames
+of at most 128 detections, and the NumPy step of
+`trackers/host_visual.py` on larger ones, the JAX package's split.  A
+bf16 `VisualSort` under "host" runs the device step on the tracker's
+device, as the JAX package's does (bf16 is a device storage type).
 """
 
 from __future__ import annotations
@@ -32,11 +36,12 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import native
 from ..device import DeviceLike
 from ..utils.bbox import Universal2DBox
 from ..utils.clipping import exclusively_owned_areas_normalized_shares
 from .constraints import SpatioTemporalConstraints
-from .host_visual import host_visual_step
+from .host_visual import host_visual_step_numpy, native_scope
 from .sort import (PositionalMetricType, SortTrack, TrackerBase,
                    _SceneStore, check_engine, fetch, padded, to_device,
                    track_list)
@@ -293,6 +298,7 @@ class _VisualSceneStore(_SceneStore):
         self.state = dataclasses.replace(
             st, feats=pad_features(st.feats, new_dim),
             hist_feat=pad_features(st.hist_feat, new_dim))
+        self.session = None
 
 
 def own_area_shares_host(det_box: np.ndarray,
@@ -433,7 +439,9 @@ class VisualSort(TrackerBase):
 
         store = self._get_store(scene_id)
         store.grow(store.active_count + d)
-        store.oriented = store.oriented or bool((det_box[:, 2] != 0).any())
+        if not store.oriented and (det_box[:, 2] != 0).any():
+            store.oriented = True
+            store.session = None  # it bakes the oriented flag
 
         # own-area shares from the f64 oracle when a gate is on, the caller
         # passed none and the config says "host" or the host engine runs
@@ -458,14 +466,25 @@ class VisualSort(TrackerBase):
         return epoch, track_id, pred_box, length, slot, vt
 
     def _step_host(self, cfg, store, dets, epoch):
-        """The NumPy step on the store's numpy leaves: (slot, track_id,
-        is_new, length, pred_box, voting_type)."""
-        state = dataclasses.replace(store.state,
-                                    next_id=np.int32(self._next_track_id))
-        store.state, out = host_visual_step(cfg, state, *dets, epoch)
-        self._next_track_id = int(store.state.next_id)
-        return tuple(out[k] for k in ("slot", "track_id", "is_new", "length",
-                                      "pred_box", "voting_type"))
+        """The native step on the store's numpy leaves, or the NumPy step
+        past its scope: (slot, track_id, is_new, length, pred_box,
+        voting_type)."""
+        if not native_scope(store.state, dets[0].shape[0]):
+            state = dataclasses.replace(
+                store.state, next_id=np.int32(self._next_track_id))
+            store.state, out = host_visual_step_numpy(cfg, state, *dets,
+                                                      epoch)
+            self._next_track_id = int(store.state.next_id)
+            return tuple(out[k] for k in ("slot", "track_id", "is_new",
+                                          "length", "pred_box",
+                                          "voting_type"))
+        if store.session is None:
+            store.session = native.VisualStepSession(cfg, store.state)
+        nid, slot, track_id, is_new, pred_box, length, vt = \
+            store.session.step(*dets, epoch, self._next_track_id)
+        store.set_next_id(nid)
+        self._next_track_id = nid
+        return slot, track_id, is_new, length, pred_box, vt
 
     def _step_device(self, cfg, store, dets, epoch):
         """The general step on the tracker's device, outputs back in one

@@ -10,8 +10,8 @@ are written as float32, which holds them exactly: numpy has no bfloat16
 without `ml_dtypes`, and the JAX package's trackers store float32.  On
 load every leaf takes the dtype of the tracker's own store, and each
 scene's state the store's engine form: tensors on the tracker's device,
-or numpy leaves for `engine="host"`.  The port's stores cache no step
-session, so nothing else is reset.
+or numpy leaves for `engine="host"`.  A host store's native step
+session points at the leaves it replaces, so the load drops it.
 """
 
 from __future__ import annotations
@@ -119,6 +119,7 @@ def load_tracker(tracker, path):
             # the sticky rotated-box flag: without it restored rotated
             # tracks would be matched as axis-aligned boxes
             store.oriented = bool(scene.get("oriented", False))
+            store.session = None  # it points at the replaced leaves
             if hasattr(store.state, "feats") and hasattr(tracker,
                                                          "_feature_dim"):
                 tracker._feature_dim = int(store.state.feats.shape[-1])

@@ -4,10 +4,13 @@ the reference's pyo3 surface of `utils/kalman/`).
 `Universal2DBoxKalmanFilter(+State)`, `Point2DKalmanFilter(+State)` and
 `Vec2DKalmanFilter` run the recurrences of `ops/kalman.py` in numpy on the
 host: a single filter step, or one track's sequence, is host-scale work.
-`filter_sequence` is the JAX module's NumPy path, op for op (its native
-branches are not part of the port).  Unlike the JAX module it checks its
-input's shape on every path: boxes [N, 5], points [N, 2], keypoint
-vectors [N, P, 2]; anything else raises ValueError.
+`filter_sequence` runs the whole sequence in one call of the port's C++
+loop (`native.py::kf_box_sequence` / `kf_point_sequence`), as the JAX
+module does when its library builds; `box_sequence_numpy` and
+`point_sequence_numpy` are the JAX module's NumPy loops, op for op, kept
+as their plain twins.  Unlike the JAX module it checks its input's shape
+first: boxes [N, 5], points [N, 2], keypoint vectors [N, P, 2]; anything
+else raises ValueError.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
+from .. import native
 from ..ops import kalman as K
 from .bbox import BoundingBox, Universal2DBox
 
@@ -107,6 +111,43 @@ def _checked(a, tail, name: str, want: str) -> np.ndarray:
     return z
 
 
+def _sequence_numpy(f: "_NpFilter", z: np.ndarray) -> np.ndarray:
+    """Initiate from z[0], then predict and update per row: the filtered
+    means [N, D] of one chain z [N, D] (N >= 1)."""
+    out = np.empty_like(z)
+    s = f.initiate(z[0])
+    out[0] = s.mean_pos
+    for i in range(1, z.shape[0]):
+        s = f.update(f.predict(s), z[i])
+        out[i] = s.mean_pos
+    return out
+
+
+def box_sequence_numpy(boxes: np.ndarray, position_weight: float,
+                       velocity_weight: float) -> np.ndarray:
+    """The plain twin of `Universal2DBoxKalmanFilter.filter_sequence`."""
+    z = _checked(boxes, (5,), "boxes", "[N, 5]")
+    if z.shape[0] == 0:
+        return z
+    return _sequence_numpy(_NpFilter(position_weight, velocity_weight,
+                                     "box"), z)
+
+
+def point_sequence_numpy(points: np.ndarray, position_weight: float,
+                         velocity_weight: float) -> np.ndarray:
+    """The plain twin of the point filters' `filter_sequence`: points
+    [N, 2], or [N, P, 2] chain by chain."""
+    tail = (2,) if np.ndim(points) <= 2 else (None, 2)
+    z = _checked(points, tail, "points", "[N, 2] or [N, P, 2]")
+    if z.size == 0:
+        return z
+    f = _NpFilter(position_weight, velocity_weight, "point")
+    if z.ndim == 2:
+        return _sequence_numpy(f, z)
+    return np.stack([_sequence_numpy(f, z[:, p]) for p in range(z.shape[1])],
+                    axis=1)
+
+
 def _box_to_z(b: Universal2DBox) -> np.ndarray:
     return np.array(
         [b.xc, b.yc, b.angle if b.angle is not None else 0.0, b.aspect, b.height],
@@ -157,18 +198,11 @@ class Universal2DBoxKalmanFilter:
     def filter_sequence(self, boxes: np.ndarray) -> np.ndarray:
         """Bulk smoothing of one track: boxes[N, 5] vec5 -> filtered means
         [N, 5] (initiate from row 0, then predict+update per row — the
-        `benches/kalman_bbox.rs:15-31` loop as one call), a NumPy loop."""
+        `benches/kalman_bbox.rs:15-31` loop as one native call)."""
         z = _checked(boxes, (5,), "boxes", "[N, 5]")
         if z.shape[0] == 0:
             return np.zeros((0, 5), np.float32)
-        n = z.shape[0]
-        out = np.empty((n, 5), np.float32)
-        s = self._f.initiate(z[0])
-        out[0] = s.mean_pos
-        for i in range(1, n):
-            s = self._f.update(self._f.predict(s), z[i])
-            out[i] = s.mean_pos
-        return out
+        return native.kf_box_sequence(z, self._f.pw, self._f.vw)
 
 
 class Point2DKalmanFilterState:
@@ -211,19 +245,11 @@ class Point2DKalmanFilter:
     def filter_sequence(self, points: np.ndarray) -> np.ndarray:
         """Bulk smoothing of one point track: points[N, 2] -> filtered means
         [N, 2] (initiate from row 0, then predict+update per row — the
-        `benches/kalman_2d_point.rs:11-24` loop as one call), a NumPy
-        loop."""
+        `benches/kalman_2d_point.rs:11-24` loop as one native call)."""
         z = _checked(points, (2,), "points", "[N, 2]")
         if z.shape[0] == 0:
             return np.zeros((0, 2), np.float32)
-        n = z.shape[0]
-        out = np.empty((n, 2), np.float32)
-        s = self._f.initiate(z[0])
-        out[0] = s.mean_pos
-        for i in range(1, n):
-            s = self._f.update(self._f.predict(s), z[i])
-            out[i] = s.mean_pos
-        return out
+        return native.kf_point_sequence(z, self._f.pw, self._f.vw)
 
 
 class Vec2DKalmanFilter:
@@ -257,11 +283,8 @@ class Vec2DKalmanFilter:
     def filter_sequence(self, points: np.ndarray) -> np.ndarray:
         """Bulk smoothing of a keypoint-vector track: points[N, P, 2] (P
         independent chains advancing together) -> filtered means [N, P, 2],
-        the point loop chain by chain."""
+        every chain in one native call."""
         z = _checked(points, (None, 2), "points", "[N, P, 2]")
         if z.shape[0] == 0 or z.shape[1] == 0:
             return np.zeros_like(z)
-        return np.stack(
-            [self._f.filter_sequence(z[:, p]) for p in range(z.shape[1])],
-            axis=1,
-        )
+        return native.kf_point_sequence(z, self._f._f.pw, self._f._f.vw)

@@ -3,10 +3,12 @@
 
 Candidates pass the score threshold and a positive size, are ranked by
 score (or box height when the score is None), and run through
-`ops/nms.py::nms_kernel` on `device` (None = CUDA): oriented frames of 512
-boxes or more take the block-skip route there, the clip kernel.  The JAX
-package sends frames of at most 64 boxes to its host C++ loop; the port
-runs every frame on `device`, with the same keeps.
+`ops/nms.py::nms_kernel` on `device` (None = CUDA, the port's rule for
+entry points): oriented frames of 512 boxes or more take the block-skip
+route there, the clip kernel.  With `device="cpu"` a frame of at most
+`HOST_MAX_BOXES` boxes takes the port's C++ loop (`native.py::nms_host`,
+`csrc/nms.cpp`), as the JAX package's `nms()` does for every such frame;
+the keeps are the same either way.
 """
 
 from __future__ import annotations
@@ -16,10 +18,13 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..device import DeviceLike, resolve_device
 from ..ops.nms import nms_kernel
 from .bbox import Universal2DBox
 from .pad import pad_pow2
+
+HOST_MAX_BOXES = 64  # the JAX package's split for its host C++ loop
 
 
 def nms(
@@ -50,10 +55,13 @@ def nms(
     boxes = np.zeros((npad, 5), np.float32)
     boxes[:n] = [[bb.xc, bb.yc, bb.angle or 0.0, bb.aspect, bb.height]
                  for _, bb in cands]
-    valid = torch.arange(npad, device=dev) < n
     # per-call oriented flag, as the Sort API's: the axis-aligned
     # intersection is exact when no box carries an angle
     oriented = bool((boxes[:, 2] != 0.0).any())
-    keep = nms_kernel(torch.from_numpy(boxes).to(dev), valid,
-                      float(nms_threshold), oriented)
-    return [bb for m, (_, bb) in zip(keep[:n].tolist(), cands) if m]
+    if dev.type == "cpu" and n <= HOST_MAX_BOXES:
+        keep = native.nms_host(boxes[:n], nms_threshold, oriented)
+    else:
+        valid = torch.arange(npad, device=dev) < n
+        keep = nms_kernel(torch.from_numpy(boxes).to(dev), valid,
+                          float(nms_threshold), oriented)[:n].tolist()
+    return [bb for m, (_, bb) in zip(keep, cands) if m]

@@ -695,3 +695,25 @@ def test_gloo_mesh_refuses_card_tensors(cuda, world):
             st, box, ones, ones > 0, torch.zeros((2, 4, 4), device=cuda),
             ones > 0, ones, ones, torch.ones(2, dtype=torch.int32,
                                              device=cuda))
+
+
+def test_mot_file_route_on_the_card(cuda, tmp_path):
+    """run_sequence_device(path) reads a 6-column file with a header line
+    through the C++ loader and runs the fused kernel on the card: the
+    in-memory run's outputs, one launch per 16-frame chunk."""
+    from similari_tpu_torch.eval import mot as pmot
+    from torch_parity import churn_stream, write_mot_det
+
+    dets = {}
+    for f, (box, conf) in enumerate(churn_stream(4, 20, 12, spread=300.0),
+                                    start=1):
+        w = box[:, 3] * box[:, 4]
+        dets[f] = [(float(x - ww / 2), float(y - h / 2), float(ww), float(h),
+                    float(c)) for (x, y, _, _, h), ww, c in zip(box, w, conf)]
+    path = tmp_path / "det.txt"
+    held = write_mot_det(path, dets, columns=6, header=True)
+    fs.fused_sort_chunk.launches = 0
+    got, _ = pmot.run_sequence_device(path, capacity=64)
+    assert fs.fused_sort_chunk.launches == 2
+    want, _ = pmot.run_sequence_device(held, capacity=64)
+    assert got == want and len(got) == 20

@@ -5,12 +5,18 @@ engine="host" trackers, on the CPU.
 that grow the capacity (from 8 or 16), churn objects, auto-waste
 (`set_auto_waste`) and end with idle tracks and the waste:
 
-* with the JAX package's native steps switched off (monkeypatch), ids,
-  slots, lengths, voting types and predicted boxes equal call for call and
-  every scene's state bit-equal at the end;
-* against the JAX package's default host engine (native C++ steps), ids,
-  slots, lengths and voting types equal, predicted boxes within
-  tests/test_host_sort.py's rtol 2e-4 / atol 1e-3.
+* against the JAX package's default host engine (native C++ steps, the
+  port's own C++ steps on this side), ids, slots, lengths, voting types
+  and predicted boxes equal call for call and every scene's state
+  bit-equal at the end;
+* with the JAX package's native steps switched off (monkeypatch; its NumPy
+  steps against the port's C++ ones), ids, slots, lengths and voting types
+  equal, predicted boxes within tests/test_host_sort.py's rtol 2e-4 /
+  atol 1e-3.
+
+The stores' native step sessions survive (are rebuilt across) the
+capacity growing from 8 or 16, the feature dimension growing and the
+oriented flip.
 
 Also: a bf16 `VisualSort` under "host" runs the device step, as the JAX
 package's does; the interactive runners on either engine; the `read_gt` /
@@ -113,7 +119,7 @@ def _sort(pkg, kind, **kw):
                                         ("iou", 0.8)])
 def test_sort_host_engine_matches_jax(path, kind, angle, monkeypatch):
     _path(path, monkeypatch)
-    exact = path == "numpy"
+    exact = path == "native"
     jt, ptr = _sort(jx, kind), _sort(pt, kind)
     frames = churn_stream(3, steps=24, n=14, spread=500.0, churn=4,
                           angle=angle)
@@ -198,7 +204,7 @@ VISUAL_CASES = {
 @pytest.mark.parametrize("case", sorted(VISUAL_CASES))
 def test_visual_host_engine_matches_jax(path, case, monkeypatch):
     _path(path, monkeypatch)
-    exact = path == "numpy"
+    exact = path == "native"
     kw = dict(VISUAL_CASES[case])
     angle = kw.pop("angle", 0.0)
     jt, ptr = _visual(jx, **kw), _visual(pt, **kw)
@@ -231,6 +237,60 @@ def test_visual_host_engine_matches_jax(path, case, monkeypatch):
     _check_state(jt, ptr, exact)
     waste = _check_waste(jt, ptr)
     assert any(f is not None for w in waste for f in w.observed_features)
+
+
+def _flipped(boxes, s, at=6):
+    """Aligned boxes before call `at`, rotated from it on (the store's
+    oriented flip)."""
+    if s >= at:
+        boxes = boxes.copy()
+        boxes[:, 2] = 0.3
+    return boxes
+
+
+@pytest.mark.parametrize("kind", ["sort", "visual"])
+def test_sessions_survive_grow_flip_and_checkpoint_load(kind, tmp_path):
+    """A host store's native session is rebuilt wherever its leaves are
+    replaced: the capacity grows from 8 (and the feature dimension, for
+    VisualSort), the boxes turn oriented at call 6, a checkpoint loads
+    into the running tracker at call 11 (no grow follows) and into a
+    fresh one at call 14.  The ids, slots and lengths equal those of a
+    tracker that ran uninterrupted, call for call, and every session runs
+    its store's oriented flag."""
+    from similari_tpu_torch.utils import load_tracker, save_tracker
+
+    if kind == "sort":
+        def make():
+            return pt.Sort(shards=1, bbox_history=2, max_idle_epochs=3,
+                           method=pt.PositionalMetricType.iou(0.3),
+                           initial_capacity=8, engine="host", device="cpu")
+        calls = [(b, c) for b, c in churn_stream(
+            7, steps=18, n=14, spread=400.0, churn=4)]
+    else:
+        def make():
+            return pt.VisualSort(1, _visual_opts(pt), initial_capacity=8,
+                                 engine="host", device="cpu")
+        calls = _visual_frames(7, steps=18, n=14, f=8, grow_at=8)
+    whole, resumed = make(), make()
+    for s, (boxes, *rest) in enumerate(calls):
+        if s in (11, 14):
+            path = tmp_path / f"ckpt_{s}.npz"
+            save_tracker(resumed, path)
+            assert resumed._scenes[0].session is not None
+            resumed = load_tracker(resumed if s == 11 else make(), path)
+        boxes = _flipped(boxes, s)
+        ow = whole.predict_arrays(0, boxes, *rest)
+        orr = resumed.predict_arrays(0, boxes, *rest)
+        for i in (1, 3, 4):  # ids, lengths, slots
+            np.testing.assert_array_equal(orr[i], ow[i], err_msg=f"{i} {s}")
+        for tr in (whole, resumed):
+            store = tr._scenes[0]
+            assert store.session.cfg.oriented == store.oriented, s
+    for tr in (whole, resumed):
+        store = tr._scenes[0]
+        assert store.oriented and store.session is not None
+        assert store.state.capacity >= 32
+    assert whole._next_track_id == resumed._next_track_id > 20
 
 
 def test_bf16_visual_sort_under_host_runs_the_device_step():

@@ -1,10 +1,14 @@
 """The port's host SORT step (`trackers/host_sort.py`) and its rotated IoU
 (`trackers/host_geometry.py`) against the JAX package's, on the CPU.
 
-* Against the JAX module's NumPy path (its native step switched off with
-  monkeypatch): outputs and states bit-equal, frame by frame.
-* Against the JAX module's default, native C++ step: ids, slots, is_new
-  and lengths equal, states at torch_parity.RTOL/ATOL.
+* The port's NumPy twin (`host_sort_step_numpy`) against the JAX module's
+  NumPy path (its native step switched off with monkeypatch): outputs and
+  states bit-equal, frame by frame.
+* The port's step (`host_sort_step`, its C++ step `csrc/sortstep.cpp`)
+  against the JAX module's default, native C++ step: outputs and states
+  bit-equal, frame by frame.
+* The port's C++ step against its NumPy twin: ids, slots, is_new and
+  lengths equal, states at torch_parity.RTOL/ATOL.
 * Against the port's own device step on the CPU (`sort_step`, scipy's
   exact Hungarian): ids equal; a frame whose solutions differ is accepted
   only if the two voting LP totals tie within torch_parity.LP_TIE_RTOL
@@ -132,28 +136,37 @@ def test_solve_components_is_bit_equal_to_jax(seed):
 # the step
 # --------------------------------------------------------------------------
 
-def _run_host(module, cfg, state, frames):
+def _run_host(step, cfg, state, frames):
     outs = []
     for e, (box, conf) in enumerate(frames, start=1):
-        state, out = module.host_sort_step(cfg, state, box, conf, e)
+        state, out = step(cfg, state, box, conf, e)
         outs.append({k: np.array(v) for k, v in out.items()})
         yield state, outs[-1]
 
 
-def _pairs(name, seed):
+def _pairs(name, seed, pstep=phost.host_sort_step,
+           jstep=jhost.host_sort_step):
+    """The frames and two runs over them: the JAX package's `jstep` (on
+    its config and state) and the port's `pstep`, or, with `jstep=None`,
+    the port's NumPy twin."""
     frames = _frames(name, seed)
-    jstate = jhost.state_to_host(jax_new_sort_state(CAPACITY, HISTORY))
+    if jstep is None:
+        jcfg, jstep = SortConfig(**_kw(name)), phost.host_sort_step_numpy
+        jstate = phost.state_to_host(new_sort_state(CAPACITY, HISTORY,
+                                                    device="cpu"))
+    else:
+        jcfg = JaxSortConfig(**_kw(name))
+        jstate = jhost.state_to_host(jax_new_sort_state(CAPACITY, HISTORY))
     pstate = phost.state_to_host(new_sort_state(CAPACITY, HISTORY,
                                                 device="cpu"))
-    return (frames,
-            _run_host(jhost, JaxSortConfig(**_kw(name)), jstate, frames),
-            _run_host(phost, SortConfig(**_kw(name)), pstate, frames))
+    return (frames, _run_host(jstep, jcfg, jstate, frames),
+            _run_host(pstep, SortConfig(**_kw(name)), pstate, frames))
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_host_step_is_bit_equal_to_jax_numpy_path(name, monkeypatch):
     monkeypatch.setattr(native, "sort_step_available", lambda: False)
-    frames, jrun, prun = _pairs(name, 0)
+    frames, jrun, prun = _pairs(name, 0, pstep=phost.host_sort_step_numpy)
     for s, ((sj, oj), (sp, op)) in enumerate(zip(jrun, prun)):
         assert oj.keys() == op.keys()
         for k in oj:
@@ -164,15 +177,29 @@ def test_host_step_is_bit_equal_to_jax_numpy_path(name, monkeypatch):
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_host_step_matches_jax_native_step(name):
+    """The port's C++ step and the JAX package's, built from the same
+    code with the same compiler and flags: bit-equal."""
     if not native.sort_step_available():
         pytest.skip("the JAX package's native step did not build")
     frames, jrun, prun = _pairs(name, 1)
     for s, ((sj, oj), (sp, op)) in enumerate(zip(jrun, prun)):
-        for k in ("slot", "track_id", "is_new", "length"):
+        assert oj.keys() == op.keys()
+        for k in oj:
             np.testing.assert_array_equal(op[k], oj[k], err_msg=f"{k} {s}")
-        np.testing.assert_allclose(op["pred_box"], oj["pred_box"], rtol=RTOL,
+        _assert_bit_equal(_leaves(sj), _leaves(sp))
+    assert int(sp.next_id) > 20 and not op["is_new"].all()
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_native_step_matches_its_numpy_twin(name):
+    frames, nrun, prun = _pairs(name, 3, jstep=None)
+    for s, ((sn, on), (sp, op)) in enumerate(zip(nrun, prun)):
+        for k in ("slot", "track_id", "is_new", "length"):
+            np.testing.assert_array_equal(op[k], on[k], err_msg=f"{k} {s}")
+        np.testing.assert_allclose(op["pred_box"], on["pred_box"], rtol=RTOL,
                                    atol=ATOL)
-        _assert_close(_leaves(sj), _leaves(sp))
+        _assert_close(_leaves(sn), _leaves(sp))
+    assert int(sp.next_id) > 20 and not op["is_new"].all()
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))

@@ -1,12 +1,16 @@
 """The port's host VisualSORT step (`trackers/host_visual.py`) against the
 JAX package's, on the CPU.
 
-* Against the JAX module's NumPy path (its native step switched off with
-  monkeypatch): outputs (ids, slots, is_new, lengths, voting types) and
-  states bit-equal, frame by frame.
-* Against the JAX module's default, native C++ step: ids, slots, is_new,
-  lengths and voting types equal, states at torch_parity.RTOL/ATOL (the
-  gallery at GALLERY_TOL).
+* The port's NumPy twin (`host_visual_step_numpy`) against the JAX
+  module's NumPy path (its native step switched off with monkeypatch):
+  outputs (ids, slots, is_new, lengths, voting types) and states
+  bit-equal, frame by frame.
+* The port's step (`host_visual_step`: its C++ step `csrc/visualstep.cpp`
+  on these frames of at most 128 detections) against the JAX module's
+  default, native C++ step: outputs and states bit-equal.
+* The port's C++ step against its NumPy twin: ids, slots, is_new, lengths
+  and voting types equal, states at torch_parity.RTOL/ATOL (the gallery at
+  GALLERY_TOL).
 * Against the port's own device step on the CPU (`visual_step`, scipy's
   exact Hungarian): ids and voting types equal; a frame whose solutions
   differ is accepted only if the visual winners agree and the positional
@@ -101,19 +105,27 @@ def _frames(name, seed, steps=10, d=10, drop=0.2):
     return frames
 
 
-def _run(module, cfg, state, frames):
+def _run(step, cfg, state, frames):
     for e, fr in enumerate(frames, start=1):
-        state, out = module.host_visual_step(cfg, state, *fr, e)
+        state, out = step(cfg, state, *fr, e)
         yield state, {k: np.array(v) for k, v in out.items()}
 
 
-def _pairs(name, seed):
+def _pairs(name, seed, pstep=pvis.host_visual_step,
+           jstep=jvis.host_visual_step):
+    """The frames and two runs over them: the JAX package's `jstep` and
+    the port's `pstep`, or, with `jstep=None`, the port's NumPy twin."""
     frames = _frames(name, seed)
-    jstate = jhost.state_to_host(jax_new_vs(T, H, K, F))
+    if jstep is None:
+        jcfg, jstep = VisualConfig(**_kw(name)), pvis.host_visual_step_numpy
+        jstate = phost.state_to_host(new_visual_state(T, H, K, F,
+                                                      device="cpu"))
+    else:
+        jcfg = JaxVisualConfig(**_kw(name))
+        jstate = jhost.state_to_host(jax_new_vs(T, H, K, F))
     pstate = phost.state_to_host(new_visual_state(T, H, K, F, device="cpu"))
-    return (frames,
-            _run(jvis, JaxVisualConfig(**_kw(name)), jstate, frames),
-            _run(pvis, VisualConfig(**_kw(name)), pstate, frames))
+    return (frames, _run(jstep, jcfg, jstate, frames),
+            _run(pstep, VisualConfig(**_kw(name)), pstate, frames))
 
 
 def _compare_states(a: dict, b: dict, exact: bool):
@@ -140,7 +152,7 @@ OUT_EXACT = ("slot", "track_id", "is_new", "length", "voting_type")
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_host_visual_step_is_bit_equal_to_jax_numpy_path(name, monkeypatch):
     monkeypatch.setattr(native, "visual_step_available", lambda: False)
-    frames, jrun, prun = _pairs(name, 0)
+    frames, jrun, prun = _pairs(name, 0, pstep=pvis.host_visual_step_numpy)
     vts = []
     for s, ((sj, oj), (sp, op)) in enumerate(zip(jrun, prun)):
         assert oj.keys() == op.keys()
@@ -156,15 +168,31 @@ def test_host_visual_step_is_bit_equal_to_jax_numpy_path(name, monkeypatch):
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_host_visual_step_matches_jax_native_step(name):
+    """The port's C++ step and the JAX package's, built from the same
+    code with the same compiler and flags: bit-equal."""
     if not native.visual_step_available():
         pytest.skip("the JAX package's native step did not build")
     frames, jrun, prun = _pairs(name, 1)
     for s, ((sj, oj), (sp, op)) in enumerate(zip(jrun, prun)):
-        for k in OUT_EXACT:
+        assert oj.keys() == op.keys()
+        for k in oj:
             np.testing.assert_array_equal(op[k], oj[k], err_msg=f"{k} {s}")
-        np.testing.assert_allclose(op["pred_box"], oj["pred_box"], rtol=RTOL,
+        _compare_states(jax_state_dict(sj), jax_state_dict(sp), exact=True)
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_native_visual_step_matches_its_numpy_twin(name):
+    frames, nrun, prun = _pairs(name, 3, jstep=None)
+    vts = []
+    for s, ((sn, on), (sp, op)) in enumerate(zip(nrun, prun)):
+        for k in OUT_EXACT:
+            np.testing.assert_array_equal(op[k], on[k], err_msg=f"{k} {s}")
+        np.testing.assert_allclose(op["pred_box"], on["pred_box"], rtol=RTOL,
                                    atol=ATOL)
-        _compare_states(jax_state_dict(sj), jax_state_dict(sp), exact=False)
+        _compare_states(jax_state_dict(sn), jax_state_dict(sp), exact=False)
+        vts.append(op["voting_type"][~op["is_new"]])
+    vts = np.concatenate(vts)
+    assert (vts == VT_VISUAL).any() and (vts != VT_VISUAL).any()
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))

@@ -64,6 +64,8 @@ def test_import_leaves_jax_out_of_sys_modules():
               "similari_tpu_torch.trackers.feature",
               "similari_tpu_torch.utils.kalman",
               "similari_tpu_torch.ops.lap",
+              "similari_tpu_torch.native",
+              "similari_tpu_torch.eval",
               "similari_tpu_torch.parallel.gallery",
               "similari_tpu_torch.parallel.handoff",
               "similari_tpu_torch.parallel.dryrun",

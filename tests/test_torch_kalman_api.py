@@ -3,9 +3,11 @@ candidate states, gather/scatter) and the public API of `utils/kalman.py`,
 against the goldens of tests/test_kalman.py and tests/test_kalman_api.py
 and against the JAX package, on the CPU.
 
-`filter_sequence` is bit-equal to the JAX module's NumPy path (its native
-branch switched off with monkeypatch) and within 1e-5 of its default,
-native C++ path.  Malformed point shapes raise ValueError on every path
+`filter_sequence` (the port's C++ loop) is bit-equal to the JAX module's
+default, native C++ path and within 1e-5 of its NumPy path (its native
+branch switched off with monkeypatch); the port's NumPy twins
+(`box_sequence_numpy`, `point_sequence_numpy`) are bit-equal to the
+per-call API.  Malformed point shapes raise ValueError on every path
 (the JAX module's unchecked shapes are not copied).
 """
 
@@ -22,6 +24,8 @@ from similari_tpu_torch import (BoundingBox, Point2DKalmanFilter,
                                 Universal2DBox, Universal2DBoxKalmanFilter,
                                 Vec2DKalmanFilter)
 from similari_tpu_torch.ops import kalman as K
+from similari_tpu_torch.utils.kalman import (box_sequence_numpy,
+                                             point_sequence_numpy)
 
 from torch_parity import one_cpu_thread
 
@@ -241,6 +245,9 @@ def _box_track(seed, n=200):
 
 
 def test_filter_sequence_matches_per_call_api():
+    """The NumPy twins are the per-call loop bit for bit; the C++ loop of
+    `filter_sequence` is within the JAX package's own tolerance for its
+    native loop (tests/test_kalman_api.py: rtol = atol = 1e-5)."""
     z = _box_track(9)
     kf = Universal2DBoxKalmanFilter()
     st = kf.initiate(Universal2DBox.from_vec5(z[0]))
@@ -248,7 +255,10 @@ def test_filter_sequence_matches_per_call_api():
     for i in range(1, len(z)):
         st = kf.update(kf.predict(st), Universal2DBox.from_vec5(z[i]))
         want.append(st._state.mean_pos.copy())
-    np.testing.assert_array_equal(kf.filter_sequence(z), np.stack(want))
+    np.testing.assert_array_equal(
+        box_sequence_numpy(z, kf._f.pw, kf._f.vw), np.stack(want))
+    np.testing.assert_allclose(kf.filter_sequence(z), np.stack(want),
+                               rtol=1e-5, atol=1e-5)
     pz = np.cumsum(np.random.default_rng(10).normal(size=(50, 2)),
                    axis=0).astype(np.float32)
     pkf = Point2DKalmanFilter()
@@ -257,7 +267,10 @@ def test_filter_sequence_matches_per_call_api():
     for i in range(1, len(pz)):
         st = pkf.update(pkf.predict(st), float(pz[i, 0]), float(pz[i, 1]))
         want.append(st._state.mean_pos.copy())
-    np.testing.assert_array_equal(pkf.filter_sequence(pz), np.stack(want))
+    np.testing.assert_array_equal(
+        point_sequence_numpy(pz, pkf._f.pw, pkf._f.vw), np.stack(want))
+    np.testing.assert_allclose(pkf.filter_sequence(pz), np.stack(want),
+                               rtol=1e-5, atol=1e-5)
 
 
 def _sequences():
@@ -284,10 +297,13 @@ def test_filter_sequence_matches_jax(kind, path, monkeypatch):
     ours = getattr(pt, FILTERS[kind])(
         0.06, 0.01).filter_sequence(z)
     assert ours.shape == z.shape and ours.dtype == np.float32
-    if path == "numpy":
+    if path == "native":
         np.testing.assert_array_equal(ours, got)
     else:
         np.testing.assert_allclose(ours, got, rtol=1e-5, atol=1e-5)
+        twin = (box_sequence_numpy if kind == "box"
+                else point_sequence_numpy)(z, 0.06, 0.01)
+        np.testing.assert_array_equal(twin, got)
     empty = np.zeros((0,) + z.shape[1:], np.float32)
     assert getattr(pt, FILTERS[kind])(
     ).filter_sequence(empty).shape == empty.shape

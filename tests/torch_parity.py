@@ -390,3 +390,33 @@ def solutions_tie(cfg, state, box, conf, epoch, rows, a, b) -> bool:
     ta = voting_lp_total(w, th, cols, rows, *a)
     tb = voting_lp_total(w, th, cols, rows, *b)
     return abs(ta - tb) <= LP_TIE_RTOL * max(abs(ta), abs(tb), 1.0)
+
+
+MOT_HEADER = "frame,id,bb_left,bb_top,bb_width,bb_height,conf,x,y,z"
+
+
+def write_mot_det(path, detections, columns: int = 7,
+                  header: bool = False) -> dict:
+    """Write {frame: [(left, top, width, height, conf), ...]} as a MOT det
+    csv with 7 columns (`frame, -1, l, t, w, h, conf`) or 6 (no
+    confidence), behind a header line if asked.  Every value is written
+    as the shortest decimal of its float32, so a reader that parses to
+    float32 reads back exactly these values.  Returns the detections as
+    the file holds them: float32 values, confidence 1.0 for 6 columns."""
+    assert columns in (6, 7)
+    lines = [MOT_HEADER] if header else []
+    held = {}
+    for frame in sorted(detections):
+        rows = []
+        for det in detections[frame]:
+            v = [float(np.float32(x)) for x in det]
+            if columns == 6:
+                v[4] = 1.0
+            rows.append(tuple(v))
+            cells = [str(frame), "-1"] + [str(np.float32(x))
+                                          for x in v[:columns - 2]]
+            lines.append(",".join(cells))
+        held[frame] = rows
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return held
