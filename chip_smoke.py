@@ -140,9 +140,37 @@ Phases:
      card): outputs equal to phase 4's in-memory run, the fused kernel's
      launches counted; the loader's ms beside its NumPy version's, their
      buffers equal;
- 20. one `kernels` JSON line (the clip's and the merge's launches include
+ 20. valid zero-height detections (5% of the valid rows at height 0): the
+     Mahalanobis `Sort`, `BatchSort` (two scenes) and `VisualSort` with
+     assignment "auction" on the card, ids equal call for call to the same
+     trackers on the CPU with "native"; `run_sequence_device(engine=
+     "step", method="maha")` likewise; the fused runners (SORT, VisualSORT
+     with IoU and Mahalanobis positional votes) on such a stream, outputs
+     equal to the same runners through the plain chunks on the card;
+ 21. the generic `TrackStore` with its feature index on the card: the
+     feature-tracker bench's shape (100 objects x 256-d, history 3, 50
+     epochs of TopNVoting(1, 100, 1)), winners equal to a device="cpu"
+     store's every epoch, ms per epoch; then 20,000 tracks x 3
+     observations x 512-d f32 and `foreign_track_distances_arrays` for 64
+     candidates of 3 observations: to_id and obs_ix equal to the CPU
+     store's, distances within 1e-4 + 1e-5 x the largest, ms per query on
+     both stores (CUDA events on the card) and the product's own ms
+     beside its bound;
+ 22. the eval path and the MOTChallenge kit: two sequences of the port's
+     `generate_sequence` (40 objects, 300 frames, seeds 1 and 2, the
+     second with 128-d features) through the fused runners, outputs equal
+     to the plain chunks on the card, MOTA / IDF1 by the port's metrics
+     above tests/test_eval.py's bars (0.85 / 0.8); then `evaluate_sequences`
+     (a `KitConfig` built in code, platform "cuda") with the `sort` (iou,
+     maha) and `visual_sort` trackers on both sequences written in MOT
+     layout: the bars, MOTA / IDF1 within 0.005 of the same kit on the
+     CPU, the frames whose ids differ from the CPU run, fps per sequence.
+     Each of phases 20-22 zeroes every launch counter before each run and
+     reads them after;
+ 23. one `kernels` JSON line (the clip's and the merge's launches include
      the API paths', phase 17's device Sort's and phase 18's; the fused
-     SORT kernel's, phase 19's), then the result line.
+     SORT kernel's, phase 19's; the fused kernels' and `gallery_dots`',
+     phases 20 and 22), then the result line.
 
 The fused-kernel checks take the main path's configurations from the
 runners' own builders, the other configurations and the crowded stream
@@ -186,9 +214,18 @@ from similari_tpu_torch import (  # noqa: E402
     VisualSortMetricType, VisualSortObservation, VisualSortOptions,
     VisualSortPredictionBatchRequest, _build, nms)
 from similari_tpu_torch import native  # noqa: E402
+from similari_tpu_torch.core import (  # noqa: E402
+    ObservationBuilder, TopNVoting, TrackStoreBuilder)
+from similari_tpu_torch.core import store as core_store  # noqa: E402
+from similari_tpu_torch.core.examples import (  # noqa: E402
+    BatchedSimpleMetric, UnboundAttrs)
+from similari_tpu_torch.eval import (  # noqa: E402
+    clear_metrics, generate_sequence, identity_metrics, write_csv)
 from similari_tpu_torch.eval.mot import (  # noqa: E402
     CHUNK, DeviceTimer, run_sequence_device, run_sequence_device_visual,
     sequence_sort_config, sequence_visual_config)
+from similari_tpu_torch.motchallenge import (  # noqa: E402
+    KitConfig, TrackerConfig, run_config)
 from similari_tpu_torch.ops import clip as cl  # noqa: E402
 from similari_tpu_torch.ops import fused_sort as fs  # noqa: E402
 from similari_tpu_torch.ops import fused_visual as fv  # noqa: E402
@@ -217,8 +254,8 @@ from similari_tpu_torch.utils.kalman import box_sequence_numpy  # noqa: E402
 from similari_tpu_torch.utils.nms import HOST_MAX_BOXES  # noqa: E402
 from similari_tpu_torch.utils.pad import pad_pow2  # noqa: E402
 from torch_parity import (  # noqa: E402
-    ATOL, EXACT_BOX_COLUMNS, RTOL, VISUAL_CONFIGS, crowded_stream,
-    solutions_tie, write_mot_det)
+    ATOL, EXACT_BOX_COLUMNS, RTOL, VISUAL_CONFIGS, churn_stream,
+    crowded_stream, solutions_tie, write_mot_det)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12  # non-tensor float32
@@ -2808,6 +2845,452 @@ def phase_sharded(args, dev, visual_ref, visual_rate, sort_ref, sort_rate,
     return merge, clip
 
 
+# ---------------------------------------------------------------------------
+# phases 20-22: zero-height streams, the generic store, the eval kit
+# ---------------------------------------------------------------------------
+
+ZH_SHARE = 0.05  # share of valid detections given height 0 in phase 20
+ZH_N, ZH_FRAMES, ZH_F = 100, 48, 128  # the API trackers' stream
+ZH_RUNNER = dict(n_objects=40, n_frames=128, seed=5, feature_dim=128)
+STORE_BENCH = (100, 256, 50)  # objects, feature dim, epochs (the bench shape)
+STORE_TRACKS, STORE_OBS, STORE_F = 20_000, 3, 512  # the gallery-scale store
+STORE_QUERIES = 64  # candidates of STORE_OBS observations each
+STORE_RTOL, STORE_ATOL = 1e-5, 1e-4  # card's distances against the CPU's
+KIT_SEQS = (dict(n_objects=40, n_frames=300, seed=1, p_miss=0.05,
+                 fp_per_frame=0.3),
+            dict(n_objects=40, n_frames=300, seed=2, p_miss=0.05,
+                 fp_per_frame=0.3, feature_dim=128))
+# (label, tracker type, params, held to the accuracy bars): Mahalanobis
+# SORT is not; on these 40-object, 300-frame sequences its IDF1 falls
+# below 0.8 in the JAX package's kit too (the same scores as the port's on
+# the CPU, tests/test_torch_motchallenge.py holds the two kits equal), so
+# it is held to the CPU run alone
+KIT_TRACKERS = (("sort_iou", "sort", dict(method="iou"), True),
+                ("sort_maha", "sort", dict(method="maha"), False),
+                ("visual_sort", "visual_sort", dict(method="iou"), True))
+VISUAL_LAUNCHES = ("fused_visual", "gallery_dots")
+MOTA_BAR, IDF1_BAR = 0.85, 0.8  # tests/test_eval.py's accuracy bars
+KIT_CPU_TOL = 0.005  # MOTA / IDF1 of the card's kit against the CPU's
+
+
+def expect_launched(label, counts, names):
+    """Each counter in `names` launched, every other one not."""
+    if any(counts[k] <= 0 for k in names) or any(
+            v for k, v in counts.items() if k not in names):
+        raise AssertionError(f"{label}: launches {counts}, expected "
+                             f"{sorted(names)} only")
+
+
+@contextlib.contextmanager
+def plain_chunks():
+    """The fused runners through the plain versions of both fused chunks
+    (on the card: PyTorch ops, no custom kernel)."""
+    kept = fs.fused_sort_chunk, fv.fused_visual_chunk
+    fs.fused_sort_chunk = fs.fused_sort_chunk_plain
+    fv.fused_visual_chunk = fv.fused_visual_chunk_plain
+    try:
+        yield
+    finally:
+        fs.fused_sort_chunk, fv.fused_visual_chunk = kept
+
+
+def same_outputs(label, got, want):
+    """Runner outputs: equal frames and ids, boxes within RTOL/ATOL (NaN
+    where the other has NaN)."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{label}: frames differ")
+    for f in want:
+        if [r[0] for r in got[f]] != [r[0] for r in want[f]]:
+            raise AssertionError(f"{label}: ids differ at frame {f}")
+        a = np.array([r[1:] for r in got[f]], np.float64)
+        b = np.array([r[1:] for r in want[f]], np.float64)
+        np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL, equal_nan=True,
+                                   err_msg=f"{label}: boxes at frame {f}")
+
+
+def zero_heights(dets, seed):
+    """A MOT detections dict with ZH_SHARE of its rows at height 0."""
+    rng = np.random.default_rng(seed)
+    return {f: [r[:3] + (0.0,) + r[4:] if rng.random() < ZH_SHARE else r
+                for r in rows] for f, rows in dets.items()}
+
+
+def zero_height_frames(seed):
+    """churn_stream frames (ZH_N objects) with ZH_SHARE of the heights 0,
+    plus ZH_F-d identity features."""
+    rng = np.random.default_rng(seed)
+    ident = rng.normal(size=(ZH_N, ZH_F)).astype(np.float32)
+    out = []
+    for boxes, conf in churn_stream(seed, ZH_FRAMES, ZH_N, spread=1000.0,
+                                    churn=8):
+        boxes = boxes.copy()
+        boxes[rng.random(ZH_N) < ZH_SHARE, 4] = 0.0
+        out.append((boxes, conf, (ident + 0.05 * rng.normal(
+            size=ident.shape)).astype(np.float32)))
+    return out
+
+
+def zero_height_api(dev, frames):
+    """Phase 20's trackers: Mahalanobis `Sort`, `BatchSort` (two scenes)
+    and `VisualSort`, the auction on `dev` against "native" on the CPU;
+    ids per call equal."""
+    maha = PositionalMetricType.maha()
+
+    def sort(d, backend):
+        return Sort(shards=1, bbox_history=2, max_idle_epochs=3, method=maha,
+                    initial_capacity=128, assignment_backend=backend,
+                    device=d)
+
+    def batch(d, backend):
+        return BatchSort(bbox_history=2, max_idle_epochs=3, method=maha,
+                         initial_capacity=128, assignment_backend=backend,
+                         device=d)
+
+    def visual(d, backend):
+        opts = (VisualSortOptions()
+                .visual_metric(VisualSortMetricType.euclidean(5.0))
+                .positional_metric(maha).visual_minimal_track_length(2)
+                .visual_max_observations(3).max_idle_epochs(3)
+                .kept_history_length(2))
+        return VisualSort(1, opts, initial_capacity=128,
+                          assignment_backend=backend, device=d)
+
+    def run_sort(tr):
+        return [tr.predict_arrays(0, b, c)[1].tolist() for b, c, _ in frames]
+
+    def run_batch(tr):
+        out = []
+        for b, c, _ in frames:
+            req = SortPredictionBatchRequest()
+            for sid, shift in ((1, 0.0), (2, 5000.0)):
+                for i in range(len(b)):
+                    req.add(sid, Universal2DBox.new_with_confidence(
+                        float(b[i, 0]) + shift, float(b[i, 1]), None,
+                        float(b[i, 3]), float(b[i, 4]), float(c[i])), None)
+            res, got = tr.predict(req), {}
+            while res.ready():
+                sid, tracks = res.get()
+                got[sid] = [t.id for t in tracks]
+            out.append(got)
+        return out
+
+    def run_visual(tr):
+        fv_ok = np.arange(ZH_N) % 3 != 0
+        return [tr.predict_arrays(0, b, c, f, fv_ok)[1].tolist()
+                for b, c, f in frames]
+
+    cpu = torch.device("cpu")
+    for name, make, run in (("Sort", sort, run_sort),
+                            ("BatchSort", batch, run_batch),
+                            ("VisualSort", visual, run_visual)):
+        zero_counts()
+        got, ms = timed(dev, lambda: run(make(dev, "auction")))
+        counts = read_counts()
+        expect_counts(f"zero heights, {name}", counts, {})
+        want, cpu_ms = timed(cpu, lambda: run(make(cpu, "native")))
+        if got != want:
+            bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+            raise AssertionError(f"zero heights, {name}: ids differ from the "
+                                 f"CPU 'native' run at calls {bad[:5]}")
+        log(f"[20] {name} (Mahalanobis, assignment 'auction') on {dev}: "
+            f"{len(frames)} calls x {ZH_N} detections, ids equal to "
+            f"device='cpu' 'native'; {ms / len(frames):.2f} ms per call "
+            f"(CPU {cpu_ms / len(frames):.2f})")
+
+
+def phase_zero_height(dev):
+    """Phase 20: valid zero-height detections on the card.  Returns the
+    launches of {fused_sort, fused_visual, gallery_dots}."""
+    frames = zero_height_frames(20)
+    zeros = sum(int((b[:, 4] == 0).sum()) for b, _, _ in frames)
+    log(f"[20] zero-height stream: {zeros} of {ZH_N * len(frames)} valid "
+        f"detections at height 0")
+    zero_height_api(dev, frames)
+    _, dets, feats = generate_sequence(**ZH_RUNNER)
+    dets = zero_heights(dets, 21)
+    cpu = torch.device("cpu")
+    got, _ = run_sequence_device(dets, method="maha", engine="step",
+                                 assignment="auction", capacity=T,
+                                 device=dev)
+    want, _ = run_sequence_device(dets, method="maha", engine="step",
+                                  assignment="native", capacity=T,
+                                  device="cpu")
+    same_outputs("zero heights, run_sequence_device(step, maha) against "
+                 "the CPU 'native' run", got, want)
+    log(f"[20] run_sequence_device(engine='step', method='maha', auction): "
+        f"{len(got)} frames, ids equal to device='cpu' 'native'")
+    launches = {"fused_sort": 0, "fused_visual": 0, "gallery_dots": 0}
+    runs = (("run_sequence_device", ("fused_sort",),
+             lambda: run_sequence_device(dets, capacity=T,
+                                         report_observed=True, device=dev)),
+            ("run_sequence_device_visual[iou]", VISUAL_LAUNCHES,
+             lambda: run_sequence_device_visual(dets, feats, capacity=T,
+                                                device=dev)),
+            ("run_sequence_device_visual[maha]", VISUAL_LAUNCHES,
+             lambda: run_sequence_device_visual(dets, feats, capacity=T,
+                                                positional_kind="maha",
+                                                device=dev)))
+    for label, names, run in runs:
+        zero_counts()
+        kern, _ = run()
+        counts = read_counts()
+        with plain_chunks():
+            plain, _ = run()
+        same_outputs(f"zero heights, {label}: kernel against plain", kern,
+                     plain)
+        expect_launched(f"zero heights, {label}", counts, names)
+        for k in launches:
+            launches[k] += counts[k]
+        log(f"[20] {label} (fused): {len(kern)} frames, kernel outputs "
+            f"equal to the plain versions on {dev}; launches {counts}")
+    return launches
+
+
+def bench_metric(kind="euclidean"):
+    """The feature-tracker bench's metric on the store's sweep: euclidean,
+    the newest 3 observations kept."""
+    class BenchMetric(BatchedSimpleMetric):
+        supports_batch_features = kind
+
+        def optimize(self, feature_class, merge_history, attrs, observations,
+                     prev_length, is_merge):
+            del observations[:-3]
+
+    return BenchMetric()
+
+
+def store_bench_epochs(dev, stream):
+    """The reference's feature-tracker bench on a `TrackStore` of `dev`:
+    per epoch one candidate per object, TopNVoting(1, 100, 1), merge the
+    winners and add the rest.  Returns (winners per epoch, wall ms per
+    epoch)."""
+    store = (TrackStoreBuilder(1, device=dev).default_attributes(
+        UnboundAttrs()).metric(bench_metric()).build())
+    voting = TopNVoting(1, 100.0, 1)
+    winners = []
+    t0 = time.perf_counter()
+    for e, feats in enumerate(stream):
+        cands = [store.new_track(1_000_000 * (e + 1) + i).observation(
+            ObservationBuilder(0).observation(f).build()).build()
+            for i, f in enumerate(feats)]
+        dists, errs = store.foreign_track_distances(cands, 0, False)
+        if errs:
+            raise AssertionError(f"store bench: errors {errs[:3]}")
+        win = voting.winners(dists)
+        winners.append({k: v[0].winner_track for k, v in win.items()})
+        for c in cands:
+            if c.track_id in win:
+                store.merge_external(win[c.track_id][0].winner_track, c, None,
+                                     True)
+            else:
+                store.add_track(c)
+    if store.bulk_fallbacks:
+        raise AssertionError(f"store bench left the bulk path "
+                             f"{store.bulk_fallbacks} times")
+    return winners, (time.perf_counter() - t0) * 1e3 / len(stream), len(store)
+
+
+def store_query_ms(dev, store, cands):
+    """(outputs of foreign_track_distances_arrays per candidate, ms per
+    query: CUDA events on the card, the host clock on the CPU)."""
+    store.foreign_track_distances_arrays(cands[0], 0)  # builds the index
+    with DeviceTimer(dev) as timer:
+        outs = [store.foreign_track_distances_arrays(c, 0) for c in cands]
+    return outs, timer.seconds * 1e3 / len(cands)
+
+
+def phase_store(dev):
+    """Phase 21: the generic `TrackStore` with its feature index on the
+    card, at the feature-tracker bench's shape and at gallery scale, each
+    against a device="cpu" store."""
+    card = gpu_line()
+    n, f, epochs = STORE_BENCH
+    rng = np.random.default_rng(21)
+    base = np.zeros((n, f), np.float32)
+    base[:, 0] = 1000.0 * np.arange(n)
+    stream = []
+    for _ in range(epochs):
+        base = base + rng.uniform(-0.1, 0.1, (n, f)).astype(np.float32)
+        stream.append(base.copy())
+    win_dev, ms_dev, tracks = store_bench_epochs(dev, stream)
+    win_cpu, ms_cpu, _ = store_bench_epochs(torch.device("cpu"), stream)
+    if win_dev != win_cpu:
+        bad = [e for e, (a, b) in enumerate(zip(win_dev, win_cpu)) if a != b]
+        raise AssertionError(f"store bench: winners differ from the CPU "
+                             f"store at epochs {bad[:5]}")
+    if tracks != n:
+        raise AssertionError(f"store bench: {tracks} tracks for {n} objects")
+    log(f"[21] TrackStore bench shape ({n} objects x {f}-d, history 3, "
+        f"{epochs} epochs of TopNVoting(1, 100, 1)): winners equal to the "
+        f"CPU store every epoch, {tracks} tracks; {ms_dev:.2f} ms per epoch "
+        f"on {dev}, {ms_cpu:.2f} on the CPU store (wall clock; {card})")
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(22)
+    feats = rng.normal(size=(STORE_TRACKS, STORE_OBS, STORE_F)).astype(
+        np.float32)
+    store = (TrackStoreBuilder(1, device=dev).default_attributes(
+        UnboundAttrs()).metric(bench_metric()).build())
+    for tid in range(STORE_TRACKS):
+        for k in range(STORE_OBS):
+            store.add(tid, 0, None, feats[tid, k])
+    cpu_store = (TrackStoreBuilder(1, device="cpu").default_attributes(
+        UnboundAttrs()).metric(bench_metric()).build())
+    cpu_store.tracks = store.tracks  # the same Track objects
+    cand_feats = rng.normal(size=(STORE_QUERIES, STORE_OBS, STORE_F)).astype(
+        np.float32)
+    cands = []
+    for i in range(STORE_QUERIES):
+        b = store.new_track(10_000_000 + i)
+        for k in range(STORE_OBS):
+            b = b.observation(ObservationBuilder(0).observation(
+                cand_feats[i, k]).build())
+        cands.append(b.build())
+    build_s = time.perf_counter() - t0
+    out_dev, q_dev = store_query_ms(dev, store, cands)
+    out_cpu, q_cpu = store_query_ms(torch.device("cpu"), cpu_store, cands)
+    err = 0.0
+    for (ti, oi, d), (tc, oc, dc) in zip(out_dev, out_cpu):
+        check_same("store query to_id", ti, tc)
+        check_same("store query obs_ix", oi, oc)
+        if d.shape != (STORE_OBS, STORE_TRACKS * STORE_OBS) or \
+                d.dtype != np.float32 or not np.isfinite(d).all():
+            raise AssertionError(f"store query: dist {d.shape} {d.dtype}")
+        err = max(err, float(np.abs(d - dc).max()))
+        bound = STORE_ATOL + STORE_RTOL * float(np.abs(dc).max())
+        if np.abs(d - dc).max() > bound:
+            raise AssertionError(f"store query: distances differ from the "
+                                 f"CPU store by {err} > {bound}")
+    index = store._feature_index(0)
+    q = torch.from_numpy(cand_feats[0]).to(dev)
+    for _ in range(3):
+        core_store._distances(q, index.rows, index.prep, "euclidean")
+    with DeviceTimer(dev) as timer:
+        for _ in range(STORE_QUERIES):
+            core_store._distances(q, index.rows, index.prep, "euclidean")
+    prod_ms = timer.seconds * 1e3 / STORE_QUERIES
+    rows = STORE_TRACKS * STORE_OBS
+    bound_ms = max(4.0 * (rows * STORE_F + rows + STORE_OBS * rows)
+                   / HBM_BYTES_PER_S,
+                   2.0 * STORE_OBS * rows * STORE_F / F32_OPS_PER_S) * 1e3
+    log(f"[21] TrackStore gallery scale: {STORE_TRACKS} tracks x "
+        f"{STORE_OBS} observations x {STORE_F}-d f32 ({rows} rows, "
+        f"{index.rows.numel() * 4 / 1e6:.1f} MB on {index.rows.device}; "
+        f"built in {build_s:.1f} s): foreign_track_distances_arrays for "
+        f"{STORE_QUERIES} candidates of {STORE_OBS} observations, to_id and "
+        f"obs_ix equal to the CPU store's, largest distance difference "
+        f"{err:.3g} (bound {STORE_ATOL} + {STORE_RTOL} x max distance)")
+    log(f"[21] TrackStore query: {q_dev:.4f} ms per query on {dev} (CUDA "
+        f"events around the call: the product, the [{STORE_OBS}, {rows}] "
+        f"copy to the host and the per-track compatible() loop), "
+        f"{q_cpu:.4f} ms on the CPU store; the product alone "
+        f"{prod_ms:.4f} ms per query (CUDA events), bound {bound_ms:.4f} ms "
+        f"(bytes); {card}")
+
+
+
+def write_mot_sequence(root, name, gt, dets):
+    seq = Path(root) / name
+    (seq / "det").mkdir(parents=True)
+    (seq / "gt").mkdir(parents=True)
+    write_csv(seq / "det" / "det.txt", [
+        (f, -1, round(l, 2), round(t, 2), round(w, 2), round(h, 2),
+         round(c, 3), -1, -1, -1)
+        for f in sorted(dets) for l, t, w, h, c in dets[f]])
+    write_csv(seq / "gt" / "gt.txt", [
+        (f, tid, round(l, 2), round(t, 2), round(w, 2), round(h, 2), 1, 1,
+         1.0) for f in sorted(gt) for tid, l, t, w, h in gt[f]])
+
+
+def kit_run(data, out, kind, params, platform):
+    """(metrics per sequence, fps per sequence, ids per frame per
+    sequence) of the kit on `platform`."""
+    cfg = KitConfig(name=kind, data_path=str(data), output_path=str(out),
+                    platform=platform,
+                    tracker=TrackerConfig(kind, dict(params)))
+    results = run_config(cfg)
+    stats = (Path(out) / "processing_stats.csv").read_text().splitlines()[1:]
+    fps = {row.split(",")[0]: float(row.split(",")[3]) for row in stats}
+    ids = {}
+    for seq in results:
+        per_frame = {}
+        for line in (Path(out) / f"{seq}.txt").read_text().splitlines():
+            cols = line.split(",")
+            per_frame.setdefault(int(cols[0]), []).append(int(cols[1]))
+        ids[seq] = per_frame
+    return results, fps, ids
+
+
+def check_bars(label, m):
+    if not (m["MOTA"] > MOTA_BAR and m["IDF1"] > IDF1_BAR):
+        raise AssertionError(f"{label}: MOTA {m['MOTA']:.4f} IDF1 "
+                             f"{m['IDF1']:.4f} below {MOTA_BAR} / {IDF1_BAR}")
+
+
+def phase_kit(dev):
+    """Phase 22: the eval path and the MOTChallenge kit on the card.
+    Returns the launches of {fused_sort, fused_visual, gallery_dots}."""
+    card = gpu_line()
+    seqs = []
+    for kw in KIT_SEQS:
+        gt, dets, *feats = generate_sequence(**kw)
+        seqs.append((gt, dets, feats[0] if feats else None))
+    launches = {"fused_sort": 0, "fused_visual": 0, "gallery_dots": 0}
+    gt2, dets2, feats2 = seqs[1]
+    runs = [(f"run_sequence_device[seed {kw['seed']}]", gt, ("fused_sort",),
+             lambda d=dets: run_sequence_device(d, report_observed=True,
+                                                device=dev))
+            for kw, (gt, dets, _) in zip(KIT_SEQS, seqs)]
+    runs.append(("run_sequence_device_visual[seed 2]", gt2, VISUAL_LAUNCHES,
+                 lambda: run_sequence_device_visual(dets2, feats2,
+                                                    device=dev)))
+    for label, gt, names, run in runs:
+        zero_counts()
+        kern, fps = run()
+        counts = read_counts()
+        with plain_chunks():
+            plain, _ = run()
+        same_outputs(f"{label}: kernel against plain", kern, plain)
+        expect_launched(label, counts, names)
+        for k in launches:
+            launches[k] += counts[k]
+        m = clear_metrics(gt, kern)
+        m.update(identity_metrics(gt, kern))
+        check_bars(label, m)
+        log(f"[22] {label} (fused) on {dev}: MOTA {m['MOTA']:.4f} IDF1 "
+            f"{m['IDF1']:.4f}, outputs equal to the plain versions on the "
+            f"card; {fps:.1f} frames/s (CUDA events); launches {counts}")
+    with tempfile.TemporaryDirectory() as tmp:
+        data = Path(tmp) / "data"
+        for k, (gt, dets, _) in enumerate(seqs):
+            write_mot_sequence(data, f"SYN-{k + 1:02d}", gt, dets)
+        for label, kind, params, bars in KIT_TRACKERS:
+            zero_counts()
+            res, fps, ids = kit_run(data, Path(tmp) / f"{label}-cuda", kind,
+                                    params, dev.type)
+            expect_counts(f"kit {label}", read_counts(), {})
+            res_c, fps_c, ids_c = kit_run(data, Path(tmp) / f"{label}-cpu",
+                                          kind, params, "cpu")
+            for seq, m in res.items():
+                if bars:
+                    check_bars(f"kit {label} {seq}", m)
+                mc = res_c[seq]
+                for key in ("MOTA", "IDF1"):
+                    if abs(m[key] - mc[key]) > KIT_CPU_TOL:
+                        raise AssertionError(
+                            f"kit {label} {seq}: {key} {m[key]:.4f} against "
+                            f"{mc[key]:.4f} on the CPU")
+                differ = sum(ids[seq].get(f) != ids_c[seq].get(f)
+                             for f in set(ids[seq]) | set(ids_c[seq]))
+                log(f"[22] kit {label} {seq} on {dev}: MOTA {m['MOTA']:.4f} "
+                    f"IDF1 {m['IDF1']:.4f} (CPU {mc['MOTA']:.4f} / "
+                    f"{mc['IDF1']:.4f}), frames whose ids differ from the "
+                    f"CPU run {differ} of {len(ids[seq])}; {fps[seq]:.2f} "
+                    f"fps (CPU {fps_c[seq]:.2f}; wall clock, {card})")
+    return launches
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=256)
@@ -2903,6 +3386,14 @@ def main(argv=None) -> int:
     file_launches = phase_mot_file(dets, sort_out, launches["fused_sort"])
     stamp("phase 19 done")
     kernels[0]["launches"] += file_launches
+    zero_height = phase_zero_height(dev)
+    stamp("phase 20 done")
+    phase_store(dev)
+    stamp("phase 21 done")
+    kit = phase_kit(dev)
+    stamp("phase 22 done")
+    for k in kernels[:3]:
+        k["launches"] += zero_height[k["name"]] + kit[k["name"]]
     clip_entry["launches"] += api_clip + host_clip + sharded_clip
     merge_entry["launches"] += api_merge + sharded_merge
     log(f"[16] launches on the API paths: clip {api_clip} (Sort, nms()), "
@@ -2911,7 +3402,9 @@ def main(argv=None) -> int:
         f"none); [18] merge {sharded_merge} (the sharded visual scan and "
         f"steps), clip {sharded_clip} (the batched SORT step matches "
         f"oriented boxes on the dense path); [19] fused_sort "
-        f"{file_launches} (the MOT-file route, three files)")
+        f"{file_launches} (the MOT-file route, three files); [20] "
+        f"{zero_height} (the fused runners on zero-height streams); [22] "
+        f"{kit} (the fused runners on the kit's sequences)")
     log(json.dumps({"kernels": kernels, "not_ported": []}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

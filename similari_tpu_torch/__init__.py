@@ -14,6 +14,9 @@ and track types (`trackers/`), `Universal2DBox` and the box types,
 (`trackers/sort_step.py`, `trackers/visual_step.py`), their batched forms
 (`parallel/mesh.py`), the fused sequence pipelines (`ops/fused_sort.py`,
 `ops/fused_visual.py`, `eval/mot.py`) and block-skip NMS (`ops/nms.py`).
+Beside them: the generic track / store engine (`core/`, its feature
+sweep on the store's device), the CLEAR / Identity metrics and synthetic
+sequences (`eval/`) and the MOTChallenge kit (`motchallenge/`).
 
 Five hand-written CUDA C++ kernels for `sm_90a` under `csrc/` carry them:
 the fused SORT frame kernel and the fused VisualSORT frame kernel

@@ -1,8 +1,7 @@
-"""MOT sequence IO and whole-sequence runners (mirrors
-`similari_tpu/eval/__init__.py`; its `metrics` and `synthetic` modules are
-not ported yet)."""
+"""MOT sequence IO, whole-sequence runners, CLEAR / Identity metrics and
+synthetic sequences (mirrors `similari_tpu/eval/__init__.py`)."""
 
-from ..native import load_sequence_soa  # noqa: F401  (C++ MOT csv loader)
+from .metrics import clear_metrics, identity_metrics, iou_matrix_ltwh  # noqa: F401
 from .mot import (  # noqa: F401
     ltwh_to_vec5,
     read_detections,
@@ -14,3 +13,9 @@ from .mot import (  # noqa: F401
     vec5_to_ltwh,
     write_csv,
 )
+from .synthetic import (  # noqa: F401
+    generate_adversarial_sequence,
+    generate_reid_adversarial_sequence,
+    generate_sequence,
+)
+from ..native import load_sequence_soa  # noqa: F401  (C++ MOT csv loader)

@@ -38,7 +38,12 @@ MAX_AUCTION_ROUNDS = 3000
 UNROLLED_ROUNDS = 3
 
 def first_argmax(values: torch.Tensor, dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(max, lowest index of the max) along `dim`."""
+    """(max, lowest index of the max) along `dim`.  NaN ranks below every
+    number, as in the CUDA kernels' `v > best` scans, so the index is always
+    in range: a slice of NaN only gives (-inf, 0)."""
+    if values.is_floating_point():
+        values = torch.nan_to_num(values, nan=-torch.inf, posinf=torch.inf,
+                                  neginf=-torch.inf)
     m = values.max(dim=dim, keepdim=True).values
     n = values.shape[dim]
     shape = [1] * values.dim()
@@ -263,6 +268,19 @@ def solve_lap(weights: torch.Tensor, backend: str = "auction") -> torch.Tensor:
     raise ValueError(f"unknown assignment backend: {backend}")
 
 
+def edges(metric: torch.Tensor, row_valid: torch.Tensor,
+          col_valid: torch.Tensor) -> torch.Tensor:
+    """The metric on valid (row, column) pairs, 0 (no edge) elsewhere.  A
+    NaN weight is no edge either: a valid zero-height detection opens a
+    track whose Kalman state is NaN, and a Mahalanobis weight against it
+    passes the distance gates (every comparison with NaN is false).  The
+    reference's host engine drops such a pair (`w > 0` is false), so every
+    solver here gets a finite matrix and the same ids."""
+    ok = (row_valid[..., :, None] & col_valid[..., None, :]
+          & ~torch.isnan(metric))
+    return torch.where(ok, metric, 0.0)
+
+
 def augment_with_threshold(metric: torch.Tensor, threshold: float,
                            row_valid: torch.Tensor,
                            col_valid: torch.Tensor) -> torch.Tensor:
@@ -271,8 +289,7 @@ def augment_with_threshold(metric: torch.Tensor, threshold: float,
     private, so the optimum parks them there), the masked metric beside
     it."""
     d = metric.shape[-2]
-    body = torch.where(row_valid[..., :, None] & col_valid[..., None, :],
-                       metric, 0.0)
+    body = edges(metric, row_valid, col_valid)
     eye = torch.eye(d, dtype=torch.bool, device=metric.device)
     diag = torch.where(eye, threshold, 0.0).to(metric.dtype)
     return torch.cat([diag.expand(*body.shape[:-1], d), body], dim=-1)
@@ -284,9 +301,8 @@ def solve_voting(metric: torch.Tensor, threshold: float,
     """SORT voting on metric [S?, D, T]: per-row column in the augmented
     convention.  The auction never builds the [D, D] diagonal block; the
     host solvers solve the augmented matrix."""
-    body = torch.where(row_valid[..., :, None] & col_valid[..., None, :],
-                       metric, 0.0)
     if backend == "auction":
-        return auction_lap_fallback(body, threshold)
+        return auction_lap_fallback(edges(metric, row_valid, col_valid),
+                                    threshold)
     return solve_lap(augment_with_threshold(metric, threshold, row_valid,
                                             col_valid), backend)

@@ -717,3 +717,110 @@ def test_mot_file_route_on_the_card(cuda, tmp_path):
     assert fs.fused_sort_chunk.launches == 2
     want, _ = pmot.run_sequence_device(held, capacity=64)
     assert got == want and len(got) == 20
+
+
+def _zero_height_frames(seed, steps=16, n=24):
+    from torch_parity import churn_stream
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for box, conf in churn_stream(seed, steps, n, spread=400.0, churn=4):
+        box = box.copy()
+        box[rng.random(n) < 0.1, 4] = 0.0
+        out.append((box, conf))
+    return out
+
+
+def test_zero_height_auction_on_the_card(cuda):
+    """Valid zero-height detections turn a Mahalanobis weight NaN; the
+    card's auction takes it as no edge (no device-side assert) and gives
+    the ids of the CPU's exact "native" solver, then the card keeps
+    working."""
+    from similari_tpu_torch import PositionalMetricType, Sort
+
+    frames = _zero_height_frames(6)
+
+    def run(device, backend):
+        tr = Sort(shards=1, bbox_history=2, max_idle_epochs=3,
+                  method=PositionalMetricType.maha(), initial_capacity=32,
+                  assignment_backend=backend, device=device)
+        return [tr.predict_arrays(0, b, c)[1].tolist() for b, c in frames]
+
+    assert run(cuda, "auction") == run("cpu", "native")
+    torch.cuda.synchronize()
+    assert float(torch.ones(4, device=cuda).sum()) == 4.0
+
+
+def test_zero_height_fused_runners_match_plain(cuda, monkeypatch):
+    """The fused runners on a zero-height stream: kernel outputs equal to
+    the plain chunks on the card."""
+    from similari_tpu_torch.eval import generate_sequence
+    from similari_tpu_torch.eval import mot as pmot
+
+    _, dets, feats = generate_sequence(n_objects=12, n_frames=32, seed=3,
+                                       feature_dim=16)
+    rng = np.random.default_rng(3)
+    dets = {f: [r[:3] + (0.0,) + r[4:] if rng.random() < 0.1 else r
+                for r in rows] for f, rows in dets.items()}
+    runs = (lambda: pmot.run_sequence_device(dets, capacity=64),
+            lambda: pmot.run_sequence_device_visual(
+                dets, feats, capacity=64, positional_kind="maha"))
+    kern = [run() for run in runs]
+    monkeypatch.setattr(fs, "fused_sort_chunk", fs.fused_sort_chunk_plain)
+    monkeypatch.setattr(fv, "fused_visual_chunk", fv.fused_visual_chunk_plain)
+    for (k, _), run in zip(kern, runs):
+        p, _ = run()
+        assert sorted(k) == sorted(p)
+        for f in k:
+            assert [r[0] for r in k[f]] == [r[0] for r in p[f]]
+            np.testing.assert_allclose(np.array([r[1:] for r in k[f]]),
+                                       np.array([r[1:] for r in p[f]]),
+                                       rtol=RTOL, atol=ATOL, equal_nan=True)
+
+
+@pytest.mark.parametrize("kind", ["euclidean", "cosine"])
+def test_track_store_on_the_card_matches_cpu(cuda, kind):
+    """TrackStore(device="cuda") keeps its feature index on the card; the
+    arrays query and the record stream agree with a device="cpu" store."""
+    from similari_tpu_torch.core import ObservationBuilder, TrackStoreBuilder
+    from similari_tpu_torch.core.examples import (BatchedSimpleMetric,
+                                                  SimpleAttributeUpdate,
+                                                  SimpleAttrs)
+
+    rng = np.random.default_rng(9)
+    feats = rng.normal(size=(200, 3, 64)).astype(np.float32)
+    cand_feats = rng.normal(size=(3, 64)).astype(np.float32)
+
+    def run(device):
+        metric = BatchedSimpleMetric()
+        metric.supports_batch_features = kind
+        store = (TrackStoreBuilder(2, device=device)
+                 .default_attributes(SimpleAttrs()).metric(metric).build())
+        for tid in range(200):
+            for k in range(3):
+                store.add(tid, 0, 0.1 * (tid % 4), feats[tid, k],
+                          SimpleAttributeUpdate() if k == 0 else None)
+        b = store.new_track(999)
+        for i, f in enumerate(cand_feats):
+            b = b.observation(ObservationBuilder(0).observation_attributes(0.2)
+                              .observation(f).track_attributes_update(
+                                  SimpleAttributeUpdate() if i == 0 else None)
+                              .build())
+        cand = b.build()
+        arrays = store.foreign_track_distances_arrays(cand, 0)
+        recs, errs = store.foreign_track_distances([cand], 0, False)
+        assert not errs and store.bulk_fallbacks == 0
+        assert store._feature_index(0).rows.device.type == \
+            torch.device(device).type
+        return arrays, recs
+
+    (ta, oa, da), ra = run(cuda)
+    (tb, ob, db), rb = run("cpu")
+    np.testing.assert_array_equal(ta, tb)
+    np.testing.assert_array_equal(oa, ob)
+    np.testing.assert_allclose(da, db, rtol=1e-5, atol=1e-4)
+    assert [(r.from_id, r.to_id, r.attribute_metric) for r in ra] == \
+        [(r.from_id, r.to_id, r.attribute_metric) for r in rb]
+    np.testing.assert_allclose([r.feature_distance for r in ra],
+                               [r.feature_distance for r in rb],
+                               rtol=1e-5, atol=1e-4)
