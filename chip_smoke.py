@@ -167,10 +167,26 @@ Phases:
      CPU, the frames whose ids differ from the CPU run, fps per sequence.
      Each of phases 20-22 zeroes every launch counter before each run and
      reads them after;
- 23. one `kernels` JSON line (the clip's and the merge's launches include
+ 23. the forms ported last, every launch counter zeroed before and read
+     after (none of them launches a custom kernel): oriented `sort_scan`
+     at D=500, T=2000 (phase 6's stream, 64 frames) with
+     oriented_block_sort=False and oriented_neighbors=16 (the radius-pruned
+     top-k rotated IoU) against the dense form, ids, slots, is_new and
+     lengths equal, the first 8 frames equal to the same run on the CPU;
+     `nms_kernel` at n=1000 (phase 7's stream, 16 frames) with
+     neighbors=16 against dense, keep masks equal on every frame where the
+     prune is exact, the first 8 equal to the CPU's; the scene-chunked
+     batched steps (`batched_visual_step_chunked` bf16 F=512,
+     `batched_sort_step_chunked`) at S=256 x 100 with chunks of 64 and 256
+     scenes over 16 frames, outputs equal every frame, states equal; and
+     `clip_polygon_quads` on 65,536 quad pairs against the CPU's.
+     Frames/s, ms per call, scene-frames/s and peak device memory of
+     each; then, outside the counted window, the sorted clip-kernel path
+     and block-skip NMS on the same frames for comparison;
+ 24. one `kernels` JSON line (the clip's and the merge's launches include
      the API paths', phase 17's device Sort's and phase 18's; the fused
      SORT kernel's, phase 19's; the fused kernels' and `gallery_dots`',
-     phases 20 and 22), then the result line.
+     phases 20 and 22; phase 23 adds none), then the result line.
 
 The fused-kernel checks take the main path's configurations from the
 runners' own builders, the other configurations and the crowded stream
@@ -230,6 +246,7 @@ from similari_tpu_torch.ops import clip as cl  # noqa: E402
 from similari_tpu_torch.ops import fused_sort as fs  # noqa: E402
 from similari_tpu_torch.ops import fused_visual as fv  # noqa: E402
 from similari_tpu_torch.ops import gallery_dots as gd  # noqa: E402
+from similari_tpu_torch.ops import geometry as geo  # noqa: E402
 from similari_tpu_torch.ops import merge_inplace as mi  # noqa: E402
 from similari_tpu_torch.ops.nms import nms_kernel, use_block_skip  # noqa: E402
 from similari_tpu_torch.ops.ownarea import own_area_shares  # noqa: E402
@@ -3290,6 +3307,311 @@ def phase_kit(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the forms ported last (the radius-pruned top-k rotated IoU, the
+# scene-chunked batched steps, the tensor Sutherland-Hodgman clip); none of
+# them launches a custom kernel
+# ---------------------------------------------------------------------------
+
+TOPK_K = 16  # oriented_neighbors of the SORT run, neighbors of NMS
+TOPK_FRAMES = 64  # oriented sort_scan frames, each form
+TOPK_CPU_FRAMES = 8  # of them rerun on the CPU
+TOPK_NMS_FRAMES = 16
+CHUNKS = (64, 256)  # scene chunks of the chunked batched steps
+CHUNK_FRAMES = 16
+SH_PAIRS = 65536  # quad pairs of the Sutherland-Hodgman clip
+
+
+def max_partners(a, b):
+    """The most not-too-far partners of a row of a[D, 5] x b[T, 5]."""
+    return int((~geo.too_far(a[:, None], b[None])).sum(1).max())
+
+
+def run_timed(dev, fn):
+    """(fn's result, its CUDA-event seconds)."""
+    with DeviceTimer(dev) as timer:
+        out = fn()
+    return out, timer.seconds
+
+
+def topk_sort(dev):
+    """23a: oriented `sort_scan` at D=500, T=2000 with oriented_neighbors=16
+    against the dense form (oriented_block_sort=False for both).  Returns
+    (frames/s of each form, the top-k run, the stream)."""
+    n = TOPK_FRAMES
+    box = torch.as_tensor(oriented_stream(n, 42), device=dev)
+    conf = torch.ones((n, OD), dtype=torch.float32, device=dev)
+    valid = torch.ones((n, OD), dtype=torch.bool, device=dev)
+    dense = SortConfig(method="iou", assignment="auction", max_idle_epochs=5,
+                       oriented=True, oriented_block_sort=False)
+    topk = dataclasses.replace(dense, oriented_neighbors=TOPK_K)
+    st0 = new_sort_state(OT, 1, device=dev)
+    rates, runs = {}, {}
+    for label, cfg in (("top-k", topk), ("dense", dense)):
+        if use_sorted_path(cfg, OD, OT, dev):
+            raise AssertionError(f"{label}: oriented_block_sort=False takes "
+                                 "the sorted path")
+        sort_scan(cfg, st0, box[:2], conf[:2], valid[:2], 1)  # warm-up
+        runs[label], secs = run_timed(
+            dev, lambda cfg=cfg: sort_scan(cfg, st0, box, conf, valid, 1))
+        rates[label] = n / secs
+    err = compare_scans("oriented SORT top-k against dense", runs["top-k"],
+                        runs["dense"])
+    return rates, err, runs["top-k"], (box, conf, valid, topk)
+
+
+def topk_sort_cpu(run, stream):
+    """23a on the CPU: the first frames' top-k ids equal the card's."""
+    box, conf, valid, topk = stream
+    n, cpu = TOPK_CPU_FRAMES, torch.device("cpu")
+    _, out = sort_scan(topk, new_sort_state(OT, 1, device=cpu),
+                       box[:n].cpu(), conf[:n].cpu(), valid[:n].cpu(), 1)
+    for f in ("slot", "track_id", "is_new", "length"):
+        if not torch.equal(getattr(out, f), getattr(run[1], f)[:n].cpu()):
+            raise AssertionError(f"oriented SORT top-k: {f} of the first {n} "
+                                 "frames differs from the CPU run")
+
+
+def topk_nms(dev):
+    """23b: `nms_kernel` at n=1000 with neighbors=16 and dense.  Returns
+    ({form: ms per frame}, {form: keep masks}, the frames)."""
+    frames = torch.as_tensor(nms_stream(TOPK_NMS_FRAMES), device=dev)
+    valid = torch.ones(NMS_N, dtype=torch.bool, device=dev)
+    ms, keeps = {}, {}
+    for label, nb in (("top-k", TOPK_K), ("dense", 0)):
+        nms_kernel(frames[0], valid, NMS_THRESHOLD, neighbors=nb,
+                   block_skip=False)  # warm-up
+        keeps[label], secs = run_timed(dev, lambda nb=nb: [
+            nms_kernel(b, valid, NMS_THRESHOLD, neighbors=nb,
+                       block_skip=False) for b in frames])
+        ms[label] = secs * 1e3 / len(frames)
+    return ms, keeps, (frames, valid)
+
+
+def topk_nms_checks(dev, keeps, inputs):
+    """23b's comparisons: top-k keeps equal the dense ones on every frame
+    where no box has more than 16 partners besides itself (where the
+    prune is exact), and the CPU top-k run's on the first frames; the
+    block-skip route (the clip kernel: comparison launches, not counted)
+    timed beside.  Returns (exact frames, frames whose keeps differ from
+    dense, block-skip ms per frame)."""
+    frames, valid = inputs
+    exact = differ = 0
+    for f, b in enumerate(frames):
+        same = torch.equal(keeps["top-k"][f], keeps["dense"][f])
+        differ += not same
+        if max_partners(b, b) <= TOPK_K + 1:
+            exact += 1
+            if not same:
+                raise AssertionError(f"NMS frame {f}: top-k keeps differ "
+                                     "from dense where the prune is exact")
+    cpu = torch.device("cpu")
+    for f in range(min(TOPK_CPU_FRAMES, len(frames))):
+        want = nms_kernel(frames[f].cpu(), valid.cpu(), NMS_THRESHOLD,
+                          neighbors=TOPK_K)
+        if not torch.equal(want, keeps["top-k"][f].cpu()):
+            raise AssertionError(f"NMS frame {f}: top-k keeps differ from "
+                                 "the CPU run")
+    blk, secs = run_timed(dev, lambda: [nms_kernel(b, valid, NMS_THRESHOLD)
+                                        for b in frames])
+    for f, (a, b) in enumerate(zip(blk, keeps["dense"])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"NMS frame {f}: block-skip keeps differ "
+                                 "from dense")
+    return exact, differ, secs * 1e3 / len(frames)
+
+
+def chunked_steps(dev):
+    """23c: `batched_visual_step_chunked` and `batched_sort_step_chunked`
+    at S=256 x 100 (VisualSORT bf16, F=512) with chunks of 64 and 256
+    scenes, two runs of each chunk in turns from one state: outputs equal
+    every frame, states equal.  Returns {kind: {chunk: (scene-frames/s of
+    each run, peak bytes allocated in a run, bytes held before it)}}."""
+    s, n = BS, CHUNK_FRAMES
+    boxes, feat = batch_stream(n, s, dev)
+    ones = torch.ones((s, BD), dtype=torch.float32, device=dev)
+    tru = ones > 0
+    sort_cfg = SortConfig(method="iou", assignment="auction",
+                          max_idle_epochs=5, oriented=False)
+    kinds = (
+        ("visual",
+         lambda c: mesh.batched_visual_step_chunked(bench_visual_config(), c),
+         lambda: mesh.new_batched_visual_state(s, BT, 1, K, F, torch.bfloat16,
+                                               device=dev),
+         lambda i: (boxes[i], ones, tru, feat, tru, ones, ones),
+         compare_states),
+        ("sort", lambda c: mesh.batched_sort_step_chunked(sort_cfg, c),
+         lambda: mesh.new_batched_state(s, BT, 1, device=dev),
+         lambda i: (boxes[i], ones, tru), compare_sort_states))
+    cuda = dev.type == "cuda"
+    result = {}
+    for kind, make, new_state, frame, same_state in kinds:
+        st0 = new_state()
+
+        def run(step, frames):
+            st, outs = st0, []
+            for i in range(frames):
+                ep = torch.full((s,), 1 + i, dtype=torch.int32, device=dev)
+                st, out = step(st, *frame(i), ep)
+                outs.append(out)
+            return st, outs
+
+        for c in CHUNKS:
+            run(make(c), 2)  # warm-up
+        rates, peak, held, last = {c: [] for c in CHUNKS}, {}, {}, {}
+        for c in CHUNKS + CHUNKS[::-1]:
+            if cuda:
+                torch.cuda.synchronize(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+            held[c] = torch.cuda.memory_allocated(dev) if cuda else 0
+            last[c], secs = run_timed(dev, lambda c=c: run(make(c), n))
+            top = torch.cuda.max_memory_allocated(dev) if cuda else 0
+            peak[c] = max(peak.get(c, 0), top)
+            rates[c].append(s * n / secs)
+        (sa, oa), (sb, ob) = (last[c] for c in CHUNKS)
+        fields = ("slot", "track_id", "is_new", "length", "overflow") + (
+            ("voting_type",) if kind == "visual" else ())
+        for i, (a, b) in enumerate(zip(oa, ob)):
+            for fld in fields:
+                if not torch.equal(getattr(a, fld), getattr(b, fld)):
+                    raise AssertionError(f"chunked batched {kind} frame {i}: "
+                                         f"{fld} differs between chunks "
+                                         f"{CHUNKS}")
+        same_state(f"chunked batched {kind}", sa, sb)
+        if bool(torch.stack([o.overflow for o in oa]).any()):
+            raise AssertionError(f"chunked batched {kind} overflowed")
+        result[kind] = {c: (rates[c], peak[c], held[c]) for c in CHUNKS}
+        del st0, last, sa, oa, sb, ob
+    return result
+
+
+def sh_clip(dev):
+    """23d: `clip_polygon_quads` on 65,536 quad pairs on the card against
+    the same call on the CPU (the quads made once on the CPU): counts
+    equal, vertices within RTOL/ATOL; the clipped area against the
+    Green's-theorem area at tests/test_geometry.py's tolerance.  Returns
+    (card ms per call, CPU ms per call, pairs with a polygon, max abs
+    vertex difference, the card's quads)."""
+    rng = np.random.default_rng(23)
+    boxes = np.zeros((2, SH_PAIRS, 5), np.float32)
+    for arr in boxes:
+        arr[:, :2] = rng.uniform(-20, 20, (SH_PAIRS, 2))
+        arr[:, 2] = rng.uniform(0, 2 * np.pi, SH_PAIRS)
+        arr[:, 3] = rng.uniform(0.2, 3.0, SH_PAIRS)
+        arr[:, 4] = rng.uniform(1, 30, SH_PAIRS)
+    qa, qb = (geo.box_vertices(torch.as_tensor(b)) for b in boxes)
+    cpu_out, cpu_secs = run_timed(torch.device("cpu"),
+                                  lambda: geo.clip_polygon_quads(qa, qb))
+    da, db = qa.to(dev), qb.to(dev)
+    verts, n = geo.clip_polygon_quads(da, db)
+    if not torch.equal(n.cpu(), cpu_out[1]):
+        raise AssertionError("Sutherland-Hodgman clip: vertex counts differ "
+                             "from the CPU run")
+    torch.testing.assert_close(verts.cpu(), cpu_out[0], rtol=RTOL, atol=ATOL)
+    err = float((verts.cpu() - cpu_out[0]).abs().max())
+    area = geo._clip_area_one(da, db)
+    torch.testing.assert_close(geo.quad_intersection_area(da, db), area,
+                               rtol=2e-3, atol=1e-2)
+    ms = time_ms(dev, lambda: geo.clip_polygon_quads(da, db), 10)
+    return ms, cpu_secs * 1e3, int((n >= 3).sum()), err, (da, db)
+
+
+def form_profiles(dev, stream, nms_in, quads):
+    """torch.profiler over 8 frames of each 23a and 23b form and one
+    clip_polygon_quads call: {form: (device busy ms, kernel launches, idle
+    share) per frame or call}; the idle share against unprofiled CUDA-event
+    times of the same calls.  Empty off the card."""
+    if dev.type != "cuda":
+        return {}
+    n = TOPK_CPU_FRAMES
+    box, conf, valid, topk = stream
+    frames, v = nms_in
+    runs = {f"sort_scan {label}": lambda cfg=cfg: sort_scan(
+        cfg, new_sort_state(OT, 1, device=dev), box[:n], conf[:n],
+        valid[:n], 1) for label, cfg in (
+            ("top-k", topk),
+            ("dense", dataclasses.replace(topk, oriented_neighbors=0)))}
+    runs.update({f"nms_kernel {label}": lambda nb=nb: [
+        nms_kernel(b, v, NMS_THRESHOLD, neighbors=nb, block_skip=False)
+        for b in frames[:n]] for label, nb in (("top-k", TOPK_K),
+                                               ("dense", 0))})
+    out = {}
+    for label, run in runs.items():
+        run()
+        _, secs = run_timed(dev, run)
+        busy, launches, _ = device_profile(run, n)
+        out[label] = (busy, launches, 1.0 - busy / (secs * 1e3 / n))
+    run = lambda: geo.clip_polygon_quads(*quads)  # noqa: E731
+    _, secs = run_timed(dev, run)
+    busy, launches, _ = device_profile(run, 1)
+    out["clip_polygon_quads"] = (busy, launches, 1.0 - busy / (secs * 1e3))
+    return out
+
+
+def phase_last_forms(dev):
+    """Phase 23: the paths a-d driven with every launch counter at 0; then,
+    outside that window, the comparisons that launch the clip kernel."""
+    card = gpu_line()
+    zero_counts()
+    rates, err, run, stream = topk_sort(dev)
+    nms_ms, keeps, nms_in = topk_nms(dev)
+    chunked = chunked_steps(dev)
+    sh_ms, sh_cpu_ms, polys, sh_err, quads = sh_clip(dev)
+    profiles = form_profiles(dev, stream, nms_in, quads)
+    counts = read_counts()
+    expect_counts("phase 23", counts, {})
+    topk_sort_cpu(run, stream)
+    box = stream[0]
+    partners = max(max_partners(b, b) - 1 for b in box[:TOPK_CPU_FRAMES])
+    cfg = SortConfig(method="iou", assignment="auction", max_idle_epochs=5,
+                     oriented=True)
+    sort_scan(cfg, new_sort_state(OT, 1, device=dev), *(
+        x[:2] for x in stream[:3]), 1)  # warm-up
+    _, secs = run_timed(dev, lambda: sort_scan(
+        cfg, new_sort_state(OT, 1, device=dev), *stream[:3], 1))
+    exact, differ, blk_ms = topk_nms_checks(dev, keeps, nms_in)
+    log(f"[23] launches on phase 23's paths {counts} (none of the forms "
+        f"launches a custom kernel; the comparison runs below launch the "
+        f"clip kernel outside that window and are not counted)")
+    log(f"[23] oriented sort_scan D={OD} T={OT}, {TOPK_FRAMES} frames, "
+        f"oriented_block_sort=False: top-k (oriented_neighbors={TOPK_K}) "
+        f"{rates['top-k']:.1f} frames/s, dense {rates['dense']:.1f} "
+        f"frames/s; the sorted clip-kernel path (\"auto\") "
+        f"{TOPK_FRAMES / secs:.1f} frames/s on the same frames (CUDA "
+        f"events); top-k ids, slots, is_new and lengths equal to dense "
+        f"(max_abs_err {err:.3e}) and to the CPU top-k run's first "
+        f"{TOPK_CPU_FRAMES} frames; at most {partners} other boxes within "
+        f"the radius of a box in those frames; {card}")
+    log(f"[23] nms_kernel n={NMS_N}, {TOPK_NMS_FRAMES} frames: top-k "
+        f"(neighbors={TOPK_K}) {nms_ms['top-k']:.4f} ms/frame, dense "
+        f"{nms_ms['dense']:.4f}, block-skip {blk_ms:.4f} (CUDA events); "
+        f"top-k keeps equal dense on {TOPK_NMS_FRAMES - differ} of "
+        f"{TOPK_NMS_FRAMES} frames ({exact} where the prune is exact, all "
+        f"equal there), equal to the CPU top-k run on the first "
+        f"{TOPK_CPU_FRAMES}; block-skip keeps equal dense")
+    for kind, stats in chunked.items():
+        parts = ", ".join(
+            f"chunk {c}: " + " / ".join(f"{r:.1f}" for r in rates_)
+            + f" scene-frames/s, peak {peak / 2**20:.1f} MiB allocated "
+            f"({(peak - before) / 2**20:.1f} MiB above the "
+            f"{before / 2**20:.1f} MiB held before the run)"
+            for c, (rates_, peak, before) in stats.items())
+        log(f"[23] batched_{kind}_step_chunked S={BS} x {BD}"
+            f"{' bf16 F=' + str(F) if kind == 'visual' else ''}, "
+            f"{CHUNK_FRAMES} frames (two runs per chunk in turns, CUDA "
+            f"events; torch.cuda.max_memory_allocated): {parts}; outputs "
+            f"equal every frame, states equal")
+    if profiles:
+        log("[23] per frame (per call for the clip), torch.profiler over "
+            f"{TOPK_CPU_FRAMES} frames: " + "; ".join(
+                f"{k} device busy {b:.3f} ms, {n:.1f} kernel launches, idle "
+                f"share {i:.3f}" for k, (b, n, i) in profiles.items()))
+    log(f"[23] clip_polygon_quads {SH_PAIRS} pairs: {sh_ms:.4f} ms per call "
+        f"on the card (CUDA events), {sh_cpu_ms:.2f} ms on the CPU (host "
+        f"clock, one call); counts equal, vertices max_abs_err "
+        f"{sh_err:.3e}, {polys} pairs intersect; clipped area within "
+        f"2e-3 / 1e-2 of quad_intersection_area")
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3392,6 +3714,8 @@ def main(argv=None) -> int:
     stamp("phase 21 done")
     kit = phase_kit(dev)
     stamp("phase 22 done")
+    phase_last_forms(dev)
+    stamp("phase 23 done")
     for k in kernels[:3]:
         k["launches"] += zero_height[k["name"]] + kit[k["name"]]
     clip_entry["launches"] += api_clip + host_clip + sharded_clip

@@ -11,8 +11,11 @@ large coordinates.
 
 Each expression keeps the reference's operation order, so the values
 agree with the JAX package's to rounding.  The radius-pruned top-k form
-(`rotated_intersection_topk`) and the Sutherland-Hodgman polygon clip are
-not ported yet (ROADMAP queue 1, item 11).
+(`rotated_intersection_topk`) clips only each row's k nearest in-radius
+partners; the Sutherland-Hodgman clip (`clip_polygon_quads`) returns the
+intersection polygon itself.  Both index with native gathers and scatters
+where the JAX package contracts one-hot masks, so a NaN box touches no
+other pair.
 """
 
 from __future__ import annotations
@@ -22,10 +25,8 @@ import math
 import torch
 
 EPS = 1e-5
-
-TOPK_NOT_PORTED = (
-    "the radius-pruned top-k clip (neighbors > 0) is not ported yet: "
-    "ROADMAP queue 1, item 11 (rotated_intersection_topk)")
+MAX_VERTS = 8  # two convex quads intersect in at most 8 vertices
+_NEG_BIG = -3e38  # the top-k score of a pair outside the radius prune
 
 
 def box_radius(boxes: torch.Tensor) -> torch.Tensor:
@@ -142,6 +143,114 @@ def quad_intersection_area(va: torch.Tensor, vb: torch.Tensor) -> torch.Tensor:
     return torch.abs(s) * 0.5
 
 
+# ---------------------------------------------------------------------------
+# Sutherland-Hodgman clipping on fixed 8-slot vertex buffers
+# ---------------------------------------------------------------------------
+
+def _edge_side(qx, qy, p1, p2):
+    """r = cross(p2 - p1, q - p1); inside means r <= 0."""
+    return (p2[..., 0] - p1[..., 0]) * (qy - p1[..., 1]) - (
+        p2[..., 1] - p1[..., 1]) * (qx - p1[..., 0])
+
+
+def _line_intersection(sx, sy, ex, ey, c1, c2):
+    """Line(s, e) x Line(c1, c2)."""
+    dcx = sx - ex
+    dcy = sy - ey
+    dpx = c1[..., 0] - c2[..., 0]
+    dpy = c1[..., 1] - c2[..., 1]
+    n1 = sx * ey - sy * ex
+    n2 = c1[..., 0] * c2[..., 1] - c1[..., 1] * c2[..., 0]
+    n3 = 1.0 / (dcx * dpy - dcy * dpx)
+    return (n1 * dpx - n2 * dcx) * n3, (n1 * dpy - n2 * dcy) * n3
+
+
+def _cyclic_take(v, i, live):
+    """v[..., i] where `live` and i is a slot, else 0."""
+    ok = live & (i >= 0) & (i < MAX_VERTS)
+    return torch.where(ok, torch.gather(v, -1, i.clamp(0, MAX_VERTS - 1)),
+                       0.0)
+
+
+def _clip_halfplane(vx, vy, n, c1, c2):
+    """Clip polygons (vx, vy)[..., 8] of n[...] live vertices by the edge
+    c1 -> c2 ([..., 2]).
+
+    Vertex e is emitted when inside, preceded by the crossing of edge
+    (prev, e) when exactly one end is inside; the exclusive cumsum of the
+    emissions gives each its slot.  A lane that emits nothing writes to a
+    ninth slot that is dropped, so the inf or NaN of a parallel edge's
+    intersection reaches no slot; past 8 emissions are dropped too.
+    """
+    idx = torch.arange(MAX_VERTS, device=vx.device)
+    n = n[..., None]
+    valid = idx < n
+    prev = torch.where(idx == 0, n - 1, idx - 1)
+    sx = _cyclic_take(vx, prev, valid)
+    sy = _cyclic_take(vy, prev, valid)
+    c1 = c1[..., None, :]
+    c2 = c2[..., None, :]
+    in_e = _edge_side(vx, vy, c1, c2) <= 0.0
+    in_s = _edge_side(sx, sy, c1, c2) <= 0.0
+    ix, iy = _line_intersection(sx, sy, vx, vy, c1, c2)
+    emit_i = valid & (in_e ^ in_s)
+    emit_e = valid & in_e
+    cnt = emit_i.long() + emit_e.long()
+    off = torch.cumsum(cnt, -1) - cnt
+    pos_i = torch.where(emit_i, off, MAX_VERTS).clamp(max=MAX_VERTS)
+    pos_e = torch.where(emit_e, off + emit_i.long(),
+                        MAX_VERTS).clamp(max=MAX_VERTS)
+    out = []
+    for ip, v in ((ix, vx), (iy, vy)):
+        o = torch.zeros(v.shape[:-1] + (MAX_VERTS + 1,), dtype=v.dtype,
+                        device=v.device)
+        o.scatter_(-1, pos_i, ip)
+        o.scatter_(-1, pos_e, v)
+        out.append(o[..., :MAX_VERTS])
+    return out[0], out[1], cnt.sum(-1)
+
+
+def _sh_clip_quads(subject: torch.Tensor, clip: torch.Tensor):
+    """Quads [..., 4, 2] clipped by quads [..., 4, 2] -> (vx, vy)[..., 8],
+    n[...]; slots past n hold 0."""
+    subject, clip = torch.broadcast_tensors(subject, clip)
+    pad = subject.new_zeros(subject.shape[:-2] + (MAX_VERTS - 4,))
+    vx = torch.cat([subject[..., 0], pad], -1)
+    vy = torch.cat([subject[..., 1], pad], -1)
+    n = torch.full(subject.shape[:-2], 4, dtype=torch.long,
+                   device=subject.device)
+    for i in range(4):
+        vx, vy, n = _clip_halfplane(vx, vy, n, clip[..., (i - 1) % 4, :],
+                                    clip[..., i, :])
+    return vx, vy, n
+
+
+def _masked_area(vx, vy, n):
+    """Unsigned shoelace area over the first n slots of [..., 8]."""
+    idx = torch.arange(MAX_VERTS, device=vx.device)
+    nn = n[..., None]
+    valid = idx < nn
+    nxt = torch.where(idx == nn - 1, 0, idx + 1)
+    vxn = _cyclic_take(vx, nxt, valid)
+    vyn = _cyclic_take(vy, nxt, valid)
+    cross = vx * vyn - vxn * vy
+    s = torch.where(valid, cross, 0.0).sum(-1)
+    return torch.where(n >= 3, torch.abs(s) * 0.5, 0.0)
+
+
+def _clip_area_one(subject: torch.Tensor, clip: torch.Tensor) -> torch.Tensor:
+    """Intersection area of quads [..., 4, 2] from their clipped polygon:
+    the cross-check of `quad_intersection_area`."""
+    return _masked_area(*_sh_clip_quads(subject, clip))
+
+
+def clip_polygon_quads(subject: torch.Tensor, clip: torch.Tensor):
+    """Clip quads [..., 4, 2] by quads [..., 4, 2] -> (verts [..., 8, 2],
+    count [...]); slots past the count hold 0."""
+    vx, vy, n = _sh_clip_quads(subject, clip)
+    return torch.stack([vx, vy], dim=-1), n
+
+
 def rotated_intersection(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Intersection area of boxes [..., 5] (broadcast); too_far pairs are
     exactly 0."""
@@ -183,5 +292,61 @@ def universal_iou_matrix(a: torch.Tensor, b: torch.Tensor,
     """Pairwise IoU a[..., D, 5] x b[..., T, 5] -> (iou[..., D, T],
     valid[..., D, T]); leading dims (a scene axis) broadcast."""
     if oriented and 0 < neighbors < b.shape[-2]:
-        raise NotImplementedError(TOPK_NOT_PORTED)
+        return _universal_iou_matrix_topk(a, b, neighbors)
     return universal_iou(a[..., :, None, :], b[..., None, :, :], oriented)
+
+
+def rotated_intersection_topk(a: torch.Tensor, b: torch.Tensor,
+                              k: int) -> torch.Tensor:
+    """Radius-pruned rotated intersection a[..., D, 5] x b[..., T, 5] ->
+    [..., D, T]: only each row's k nearest not-`too_far` partners are
+    clipped, every other pair is 0.  Exact whenever no row has more than
+    k such partners.
+
+    Partners are ranked by centre distance with a stable sort, so among
+    equal distances the lower column comes first, as `jax.lax.top_k`
+    orders them (`torch.topk` promises no order).  A NaN box is never a
+    candidate (its comparisons are false), and the pairs are gathered and
+    scattered natively, so it changes no other pair.
+    """
+    lead = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    d, t = a.shape[-2], b.shape[-2]
+    cd2 = center_distance2(a[..., :, None, :], b[..., None, :, :])
+    rd = box_radius(a)[..., :, None] + box_radius(b)[..., None, :]
+    cand = cd2 <= rd * rd
+    score, idx = torch.sort(torch.where(cand, -cd2, _NEG_BIG), dim=-1,
+                            descending=True, stable=True)
+    live = score[..., :k] > _NEG_BIG * 0.5
+    idx = idx[..., :k]
+    bk = torch.gather(b[..., None, :, :].expand(lead + (d, t, 5)), -2,
+                      idx[..., None].expand(lead + (d, k, 5)))
+    inter_k = rotated_intersection(a[..., :, None, :], bk)
+    out = inter_k.new_zeros(lead + (d, t))
+    return out.scatter_(-1, idx, torch.where(live, inter_k, 0.0))
+
+
+def _universal_iou_matrix_topk(a: torch.Tensor, b: torch.Tensor, k: int):
+    """(iou, valid) [..., D, T] on `rotated_intersection_topk`."""
+    inter = rotated_intersection_topk(a, b, k)
+    union = box_area(a)[..., :, None] + box_area(b)[..., None, :] - inter
+    valid = (inter > 0.0) & (union > 0.0)
+    iou = torch.where(valid, inter / torch.where(valid, union, 1.0), 0.0)
+    return iou, valid
+
+
+def aligned_intersection_ltwh(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Axis-aligned intersection of LTWH boxes [..., 4]."""
+    ax0, ay0 = a[..., 0], a[..., 1]
+    ax1, ay1 = ax0 + a[..., 2], ay0 + a[..., 3]
+    bx0, by0 = b[..., 0], b[..., 1]
+    bx1, by1 = bx0 + b[..., 2], by0 + b[..., 3]
+    iw = torch.minimum(ax1, bx1) - torch.maximum(ax0, bx0)
+    ih = torch.minimum(ay1, by1) - torch.maximum(ay0, by0)
+    return torch.where((iw > 0.0) & (ih > 0.0), iw * ih, 0.0)
+
+
+def aligned_iou_ltwh(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """IoU of LTWH boxes [..., 4] (the BoundingBox metric)."""
+    inter = aligned_intersection_ltwh(a, b)
+    union = a[..., 2] * a[..., 3] + b[..., 2] * b[..., 3] - inter
+    return inter / union

@@ -33,8 +33,10 @@ def nms_kernel(boxes: torch.Tensor, valid: torch.Tensor,
 
     suppress[i, j] (i before j in rank): intersection(i, j) / area(j) >
     threshold, the reference's asymmetric criterion.  `oriented` is static:
-    False takes the exact axis-aligned intersection.  `neighbors` > 0 (the
-    radius-pruned top-k clip) is not ported yet; -1 and 0 mean dense.
+    False takes the exact axis-aligned intersection.  `neighbors` > 0 clips
+    only each box's `neighbors` nearest in-radius partners
+    (`geometry.rotated_intersection_topk`, one more slot for the box
+    itself); -1 and 0 mean dense.
 
     The block-skip route x-sorts the boxes (stable; invalid ones last),
     takes the intersection matrix from the tile-skipping clip kernel
@@ -56,7 +58,9 @@ def nms_kernel(boxes: torch.Tensor, valid: torch.Tensor,
         rank = perm
         inter = oriented_inter_blockskip(boxes, boxes)
     elif oriented and 0 < neighbors < n:
-        raise NotImplementedError(geo.TOPK_NOT_PORTED)
+        # +1: the self-pair (distance 0) takes one of each row's slots
+        inter = geo.rotated_intersection_topk(boxes, boxes,
+                                              min(neighbors + 1, n))
     elif oriented:
         inter = geo.rotated_intersection(boxes[:, None, :], boxes[None, :, :])
     else:

@@ -8,8 +8,10 @@ from .mesh import (  # noqa: F401
     Mesh,
     batched_sort_scan,
     batched_sort_step,
+    batched_sort_step_chunked,
     batched_visual_scan,
     batched_visual_step,
+    batched_visual_step_chunked,
     batched_visual_step_inplace,
     new_batched_state,
     new_batched_visual_state,

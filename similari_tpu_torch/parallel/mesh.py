@@ -19,8 +19,11 @@ Across cards the scene axis is sharded over the ranks of a
 `pod_mesh`).  Each rank holds its own block of scenes
 (`shard_batched_state`) and steps it with the batched code above; the
 JAX package's `psum`s become `all_reduce(SUM)` of int32 counts.  CUDA
-tensors take the NCCL backend, CPU tensors (`device="cpu"`) gloo.  The
-scene-chunked variants are not ported yet (ROADMAP).
+tensors take the NCCL backend, CPU tensors (`device="cpu"`) gloo.
+
+`batched_sort_step_chunked` / `batched_visual_step_chunked` step the
+scene axis in slices one after another, which bounds the [S, D, T]
+temporaries of one step.
 """
 
 from __future__ import annotations
@@ -76,6 +79,51 @@ def batched_sort_step(cfg: SortConfig):
     return step
 
 
+def _put_scenes(dst, src, start: int) -> None:
+    """dst[start:start + s] = src for every tensor of the dataclasses src
+    [s, ...] and dst [S, ...], nested ones included."""
+    if dataclasses.is_dataclass(src):
+        for f in dataclasses.fields(src):
+            _put_scenes(getattr(dst, f.name), getattr(src, f.name), start)
+    else:
+        dst[start:start + src.shape[0]].copy_(src)
+
+
+def _chunk_scenes(vstep, chunk: int):
+    """`vstep` over the scene axis in slices of `chunk` scenes, one after
+    another, each slice's new states and outputs copied into [S, ...]
+    results as it ends, so one slice's temporaries are alive at a time.
+    S <= chunk calls `vstep` directly; otherwise `chunk` must divide S.
+    Each slice steps views of the input states, which the steps never
+    write, so no slice sees another's results."""
+
+    def step(states, *args):
+        s = states.active.shape[0]
+        if s <= chunk:
+            return vstep(states, *args)
+        if s % chunk:
+            raise ValueError(f"{s} scenes are not a multiple of the chunk "
+                             f"of {chunk}")
+        out = None
+        for i in range(0, s, chunk):
+            part = vstep(map_tensors(lambda a: a[i:i + chunk], states),
+                         *(a[i:i + chunk] for a in args))
+            if out is None:
+                out = [map_tensors(
+                    lambda a: a.new_empty((s,) + a.shape[1:]), p)
+                    for p in part]
+            for o, p in zip(out, part):
+                _put_scenes(o, p, i)
+        return tuple(out)
+
+    return step
+
+
+def batched_sort_step_chunked(cfg: SortConfig, chunk: int):
+    """`batched_sort_step` over slices of `chunk` scenes (`_chunk_scenes`)."""
+    return _chunk_scenes(batched_sort_step(cfg), chunk)
+
+
 def batched_sort_scan(cfg: SortConfig):
     """Frames of S scenes: (states, det_box [N, S, D, 5], det_conf and
     det_valid [N, S, D], epochs0 int[S]) -> (states, (track_id [N, S, D],
@@ -104,6 +152,12 @@ def batched_visual_step(cfg: VisualConfig):
         return visual_step(cfg, states, *args)
 
     return step
+
+
+def batched_visual_step_chunked(cfg: VisualConfig, chunk: int):
+    """`batched_visual_step` over slices of `chunk` scenes
+    (`_chunk_scenes`); the in-place form would write into the slices."""
+    return _chunk_scenes(batched_visual_step(cfg), chunk)
 
 
 def batched_visual_step_inplace(cfg: VisualConfig):

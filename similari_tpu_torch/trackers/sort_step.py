@@ -68,7 +68,9 @@ class SortConfig:
     assignment: str = "auto"  # "auto" | "auction" | "hungarian" | "native"
     # static flag: False uses the exact axis-aligned IoU
     oriented: bool = True
-    # > 0 asks for the radius-pruned top-k clip, not ported yet
+    # > 0: the oriented IoU clips only each detection's k nearest in-radius
+    # tracks (geometry.rotated_intersection_topk) when capacity >= 4k; the
+    # sorted path, where it applies, comes first
     oriented_neighbors: int = 0
     # retire tracks idle past max_idle_epochs at the top of every step so
     # the static capacity bounds live tracks

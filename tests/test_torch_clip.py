@@ -220,6 +220,13 @@ def test_nms_routes_and_gate():
     assert not use_block_skip(None, False, 0, 1000, cuda)
     assert use_block_skip(True, True, 0, 8, cpu)
     assert not use_block_skip(False, True, 0, 1000, cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        nms_kernel(torch.zeros(8, 5), torch.ones(8, dtype=torch.bool), 0.5,
-                   neighbors=2)
+    assert not use_block_skip(None, True, 2, 1000, cuda)
+    # neighbors > 0 takes the top-k clip: the row of overlapping boxes
+    # keeps every other box with each box's 2 nearest partners clipped
+    b = np.zeros((8, 5), np.float32)
+    b[:, 0] = np.arange(8) * 12.0
+    b[:, 2:] = (0.2, 1.0, 20.0)
+    valid = torch.ones(8, dtype=torch.bool)
+    keep = nms_kernel(torch.tensor(b), valid, 0.3, neighbors=2)
+    assert torch.equal(keep, torch.arange(8) % 2 == 0)
+    assert torch.equal(keep, nms_kernel(torch.tensor(b), valid, 0.3))

@@ -122,12 +122,29 @@ def test_universal_iou_matrix_matches_jax(oriented):
 
 
 def test_topk_neighbors_not_ported():
-    a = torch.zeros(4, 5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PG.universal_iou_matrix(a, torch.zeros(8, 5), True, neighbors=2)
-    # neighbors >= T falls back to dense, as in the JAX package
-    iou, _ = PG.universal_iou_matrix(a, torch.zeros(8, 5), True, neighbors=8)
-    assert iou.shape == (4, 8)
+    """The radius-pruned top-k route (named for when it was missing): 0 <
+    neighbors < T takes it, each row keeping its 2 nearest partners, equal
+    to JAX's; neighbors >= T and aligned boxes take the dense form, as in
+    the JAX package (tests/test_torch_topk.py holds the rest)."""
+    rng = np.random.default_rng(4)
+    a = random_boxes(rng, 4, spread=40.0)
+    b = random_boxes(rng, 8, spread=40.0)
+    iou, valid = PG.universal_iou_matrix(torch.tensor(a), torch.tensor(b),
+                                         True, neighbors=2)
+    j = G.universal_iou_matrix(jnp.asarray(a), jnp.asarray(b), True,
+                               neighbors=2)
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(j[1]))
+    np.testing.assert_allclose(iou.numpy(), np.asarray(j[0]), rtol=TOL,
+                               atol=TOL)
+    assert int(valid.sum(1).max()) == 2
+    dense = PG.universal_iou_matrix(torch.tensor(a), torch.tensor(b), True)
+    assert int(dense[1].sum(1).max()) > 2
+    for nbrs, oriented in ((8, True), (2, False)):
+        got = PG.universal_iou_matrix(torch.tensor(a), torch.tensor(b),
+                                      oriented, neighbors=nbrs)
+        want = PG.universal_iou_matrix(torch.tensor(a), torch.tensor(b),
+                                       oriented)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def _v(*args):
