@@ -183,10 +183,27 @@ Phases:
      Frames/s, ms per call, scene-frames/s and peak device memory of
      each; then, outside the counted window, the sorted clip-kernel path
      and block-skip NMS on the same frames for comparison;
- 24. one `kernels` JSON line (the clip's and the merge's launches include
+ 24. the benchmark entry points (`similari_tpu_torch/bench.py`,
+     `bench_interactive.py`): the workloads of bench.py's rows
+     `sort_iou_100_pallas` and `visual_sort_100x512_pallas` (64 frames,
+     chunk 32: the fused kernels and `gallery_dots`),
+     `sort_iou_oriented_500` and `nms_oriented_1000` (16 frames: the clip
+     kernel), `sort_iou_oriented_100` and `nms_oriented_100` (16 frames,
+     below the clip kernel's gates: no launch) and
+     `batch_visual_64x100x512` (8 frames: the merge kernel) called once
+     each on the card with every launch counter zeroed before and read
+     after, the fused rows' ids equal to the same workload through the
+     plain chunks on the card and the batched row's to the batched step;
+     then `python -m similari_tpu_torch.bench` under BENCH_FAST=1 and
+     `python -m similari_tpu_torch.bench_interactive --objects 10 100
+     --reps 5 --captures 1` with `--engine host` and `--engine device`,
+     each rc 0 with a parseable last line whose numbers are all finite
+     and positive and which records no `_error`;
+ 25. one `kernels` JSON line (the clip's and the merge's launches include
      the API paths', phase 17's device Sort's and phase 18's; the fused
      SORT kernel's, phase 19's; the fused kernels' and `gallery_dots`',
-     phases 20 and 22; phase 23 adds none), then the result line.
+     phases 20 and 22; phase 23 adds none; every kernel's, phase 24's),
+     then the result line.
 
 The fused-kernel checks take the main path's configurations from the
 runners' own builders, the other configurations and the crowded stream
@@ -229,6 +246,7 @@ from similari_tpu_torch import (  # noqa: E402
     Universal2DBoxKalmanFilter, Vec2DKalmanFilter, VisualSort,
     VisualSortMetricType, VisualSortObservation, VisualSortOptions,
     VisualSortPredictionBatchRequest, _build, nms)
+from similari_tpu_torch import bench as pbench  # noqa: E402
 from similari_tpu_torch import native  # noqa: E402
 from similari_tpu_torch.core import (  # noqa: E402
     ObservationBuilder, TopNVoting, TrackStoreBuilder)
@@ -3613,6 +3631,158 @@ def phase_last_forms(dev):
         f"2e-3 / 1e-2 of quad_intersection_area")
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the benchmark entry points (similari_tpu_torch/bench.py and
+# bench_interactive.py)
+# ---------------------------------------------------------------------------
+
+# (bench.py configuration, frames, launches its workload must make there):
+# the rows that reach each kernel, and the two oriented rows below the
+# clip kernel's gates (T >= 512 slots and D >= 64 for SORT, n >= 512 for
+# NMS), which take the dense path
+BENCH_ROWS = (
+    ("sort_iou_100_pallas", 64, {"fused_sort": 2}),
+    ("visual_sort_100x512_pallas", 64, {"fused_visual": 2,
+                                        "gallery_dots": 2}),
+    ("sort_iou_oriented_100", 16, {}),
+    ("sort_iou_oriented_500", 16, {"clip_pairs": 16}),
+    ("nms_oriented_100", 16, {}),
+    ("nms_oriented_1000", 16, {"clip_pairs": 16}),
+    ("batch_visual_64x100x512", 8, {"lane_merge": 16}),
+)
+BENCH_CMDS = (
+    ("bench.py BENCH_FAST=1", ["similari_tpu_torch.bench"],
+     {"BENCH_FAST": "1"}),
+    *((f"bench_interactive --engine {e}",
+       ["similari_tpu_torch.bench_interactive", "--objects", "10", "100",
+        "--reps", "5", "--captures", "1", "--engine", e], {})
+      for e in ("host", "device")),
+)
+BENCH_TIMEOUT = 400  # s for the entry-point processes
+
+
+def bench_references(dev, c, frames):
+    """{form: ids} of bench row `c` from other forms on the card: the fused
+    scans through the plain chunks and through the kernels at the runners'
+    chunk (CHUNK, 16: bench.py's 32 must give its ids), the in-place
+    batched step's plain form (`scene_chunk` = S: the batched step).
+    Empty for the rows other phases hold (the clip against its plain
+    version: phases 5-7)."""
+    def ids(**kw):
+        return c.build(*c.args, frames, device=dev, **{**c.kwargs, **kw}
+                       ).run(frames)[0]
+
+    if c.build in (pbench.sort_pallas_workload,
+                   pbench.visual_pallas_workload):
+        with plain_chunks():
+            plain = ids()
+        return {"the plain chunks": plain,
+                f"the kernels at chunk {CHUNK}": ids(chunk=CHUNK)}
+    if c.build is pbench.batch_visual_workload:
+        return {"the batched step": ids(scene_chunk=c.args[0])}
+    return {}
+
+
+def finite_positive(label, value):
+    """Every number in `value` (nested lists and dicts) finite and > 0."""
+    if isinstance(value, dict):
+        for k, v in value.items():
+            finite_positive(f"{label}.{k}", v)
+    elif isinstance(value, list):
+        for v in value:
+            finite_positive(label, v)
+    elif isinstance(value, (int, float)) and not isinstance(value, bool):
+        if not (np.isfinite(value) and value > 0):
+            raise AssertionError(f"{label} = {value}")
+
+
+def run_entry_points(cmds):
+    """Each (label, `python -m` arguments, extra environment) of `cmds`
+    as a process from the checkout, all at once (a smoke check: their
+    times are not measurements), its output in files; every one must exit
+    0.  Returns [(label, its last stdout line parsed, its stderr)]; a
+    process still running after BENCH_TIMEOUT, or left when one fails,
+    is killed."""
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as st:
+        procs = []
+        for i, (label, args, env) in enumerate(cmds):
+            files = [st.enter_context(open(Path(tmp) / f"{i}.{k}", "w+"))
+                     for k in ("out", "err")]
+            procs.append((label, files, subprocess.Popen(
+                [sys.executable, "-m", *args], cwd=root,
+                env={**os.environ, **env}, stdout=files[0], stderr=files[1],
+                text=True)))
+        out = []
+        deadline = time.monotonic() + BENCH_TIMEOUT
+        try:
+            for label, files, proc in procs:
+                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+                stdout, stderr = (f.seek(0) or f.read() for f in files)
+                if proc.returncode != 0:
+                    raise AssertionError(
+                        f"[24] {label}: rc {proc.returncode}\n"
+                        f"{stderr[-4000:]}\n{stdout[-2000:]}")
+                out.append((label, json.loads(
+                    stdout.strip().splitlines()[-1]), stderr))
+        finally:
+            for _, _, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    return out
+
+
+def phase_bench(dev):
+    """Phase 24: each BENCH_ROWS workload of the port's bench.py called
+    once on the card, every launch counter zeroed before and read after
+    (the kernels' outputs held to their plain forms where no other phase
+    does); then both entry points as processes: bench.py under
+    BENCH_FAST=1 and bench_interactive on both engines, rc 0, a parseable
+    last line, every number in it finite and positive, no `_error`.
+    Returns the launches of the rows by counter."""
+    card = gpu_line()
+    configs = {c.name: c for c in pbench.CONFIGS}
+    launches = dict.fromkeys(COUNTERS, 0)
+    for name, frames, want in BENCH_ROWS:
+        c = configs[name]
+        w = c.build(*c.args, frames, device=dev, **c.kwargs)
+        zero_counts()
+        with DeviceTimer(dev) as timer:
+            out = w.run(frames)
+        counts = read_counts()
+        expect_counts(f"[24] {name}", counts, want)
+        for k, v in counts.items():
+            launches[k] += v
+        refs = bench_references(dev, c, frames)
+        for form, ref in refs.items():
+            if not torch.equal(out[0], ref):
+                raise AssertionError(f"[24] {name}: ids differ from {form}")
+        log(f"[24] {name}: {frames} frames in {timer.seconds * 1e3:.1f} ms "
+            f"(first call, CUDA events), launches {counts}"
+            + (f"; ids equal to {' and to '.join(refs)} on the card"
+               if refs else ""))
+    t0 = time.perf_counter()
+    results = run_entry_points(BENCH_CMDS)
+    secs = time.perf_counter() - t0
+    for label, line, err in results:
+        rows = line.get("extra", line.get("rows"))
+        errors = [k for k in rows if k.endswith("_error")]
+        if errors or not rows:
+            raise AssertionError(f"[24] {label}: errors {errors}\n"
+                                 f"{err[-4000:]}")
+        finite_positive(label, line)
+        for ln in err.splitlines():
+            if ln.strip():
+                log(f"[24]   {ln}")
+        log(f"[24] {label}: rc 0, {len(rows)} values, all finite and "
+            f"positive; last line {json.dumps(line)[:1500]}")
+    log(f"[24] the {len(BENCH_CMDS)} entry-point processes, run at once, "
+        f"ended in {secs:.1f} s")
+    log(f"[24] launches of the bench rows {launches}; {card}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=256)
@@ -3716,10 +3886,14 @@ def main(argv=None) -> int:
     stamp("phase 22 done")
     phase_last_forms(dev)
     stamp("phase 23 done")
+    bench = phase_bench(dev)
+    stamp("phase 24 done")
     for k in kernels[:3]:
-        k["launches"] += zero_height[k["name"]] + kit[k["name"]]
-    clip_entry["launches"] += api_clip + host_clip + sharded_clip
-    merge_entry["launches"] += api_merge + sharded_merge
+        k["launches"] += (zero_height[k["name"]] + kit[k["name"]]
+                          + bench[k["name"]])
+    clip_entry["launches"] += (api_clip + host_clip + sharded_clip
+                               + bench["clip_pairs"])
+    merge_entry["launches"] += api_merge + sharded_merge + bench["lane_merge"]
     log(f"[16] launches on the API paths: clip {api_clip} (Sort, nms()), "
         f"merge {api_merge} (BatchVisualSort); [17] clip {host_clip} (the "
         f"device Sort beside the host engine; the host engines launch "
@@ -3728,7 +3902,8 @@ def main(argv=None) -> int:
         f"oriented boxes on the dense path); [19] fused_sort "
         f"{file_launches} (the MOT-file route, three files); [20] "
         f"{zero_height} (the fused runners on zero-height streams); [22] "
-        f"{kit} (the fused runners on the kit's sequences)")
+        f"{kit} (the fused runners on the kit's sequences); [24] {bench} "
+        f"(the bench rows)")
     log(json.dumps({"kernels": kernels, "not_ported": []}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -14,7 +14,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "similari_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "similari_tpu")
+# the JAX package, and the JAX package's benchmark scripts at the root
+FORBIDDEN = ("jax", "jaxlib", "similari_tpu", "bench", "bench_interactive")
 
 
 def _forbidden(name: str) -> bool:
@@ -70,7 +71,9 @@ def test_import_leaves_jax_out_of_sys_modules():
               "similari_tpu_torch.parallel.handoff",
               "similari_tpu_torch.parallel.dryrun",
               "similari_tpu_torch.utils.checkpoint",
-              "similari_tpu_torch.utils.profiling"):
+              "similari_tpu_torch.utils.profiling",
+              "similari_tpu_torch.bench",
+              "similari_tpu_torch.bench_interactive"):
         assert m in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -171,3 +174,6 @@ def test_forbidden_matches_only_the_jax_package():
     assert _forbidden("jax.numpy")
     assert not _forbidden("similari_tpu_torch")
     assert not _forbidden("similari_tpu_torch.ops.fused_sort")
+    assert _forbidden("bench") and _forbidden("bench_interactive")
+    assert not _forbidden("similari_tpu_torch.bench")
+    assert not _forbidden("benchmark")
