@@ -199,11 +199,29 @@ Phases:
      --reps 5 --captures 1` with `--engine host` and `--engine device`,
      each rc 0 with a parseable last line whose numbers are all finite
      and positive and which records no `_error`;
- 25. one `kernels` JSON line (the clip's and the merge's launches include
+ 25. the remaining entry points, as processes from the checkout, all at
+     once: `python -m similari_tpu_torch.bench_pod --devices 1` with
+     `--tracker both` and `--tracker gallery` at 8 scenes x 100 objects,
+     16 frames (rc 0, every number finite and positive, no `_error`, the
+     visual rows' merge launches 2 a frame over the warm-up and both
+     measured runs), `tools.profile_gallery` and `tools.profile_oriented`
+     (finite numbers, the device Sort's oriented-500 call one clip launch
+     a call), and the examples `batch_scenes_device` (on the card and
+     with `--device cpu`: the same lines), `visual_pallas_pipeline` (the
+     step and fused engines' ids equal) and `cross_camera_handoff` (one
+     NCCL rank a card, at most 4); meanwhile, in this process, the
+     adversarial suite's `crossing` (every SORT axis) and `reid_crossing`
+     (every VisualSORT axis) at seed 0 over 120 frames on the card, every
+     launch counter zeroed before and read after: each axis within 0.5 pt
+     MOTA / IDF1 of its host axis, the fused axis's ids equal to the
+     auction axis's (or within 0.5 pt), `fused_visual_kernel` and
+     `gallery_dots` launched once a chunk, no other kernel;
+ 26. one `kernels` JSON line (the clip's and the merge's launches include
      the API paths', phase 17's device Sort's and phase 18's; the fused
      SORT kernel's, phase 19's; the fused kernels' and `gallery_dots`',
-     phases 20 and 22; phase 23 adds none; every kernel's, phase 24's),
-     then the result line.
+     phases 20 and 22; phase 23 adds none; every kernel's, phase 24's;
+     the fused visual kernel's, `gallery_dots`' and the merge's, phase
+     25's), then the result line.
 
 The fused-kernel checks take the main path's configurations from the
 runners' own builders, the other configurations and the crowded stream
@@ -3683,54 +3701,60 @@ def bench_references(dev, c, frames):
     return {}
 
 
-def finite_positive(label, value):
-    """Every number in `value` (nested lists and dicts) finite and > 0."""
+def finite_positive(label, value, positive=True):
+    """Every number in `value` (nested lists and dicts) finite and, unless
+    `positive` is False, > 0."""
     if isinstance(value, dict):
         for k, v in value.items():
-            finite_positive(f"{label}.{k}", v)
+            finite_positive(f"{label}.{k}", v, positive)
     elif isinstance(value, list):
         for v in value:
-            finite_positive(label, v)
+            finite_positive(label, v, positive)
     elif isinstance(value, (int, float)) and not isinstance(value, bool):
-        if not (np.isfinite(value) and value > 0):
+        if not (np.isfinite(value) and (value > 0 or not positive)):
             raise AssertionError(f"{label} = {value}")
 
 
-def run_entry_points(cmds):
+def run_entry_points(cmds, meanwhile=None, label="[24]"):
     """Each (label, `python -m` arguments, extra environment) of `cmds`
     as a process from the checkout, all at once (a smoke check: their
-    times are not measurements), its output in files; every one must exit
-    0.  Returns [(label, its last stdout line parsed, its stderr)]; a
-    process still running after BENCH_TIMEOUT, or left when one fails,
-    is killed."""
+    times are not measurements), its output in files; while they run,
+    `meanwhile()` runs here.  Every one must exit 0.  Returns
+    [(label, its stdout, its stderr)] and `meanwhile`'s result; a process
+    still running after BENCH_TIMEOUT, or left when one fails, is
+    killed."""
     root = Path(__file__).resolve().parent
     with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as st:
         procs = []
-        for i, (label, args, env) in enumerate(cmds):
+        for i, (name, args, env) in enumerate(cmds):
             files = [st.enter_context(open(Path(tmp) / f"{i}.{k}", "w+"))
                      for k in ("out", "err")]
-            procs.append((label, files, subprocess.Popen(
+            procs.append((name, files, subprocess.Popen(
                 [sys.executable, "-m", *args], cwd=root,
                 env={**os.environ, **env}, stdout=files[0], stderr=files[1],
                 text=True)))
         out = []
         deadline = time.monotonic() + BENCH_TIMEOUT
         try:
-            for label, files, proc in procs:
+            extra = meanwhile() if meanwhile else None
+            for name, files, proc in procs:
                 proc.wait(timeout=max(1.0, deadline - time.monotonic()))
                 stdout, stderr = (f.seek(0) or f.read() for f in files)
                 if proc.returncode != 0:
                     raise AssertionError(
-                        f"[24] {label}: rc {proc.returncode}\n"
+                        f"{label} {name}: rc {proc.returncode}\n"
                         f"{stderr[-4000:]}\n{stdout[-2000:]}")
-                out.append((label, json.loads(
-                    stdout.strip().splitlines()[-1]), stderr))
+                out.append((name, stdout, stderr))
         finally:
             for _, _, proc in procs:
                 if proc.poll() is None:
                     proc.kill()
                     proc.wait()
-    return out
+    return out, extra
+
+
+def last_json(stdout):
+    return json.loads(stdout.strip().splitlines()[-1])
 
 
 def phase_bench(dev):
@@ -3763,9 +3787,10 @@ def phase_bench(dev):
             + (f"; ids equal to {' and to '.join(refs)} on the card"
                if refs else ""))
     t0 = time.perf_counter()
-    results = run_entry_points(BENCH_CMDS)
+    results, _ = run_entry_points(BENCH_CMDS)
     secs = time.perf_counter() - t0
-    for label, line, err in results:
+    for label, stdout, err in results:
+        line = last_json(stdout)
         rows = line.get("extra", line.get("rows"))
         errors = [k for k in rows if k.endswith("_error")]
         if errors or not rows:
@@ -3781,6 +3806,162 @@ def phase_bench(dev):
         f"ended in {secs:.1f} s")
     log(f"[24] launches of the bench rows {launches}; {card}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 25: the remaining entry points (similari_tpu_torch/bench_pod.py,
+# tools/, examples/)
+# ---------------------------------------------------------------------------
+
+POD_FRAMES, POD_REPS = 16, 2  # bench_pod's runs: a warm-up and the reps
+POD_ARGS = ["--devices", "1", "--scenes-per-device", "8", "--objects", "100",
+            "--base-len", str(POD_FRAMES), "--point-reps", str(POD_REPS)]
+ENTRY_CMDS = (
+    ("bench_pod --tracker both", ["similari_tpu_torch.bench_pod",
+                                  *POD_ARGS, "--tracker", "both"], {}),
+    ("bench_pod --tracker gallery", ["similari_tpu_torch.bench_pod",
+                                     *POD_ARGS, "--tracker", "gallery"], {}),
+    ("tools.profile_gallery", ["similari_tpu_torch.tools.profile_gallery",
+                               "--devices", "1", "--scenes-per-device", "8",
+                               "--calls", "16", "--point-reps", "2"], {}),
+    ("tools.profile_oriented", ["similari_tpu_torch.tools.profile_oriented",
+                                "--reps", "10", "--profiled", "8"], {}),
+    *((f"examples.{name}{' --device cpu' if cpu else ''}",
+       [f"similari_tpu_torch.examples.{name}",
+        *(["--device", "cpu"] if cpu else [])], {})
+      for name, cpu in (("batch_scenes_device", False),
+                        ("batch_scenes_device", True),
+                        ("visual_pallas_pipeline", False),
+                        ("cross_camera_handoff", False))),
+)
+ADV_FRAMES = 120  # the adversarial scenarios' frames here (the suite: 240)
+
+
+def adversarial_on_card(dev):
+    """The adversarial suite's `crossing` (every SORT axis) and
+    `reid_crossing` (every VisualSORT axis, the fused one included), seed
+    0, ADV_FRAMES frames, on the card, every launch counter zeroed before
+    and read after.  Returns ({(scenario, axis): (MOTA, IDF1)}, the
+    fused axis's and the auction axis's predictions, launches)."""
+    from similari_tpu_torch.tools import adversarial_suite as adv
+
+    zero_counts()
+    scores, preds = {}, {}
+    for runner, axes in ((adv.SortRunner("crossing", dev), adv.SORT_AXES),
+                         (adv.VisualRunner("reid_crossing", dev),
+                          adv.REID_AXES["reid_crossing"])):
+        streams = runner.make(0, n_frames=ADV_FRAMES)
+        for axis in axes:
+            pred = runner.run(axis, streams)
+            scores[runner.scenario, axis] = adv.score(streams[0], pred)
+            preds[axis] = pred
+    return scores, preds, read_counts()
+
+
+def check_adversarial(scores, preds, counts, card):
+    expect_launched("[25] the adversarial suite", counts,
+                    ("fused_visual", "gallery_dots"))
+    if counts["fused_visual"] != counts["gallery_dots"]:
+        raise AssertionError(f"[25] launches {counts}: one product a chunk")
+    worst = 0.0
+    for (scenario, axis), (mota, idf1) in scores.items():
+        base = scores[scenario, "host" if scenario == "crossing"
+                      else "vhost"]
+        worst = max(worst, abs(mota - base[0]), abs(idf1 - base[1]))
+    fused, auction = preds["vfused"], preds["vauction"]
+    same = fused.keys() == auction.keys() and all(
+        [r[0] for r in fused[f]] == [r[0] for r in auction[f]]
+        for f in fused)
+    d = [abs(a - b) for a, b in zip(scores["reid_crossing", "vfused"],
+                                    scores["reid_crossing", "vauction"])]
+    if not same and max(d) > 0.5:
+        raise AssertionError(f"[25] vfused against vauction: deltas {d}")
+    log("[25] adversarial suite on the card, seed 0, "
+        f"{ADV_FRAMES} frames: " + "; ".join(
+            f"{sc} {ax} MOTA {m:.2f} IDF1 {i:.2f}"
+            for (sc, ax), (m, i) in scores.items()))
+    log(f"[25] worst |delta| against each scenario's host axis {worst:.3f} "
+        f"pt (bar 0.5); vfused ids {'equal to' if same else 'differ from'} "
+        f"vauction's (|dMOTA|, |dIDF1| {d[0]:.3f}, {d[1]:.3f} pt); "
+        f"launches {counts}; {card}")
+    if worst > 0.5:
+        raise AssertionError(f"[25] an axis is {worst:.3f} pt off its host "
+                             "axis")
+
+
+def check_pod(label, line):
+    rows = line["rows"]
+    errors = [k for k in rows if k.endswith("_error")]
+    if errors or not rows:
+        raise AssertionError(f"[25] {label}: rows {rows}")
+    finite_positive(label, line)
+    if "visual_n1_scene_fps" in rows:
+        want = 2 * POD_FRAMES * (POD_REPS + 1)
+        got = line["launches"]["visual_n1"]["lane_merge"]
+        if got != want:
+            raise AssertionError(f"[25] {label}: {got} merge launches, "
+                                 f"expected {want}")
+        return got
+    return 0
+
+
+def check_profilers(results):
+    gallery = last_json(results["tools.profile_gallery"])
+    oriented = last_json(results["tools.profile_oriented"])
+    for label, line in (("profile_gallery", gallery),
+                        ("profile_oriented", oriented)):
+        finite_positive(label, line, positive=False)
+    row = gallery["rows"]["n1"]
+    finite_positive("profile_gallery", {k: row[k] for k in (
+        "full_ms", "scoring_ms", "qps_total", "gather_payload_bytes",
+        "gallery_lanes")})
+    finite_positive("profile_oriented", {k: oriented[k] for k in (
+        "oriented_full_ms", "oriented_native_ms", "aligned_native_ms",
+        "device_call_ms", "device_busy_ms_per_call", "kernels_per_call",
+        "clip_device_ms_per_launch", "pair_weight_calls")})
+    if oriented["clip_launches_per_call"] != 1:
+        raise AssertionError(f"[25] the device Sort's oriented-500 call: "
+                             f"{oriented['clip_launches_per_call']} clip "
+                             "launches a call, expected 1")
+    return gallery, oriented
+
+
+def phase_entry_points(dev):
+    """Phase 25: the remaining entry points.  bench_pod (both trackers and
+    the gallery), both profilers and three examples run as processes
+    from the checkout, all at once; meanwhile, in this process, the
+    adversarial suite's `crossing` and `reid_crossing` on the card with
+    every launch counter zeroed before and read after.  Returns the
+    launches by counter: the suite's, and bench_pod's merge launches."""
+    card = gpu_line()
+    t0 = time.perf_counter()
+    results, (scores, preds, counts) = run_entry_points(
+        ENTRY_CMDS, lambda: adversarial_on_card(dev), label="[25]")
+    secs = time.perf_counter() - t0
+    out = {name: stdout for name, stdout, _ in results}
+    check_adversarial(scores, preds, counts, card)
+    merge = 0
+    for label in ("bench_pod --tracker both", "bench_pod --tracker gallery"):
+        line = last_json(out[label])
+        merge += check_pod(label, line)
+        log(f"[25] {label}: rc 0, every number finite and positive; "
+            f"{json.dumps(line)}")
+    gallery, oriented = check_profilers(out)
+    log(f"[25] profile_gallery n=1: {json.dumps(gallery['rows']['n1'])}")
+    log(f"[25] profile_oriented: {json.dumps(oriented)}")
+    card_ids, cpu_ids = (out[f"examples.batch_scenes_device{s}"]
+                         for s in ("", " --device cpu"))
+    if card_ids != cpu_ids:
+        raise AssertionError(f"[25] batch_scenes_device on the card printed "
+                             f"{card_ids!r}, on the CPU {cpu_ids!r}")
+    for name in ("batch_scenes_device", "visual_pallas_pipeline",
+                 "cross_camera_handoff"):
+        log(f"[25] examples.{name} on the card: rc 0; "
+            + " | ".join(out[f"examples.{name}"].strip().splitlines()))
+    log(f"[25] batch_scenes_device printed the same lines on the card and "
+        f"on the CPU; the {len(ENTRY_CMDS)} processes and the suite, run "
+        f"at once, ended in {secs:.1f} s; {card}")
+    return {**counts, "lane_merge": counts["lane_merge"] + merge}
 
 
 def main(argv=None) -> int:
@@ -3888,12 +4069,15 @@ def main(argv=None) -> int:
     stamp("phase 23 done")
     bench = phase_bench(dev)
     stamp("phase 24 done")
+    entry = phase_entry_points(dev)
+    stamp("phase 25 done")
     for k in kernels[:3]:
         k["launches"] += (zero_height[k["name"]] + kit[k["name"]]
-                          + bench[k["name"]])
+                          + bench[k["name"]] + entry[k["name"]])
     clip_entry["launches"] += (api_clip + host_clip + sharded_clip
                                + bench["clip_pairs"])
-    merge_entry["launches"] += api_merge + sharded_merge + bench["lane_merge"]
+    merge_entry["launches"] += (api_merge + sharded_merge
+                                + bench["lane_merge"] + entry["lane_merge"])
     log(f"[16] launches on the API paths: clip {api_clip} (Sort, nms()), "
         f"merge {api_merge} (BatchVisualSort); [17] clip {host_clip} (the "
         f"device Sort beside the host engine; the host engines launch "
@@ -3903,7 +4087,8 @@ def main(argv=None) -> int:
         f"{file_launches} (the MOT-file route, three files); [20] "
         f"{zero_height} (the fused runners on zero-height streams); [22] "
         f"{kit} (the fused runners on the kit's sequences); [24] {bench} "
-        f"(the bench rows)")
+        f"(the bench rows); [25] {entry} (the adversarial suite's fused "
+        f"axis; bench_pod's visual rows, counted in its process)")
     log(json.dumps({"kernels": kernels, "not_ported": []}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

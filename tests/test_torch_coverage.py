@@ -11,6 +11,12 @@ another name (a port module or a CUDA / C++ source, checked to define
 it), or in `JAX_ONLY`, which gives the reason the name is a form only the
 JAX package needs.  A new JAX name with neither fails the test, and so
 does an entry that no longer names a missing JAX name.
+
+The repo's entry points (`examples/*.py`, `tools/*.py`, the root
+`bench*.py`) each have a port module of the same path under
+`similari_tpu_torch/` with a `main()`, or an entry in `PENDING`, which
+names the ROADMAP item that will port it (an entry that gains a
+counterpart fails), or are the port's own tools (`PORT_TOOLS`).
 """
 
 import ast
@@ -254,3 +260,72 @@ def test_port_modules_exist_for_every_jax_module():
     for path in JAX.rglob("*.py"):
         rel = path.relative_to(JAX).as_posix()
         assert (PORT / MODULES.get(rel, rel)).exists(), rel
+
+
+# ---------------------------------------------------------------------------
+# the repo's entry points: examples/*.py, tools/*.py and the root bench*.py
+# ---------------------------------------------------------------------------
+
+ENTRY_POINTS = sorted(
+    [p.relative_to(ROOT).as_posix() for p in (ROOT / "examples").glob("*.py")]
+    + [p.relative_to(ROOT).as_posix() for p in (ROOT / "tools").glob("*.py")]
+    + [p.name for p in ROOT.glob("bench*.py")])
+
+# tools/*.py files that are the port's own (they drive `similari_tpu_torch`
+# or chip_smoke.py on the card and import no JAX): no counterpart needed
+PORT_TOOLS = {
+    "tools/profile_dots_clip.py",
+    "tools/profile_fused_sort.py",
+    "tools/profile_fused_visual.py",
+    "tools/profile_torch_sort.py",
+}
+
+# JAX entry point -> the ROADMAP item that will port it
+LAST_SLICE = "ROADMAP queue 1 item 6 (the last entry points)"
+PENDING = {
+    "tools/decision_margins.py": LAST_SLICE,
+    "tools/ablate_visual.py": LAST_SLICE,
+    "tools/experiment_batch_merge.py": LAST_SLICE,
+    "tools/experiment_pallas_batch.py": LAST_SLICE,
+    "tools/gen_doc_tables.py": LAST_SLICE,
+}
+
+
+def _entry_counterpart(path: str) -> Path:
+    """examples/x.py -> similari_tpu_torch/examples/x.py, tools/x.py ->
+    similari_tpu_torch/tools/x.py, bench*.py -> similari_tpu_torch/."""
+    return PORT / path
+
+
+def _imports(path: Path):
+    names = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    return names
+
+
+@pytest.mark.parametrize("path", ENTRY_POINTS)
+def test_entry_point_is_ported_or_pending(path):
+    port = _entry_counterpart(path)
+    if path in PORT_TOOLS:
+        bad = [n for n in _imports(ROOT / path)
+               if n.split(".")[0] in ("jax", "jaxlib", "similari_tpu")]
+        assert not bad, f"{path} imports {bad}: not a port tool"
+        return
+    if path in PENDING:
+        assert not port.exists(), (
+            f"{path} is ported to {port}: take it out of PENDING")
+        return
+    assert port.exists(), (f"{path} has no counterpart {port} and no entry "
+                           "in PENDING")
+    assert "main" in _defs(port), f"{port} has no main()"
+
+
+def test_entry_point_tables_name_entry_points():
+    assert len(ENTRY_POINTS) == 22 + 12 + 3
+    assert set(PENDING) <= set(ENTRY_POINTS)
+    assert set(PORT_TOOLS) <= set(ENTRY_POINTS)
+    assert not set(PENDING) & set(PORT_TOOLS)

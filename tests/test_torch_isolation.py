@@ -73,7 +73,12 @@ def test_import_leaves_jax_out_of_sys_modules():
               "similari_tpu_torch.utils.checkpoint",
               "similari_tpu_torch.utils.profiling",
               "similari_tpu_torch.bench",
-              "similari_tpu_torch.bench_interactive"):
+              "similari_tpu_torch.bench_interactive",
+              "similari_tpu_torch.bench_pod",
+              "similari_tpu_torch.tools.adversarial_suite",
+              "similari_tpu_torch.tools.profile_gallery",
+              "similari_tpu_torch.tools.profile_oriented",
+              "similari_tpu_torch.examples.cross_camera_handoff"):
         assert m in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 

@@ -214,6 +214,14 @@ def run_dryrun(inp):
     return {"ok": np.array(True)}
 
 
+def raise_on_rank_one(mesh, _spec):
+    """A rank target of `similari_tpu_torch/bench_pod.py::run_ranks` whose
+    rank 1 raises."""
+    if mesh.shard == 1:
+        raise ValueError(f"rank 1 of {mesh.size} raised")
+    return {}
+
+
 SCENARIOS = {f.__name__[4:]: f for f in (
     run_sort_scan, run_visual_scan, run_sort_step, run_visual_step,
     run_gallery, run_migration, run_merge, run_dryrun)}
