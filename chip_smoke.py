@@ -216,12 +216,28 @@ Phases:
      MOTA / IDF1 of its host axis, the fused axis's ids equal to the
      auction axis's (or within 0.5 pt), `fused_visual_kernel` and
      `gallery_dots` launched once a chunk, no other kernel;
- 26. one `kernels` JSON line (the clip's and the merge's launches include
+ 26. the last entry points, as processes from the checkout, all at once:
+     `python -m similari_tpu_torch.tools.decision_margins --seeds 0`
+     (its artifact in a temporary directory; every scenario's row, the
+     own-area host/device delta at most 1e-6), `tools.
+     experiment_batch_merge` at its full shape (S=256, T=200, K=3, F=512
+     bf16, D=128, 16 steps: the three forms' states bit-equal, the merge
+     kernel's launches 16 a chain), `tools.experiment_pallas_batch` (x1
+     and x2 at chunk 32, D=100, T=400: every scene's ids equal to its
+     lone run through the plain version, `fused_visual_kernel` and
+     `gallery_dots` launched once a scene a chunk) and `tools.ablate_visual
+     256` (every stage and the rest, the merge kernel 2 launches a step
+     in full and merge only, none elsewhere); then `tools.gen_doc_tables`
+     on a temporary copy of README.md, fed phase 24's `bench.py` and
+     host `bench_interactive` lines and phase 26's margins artifact,
+     written there: rc 0, the blocks it was fed regenerated, no byte
+     outside the `port-*` blocks changed;
+ 27. one `kernels` JSON line (the clip's and the merge's launches include
      the API paths', phase 17's device Sort's and phase 18's; the fused
      SORT kernel's, phase 19's; the fused kernels' and `gallery_dots`',
      phases 20 and 22; phase 23 adds none; every kernel's, phase 24's;
-     the fused visual kernel's, `gallery_dots`' and the merge's, phase
-     25's), then the result line.
+     the fused visual kernel's, `gallery_dots`' and the merge's, phases
+     25 and 26, counted in the tools' processes), then the result line.
 
 The fused-kernel checks take the main path's configurations from the
 runners' own builders, the other configurations and the crowded stream
@@ -3764,7 +3780,8 @@ def phase_bench(dev):
     does); then both entry points as processes: bench.py under
     BENCH_FAST=1 and bench_interactive on both engines, rc 0, a parseable
     last line, every number in it finite and positive, no `_error`.
-    Returns the launches of the rows by counter."""
+    Returns the launches of the rows by counter and each entry point's
+    stdout by label."""
     card = gpu_line()
     configs = {c.name: c for c in pbench.CONFIGS}
     launches = dict.fromkeys(COUNTERS, 0)
@@ -3805,7 +3822,7 @@ def phase_bench(dev):
     log(f"[24] the {len(BENCH_CMDS)} entry-point processes, run at once, "
         f"ended in {secs:.1f} s")
     log(f"[24] launches of the bench rows {launches}; {card}")
-    return launches
+    return launches, {label: stdout for label, stdout, _ in results}
 
 
 # ---------------------------------------------------------------------------
@@ -3964,6 +3981,177 @@ def phase_entry_points(dev):
     return {**counts, "lane_merge": counts["lane_merge"] + merge}
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the last entry points (similari_tpu_torch/tools/:
+# decision_margins, experiment_batch_merge, experiment_pallas_batch,
+# ablate_visual, gen_doc_tables)
+# ---------------------------------------------------------------------------
+
+ABLATE_SCENES = 256
+MARGIN_SEED = 0
+OWN_AREA_BAR = 1e-6  # the margins' own-area host/device delta
+PORT_BLOCK = re.compile(r"(<!-- BEGIN GENERATED: (port-[a-z-]+) -->\n)"
+                        r".*?(<!-- END GENERATED: \2 -->)", re.S)
+
+
+def last_tool_cmds(margins_out):
+    """(label, `python -m` arguments, extra environment) of the four
+    measuring tools; the margins' artifact goes to `margins_out`."""
+    tool = "similari_tpu_torch.tools."
+    return (
+        ("tools.decision_margins", [tool + "decision_margins", "--seeds",
+                                    str(MARGIN_SEED), "--out",
+                                    str(margins_out)], {}),
+        ("tools.experiment_batch_merge", [tool + "experiment_batch_merge"],
+         {}),
+        ("tools.experiment_pallas_batch", [tool + "experiment_pallas_batch"],
+         {}),
+        ("tools.ablate_visual", [tool + "ablate_visual",
+                                 str(ABLATE_SCENES)], {}),
+    )
+
+
+def check_margins(line, blob):
+    rows = blob["rows"]
+    if set(rows) != {"reid_crossing", "reid_confusable", "reid_gaps"}:
+        raise AssertionError(f"[26] decision_margins rows {sorted(rows)}")
+    finite_positive("decision_margins", line)
+    for scenario, row in rows.items():
+        finite_positive(f"decision_margins {scenario}", {
+            k: row[k] for k in ("min_claim_margin", "min_row_margin",
+                                "max_bf16_weight_delta", "competing_pairs")})
+    delta = rows["reid_crossing"]["max_ownarea_host_dev_delta"]
+    if not delta <= OWN_AREA_BAR:
+        raise AssertionError(f"[26] own-area host/device delta {delta} > "
+                             f"{OWN_AREA_BAR}")
+    return delta
+
+
+def check_batch_merge(line):
+    from similari_tpu_torch.tools import experiment_batch_merge as ebm
+
+    if line["bit_equal"] is not True:
+        raise AssertionError(f"[26] experiment_batch_merge: the forms' "
+                             f"states differ: {line}")
+    finite_positive("experiment_batch_merge", line["ms_per_step"])
+    # a launch a step, a warm-up chain and the timed ones
+    want = ebm.SHAPE["steps"] * (ebm.REPS + 1)
+    if line["launches"]["lane_merge"] != want:
+        raise AssertionError(f"[26] experiment_batch_merge launches "
+                             f"{line['launches']}, expected {want}")
+    return want
+
+
+def check_pallas_batch(line):
+    from similari_tpu_torch.tools import experiment_pallas_batch as epb
+
+    if line["ids_equal_alone"] is not True:
+        raise AssertionError(f"[26] experiment_pallas_batch: a scene's ids "
+                             f"differ from its lone plain run: {line}")
+    launches = {"fused_visual": 0, "gallery_dots": 0}
+    for name, row in line["rows"].items():
+        n = int(name[1:])
+        want = epb.ITERS * epb.REPS * n  # a launch a scene a chunk
+        if row["launches"] != {"fused_visual": want, "gallery_dots": want}:
+            raise AssertionError(f"[26] experiment_pallas_batch {name}: "
+                                 f"launches {row['launches']}, expected "
+                                 f"{want} of each")
+        finite_positive(f"experiment_pallas_batch {name}",
+                        {k: row[k] for k in ("us_per_frame", "scene_fps")})
+        for k in launches:
+            launches[k] += row["launches"][k]
+    return launches
+
+
+def check_ablation(line):
+    from similari_tpu_torch.tools import ablate_visual as abl
+
+    stages = ["full", "posonly", "votesonly", "auctiononly", "mergeonly"]
+    if list(line["ms_per_step"]) != stages or line["scenes"] != ABLATE_SCENES:
+        raise AssertionError(f"[26] ablate_visual: {line}")
+    finite_positive("ablate_visual", line["ms_per_step"])
+    finite_positive("ablate_visual rest", line["rest_ms"], positive=False)
+    # 2 a step in the full and merge stages, a warm-up run and the timed
+    per_stage = 2 * abl.BASE_LEN * (abl.REPS + 1)
+    want = {k: per_stage if k in ("full", "mergeonly") else 0
+            for k in stages}
+    if line["merge_launches"] != want:
+        raise AssertionError(f"[26] ablate_visual merge launches "
+                             f"{line['merge_launches']}, expected {want}")
+    return sum(want.values())
+
+
+def doc_tables(tmp, bench_out, margins_out):
+    """`tools.gen_doc_tables` on a copy of README.md in `tmp`, fed phase
+    24's bench.py and host bench_interactive lines and the margins'
+    artifact; only the fed `port-*` blocks may change.  Returns the
+    blocks regenerated."""
+    root = Path(__file__).resolve().parent
+    arts = {"bench": "bench.py BENCH_FAST=1",
+            "interactive": "bench_interactive --engine host"}
+    args = ["--readme", str(Path(tmp) / "README.md"),
+            "--margins", str(margins_out)]
+    for name, label in arts.items():
+        path = Path(tmp) / f"{name}.json"
+        path.write_text(bench_out[label])
+        args += [f"--{name}", str(path)]
+    shutil.copy(root / "README.md", Path(tmp) / "README.md")
+    results, _ = run_entry_points(
+        [("tools.gen_doc_tables",
+          ["similari_tpu_torch.tools.gen_doc_tables", *args], {})],
+        label="[26]")
+    line = last_json(results[0][1])
+    before = (root / "README.md").read_text()
+    after = (Path(tmp) / "README.md").read_text()
+
+    def strip(text):
+        return PORT_BLOCK.sub(lambda m: m.group(1) + m.group(3), text)
+
+    want = ["port-headline", "port-full-matrix", "port-margins",
+            "port-interactive-ranges"]
+    if sorted(line["blocks"]) != sorted(want):
+        raise AssertionError(f"[26] gen_doc_tables regenerated "
+                             f"{line['blocks']}, expected {want}")
+    if strip(after) != strip(before):
+        raise AssertionError("[26] gen_doc_tables changed README.md outside "
+                             "its port-* blocks")
+    return line["blocks"]
+
+
+def phase_last_tools(dev, bench_out):
+    """Phase 26: the four measuring tools as processes from the checkout,
+    all at once (their times are a smoke check, not measurements), each
+    held to its own check; then the doc tables on a copy of README.md.
+    Returns the launches the tools report, by counter."""
+    card = gpu_line()
+    with tempfile.TemporaryDirectory() as tmp:
+        margins_out = Path(tmp) / "margins.json"
+        t0 = time.perf_counter()
+        results, _ = run_entry_points(last_tool_cmds(margins_out),
+                                      label="[26]")
+        secs = time.perf_counter() - t0
+        out = {name: last_json(stdout) for name, stdout, _ in results}
+        for name, _, err in results:
+            for ln in err.splitlines():
+                if ln.strip():
+                    log(f"[26]   {name}: {ln}")
+        delta = check_margins(out["tools.decision_margins"],
+                              json.loads(margins_out.read_text()))
+        merge = check_batch_merge(out["tools.experiment_batch_merge"])
+        fused = check_pallas_batch(out["tools.experiment_pallas_batch"])
+        merge += check_ablation(out["tools.ablate_visual"])
+        blocks = doc_tables(tmp, bench_out, margins_out)
+    for name, line in out.items():
+        log(f"[26] {name}: rc 0; {json.dumps(line)}")
+    log(f"[26] own-area host/device delta {delta:.3e} (bar {OWN_AREA_BAR}); "
+        f"the merge forms bit-equal; every scene's ids equal to its lone "
+        f"plain run; gen_doc_tables regenerated {blocks} on a copy of "
+        f"README.md, nothing else changed; the {len(results)} tools, run at "
+        f"once, ended in {secs:.1f} s; launches: merge {merge}, fused "
+        f"{fused}; {card}")
+    return {**fused, "lane_merge": merge}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=256)
@@ -4067,17 +4255,21 @@ def main(argv=None) -> int:
     stamp("phase 22 done")
     phase_last_forms(dev)
     stamp("phase 23 done")
-    bench = phase_bench(dev)
+    bench, bench_out = phase_bench(dev)
     stamp("phase 24 done")
     entry = phase_entry_points(dev)
     stamp("phase 25 done")
+    tools = phase_last_tools(dev, bench_out)
+    stamp("phase 26 done")
     for k in kernels[:3]:
         k["launches"] += (zero_height[k["name"]] + kit[k["name"]]
-                          + bench[k["name"]] + entry[k["name"]])
+                          + bench[k["name"]] + entry[k["name"]]
+                          + tools.get(k["name"], 0))
     clip_entry["launches"] += (api_clip + host_clip + sharded_clip
                                + bench["clip_pairs"])
     merge_entry["launches"] += (api_merge + sharded_merge
-                                + bench["lane_merge"] + entry["lane_merge"])
+                                + bench["lane_merge"] + entry["lane_merge"]
+                                + tools["lane_merge"])
     log(f"[16] launches on the API paths: clip {api_clip} (Sort, nms()), "
         f"merge {api_merge} (BatchVisualSort); [17] clip {host_clip} (the "
         f"device Sort beside the host engine; the host engines launch "
@@ -4088,7 +4280,8 @@ def main(argv=None) -> int:
         f"{zero_height} (the fused runners on zero-height streams); [22] "
         f"{kit} (the fused runners on the kit's sequences); [24] {bench} "
         f"(the bench rows); [25] {entry} (the adversarial suite's fused "
-        f"axis; bench_pod's visual rows, counted in its process)")
+        f"axis; bench_pod's visual rows, counted in its process); [26] "
+        f"{tools} (the last tools, counted in their processes)")
     log(json.dumps({"kernels": kernels, "not_ported": []}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

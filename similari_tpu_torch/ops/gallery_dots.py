@@ -41,7 +41,12 @@ TILE_ROWS, TILE_COLS = 192, 256
 
 
 def round_bf16(x: torch.Tensor) -> torch.Tensor:
-    return x.to(torch.bfloat16).to(_F32)
+    """x rounded to bfloat16 (to nearest, ties to even) and back to f32,
+    as ml_dtypes and XLA round: a NaN comes back as the quiet NaN of its
+    sign (torch's own conversion gives every NaN the bits 0xFFFF)."""
+    r = x.to(torch.bfloat16).to(_F32)
+    return torch.where(torch.isnan(x),
+                       torch.copysign(torch.full_like(r, float("nan")), x), r)
 
 
 def f32_dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

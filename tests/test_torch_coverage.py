@@ -14,9 +14,10 @@ does an entry that no longer names a missing JAX name.
 
 The repo's entry points (`examples/*.py`, `tools/*.py`, the root
 `bench*.py`) each have a port module of the same path under
-`similari_tpu_torch/` with a `main()`, or an entry in `PENDING`, which
-names the ROADMAP item that will port it (an entry that gains a
-counterpart fails), or are the port's own tools (`PORT_TOOLS`).
+`similari_tpu_torch/` with a `main()`, or are the port's own tools
+(`PORT_TOOLS`).  `PENDING`, the entry points still to port with the
+ROADMAP item that will port each (an entry that gains a counterpart
+fails), is empty: every entry point has its counterpart.
 """
 
 import ast
@@ -280,15 +281,9 @@ PORT_TOOLS = {
     "tools/profile_torch_sort.py",
 }
 
-# JAX entry point -> the ROADMAP item that will port it
-LAST_SLICE = "ROADMAP queue 1 item 6 (the last entry points)"
-PENDING = {
-    "tools/decision_margins.py": LAST_SLICE,
-    "tools/ablate_visual.py": LAST_SLICE,
-    "tools/experiment_batch_merge.py": LAST_SLICE,
-    "tools/experiment_pallas_batch.py": LAST_SLICE,
-    "tools/gen_doc_tables.py": LAST_SLICE,
-}
+# JAX entry point -> the ROADMAP item that will port it (none: every entry
+# point has its counterpart)
+PENDING = {}
 
 
 def _entry_counterpart(path: str) -> Path:

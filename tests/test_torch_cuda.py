@@ -824,3 +824,71 @@ def test_track_store_on_the_card_matches_cpu(cuda, kind):
     np.testing.assert_allclose([r.feature_distance for r in ra],
                                [r.feature_distance for r in rb],
                                rtol=1e-5, atol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# the last tools (similari_tpu_torch/tools/)
+# --------------------------------------------------------------------------
+
+def test_batch_merge_forms_are_bit_equal_on_card(cuda):
+    from similari_tpu_torch.tools import experiment_batch_merge as ebm
+
+    arrays = ebm.make_inputs(8, 50, 3, 64, 24, 4, seed=2)
+    results, finals, launches = ebm.experiment(
+        cuda, ebm.to_device(arrays, cuda), reps=1)
+    _, cpu_finals, _ = ebm.experiment(
+        torch.device("cpu"), ebm.to_device(arrays, torch.device("cpu")),
+        reps=1)
+    assert launches == 2 * 4  # the warm-up chain and one timed chain
+    for form, state in finals.items():
+        assert torch.equal(state, finals["kernel"]), form
+        assert torch.equal(state.cpu(), cpu_finals[form]), form
+
+
+def test_fused_batch_scenes_equal_their_lone_runs_on_card(cuda):
+    from similari_tpu_torch.tools import experiment_pallas_batch as epb
+
+    shape = (8, 16, 64, 3, 32)
+    _, first, launches, all_args = epb.measure(cuda, 2, iters=2, reps=1,
+                                               shape=shape)
+    assert launches == {"fused_visual": 4, "gallery_dots": 4}
+    for got, want in zip(first, epb.lone_ids(cuda, all_args, t=64, k=3,
+                                             f=32)):
+        assert torch.equal(got, want)
+
+
+def test_ablation_merge_stage_matches_cpu_on_card(cuda):
+    from similari_tpu_torch.tools import ablate_visual as abl
+
+    cpu = torch.device("cpu")
+    states = []
+    for dev in (cuda, cpu):
+        inp = abl.make_inputs(3, dev, n_objects=20, feat_dim=64, base_len=4)
+        st = abl.fresh_state(inp)
+        src = inp.feat[0].to(torch.bfloat16).expand(inp.feat.shape)
+        for i in range(3):
+            st = abl.merge_stage(st, inp.boxes[i], inp.ones,
+                                 src.contiguous(), abl.merge_slots(inp, i))
+        states.append(st)
+    from similari_tpu_torch.convert import visual_state_to_numpy
+
+    card, host = (visual_state_to_numpy(st) for st in states)
+    for key, want in host.items():
+        if key == "kf":
+            continue  # the merge stage leaves the Kalman state alone
+        np.testing.assert_array_equal(card[key], want, err_msg=key)
+
+
+def test_margins_own_area_probe_on_card(cuda):
+    from similari_tpu_torch.eval.mot import ltwh_to_vec5
+    from similari_tpu_torch.eval.synthetic import (
+        generate_reid_adversarial_sequence)
+    from similari_tpu_torch.tools import decision_margins as pdm
+
+    _, dets, _, _ = generate_reid_adversarial_sequence("reid_crossing", 0,
+                                                       n_frames=40)
+    probe = pdm.MarginProbe(None, pdm.OWN_AREA_GATES, cuda)
+    for f in sorted(dets)[::10]:
+        rows = np.asarray(dets[f], np.float32)
+        probe.probe_own_area(ltwh_to_vec5(rows), np.clip(rows[:, 4], 0, 1))
+    assert probe.ownarea_deltas and max(probe.ownarea_deltas) <= 1e-6

@@ -78,6 +78,11 @@ def test_import_leaves_jax_out_of_sys_modules():
               "similari_tpu_torch.tools.adversarial_suite",
               "similari_tpu_torch.tools.profile_gallery",
               "similari_tpu_torch.tools.profile_oriented",
+              "similari_tpu_torch.tools.decision_margins",
+              "similari_tpu_torch.tools.experiment_batch_merge",
+              "similari_tpu_torch.tools.experiment_pallas_batch",
+              "similari_tpu_torch.tools.ablate_visual",
+              "similari_tpu_torch.tools.gen_doc_tables",
               "similari_tpu_torch.examples.cross_camera_handoff"):
         assert m in loaded
     assert [m for m in loaded if _forbidden(m)] == []

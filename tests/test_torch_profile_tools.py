@@ -88,7 +88,7 @@ def test_oriented_stream_is_the_jax_tools():
 
 
 def test_entry_points_cover_the_new_modules():
-    assert len(ENTRY_POINTS) == 1 + 3 + 22
+    assert len(ENTRY_POINTS) == 1 + 8 + 22
 
 
 @pytest.mark.parametrize("module", ENTRY_POINTS)
