@@ -67,8 +67,8 @@ Phases:
      this path (the `kernels` line's `ms`), beside the kernel, its plain
      version and `index_put_` timed in a loop on one frame's launch inputs;
  11. the general single-scene step: `run_sequence_device_visual(engine=
-     "step")` on phase 4's sequence (--step-frames frames) gives the fused
-     engine's ids; then an oriented, own-area-gated, history-3 config at
+     "step")` on phase 4's whole sequence (--main-frames frames) gives the
+     fused engine's ids; then an oriented, own-area-gated, history-3 config at
      D=100, T=400, K=3, F=512 over 64 frames;
  12. batched SORT at bench.py's `batch_sort_256x100` (S=256 scenes of 100
      objects, T=200, aligned IoU) over --batch-frames frames;
@@ -571,6 +571,22 @@ def mma_counts():
     return counts
 
 
+def kernel_resources(build_log, name):
+    """(registers, spill line) that ptxas reported for the kernel whose
+    mangled name holds `name`; None when this process built nothing (the
+    library was built before)."""
+    if not build_log:
+        return None
+    lines = build_log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and name in line:
+            spill = next(x for x in lines[i + 1:] if "spill" in x)
+            regs = next(x for x in lines[i + 1:] if "registers" in x)
+            return (int(re.search(r"Used (\d+) registers", regs).group(1)),
+                    spill.strip())
+    raise AssertionError(f"ptxas reported nothing for {name}")
+
+
 def device_ms_per_call(fn, match, calls):
     """torch.profiler over `calls` calls of fn, after one warm-up call:
     device ms per call of the kernels whose name holds `match` (the mean
@@ -724,8 +740,17 @@ def phase_visual(args, dev):
         errs.append(err)
         log_check(label, k_ms, p_ms, err, stats)
         if name == "main_path" and dev.type == "cuda":
-            log_split(label, fv.PHASES, phase_split(
-                fv, fv.fused_visual_chunk, cfg, st0, inputs))
+            plan = fv.fused_visual_chunk.plan
+            log(f"[3] {label} launch: one cluster of {plan['cluster']} blocks "
+                f"x {plan['threads']} threads, "
+                f"{fv.storage_name(plan['storage'])}, {plan['smem_bytes']} "
+                f"bytes of shared memory per block")
+            split = phase_split(fv, fv.fused_visual_chunk, cfg, st0, inputs)
+            log_split(label, fv.PHASES, split)
+            log(f"[3] {label} cluster barriers: {split[2]:.2f} per frame, "
+                f"{(split[2] - 4) / stats[:, 0].mean():.2f} per auction round "
+                f"(four per frame: the max distance, the argmaxes, the span, "
+                f"the match flags)")
         if stream == "crowded":
             check_crowded("fused_visual", stats)
         elif name == "main_path":
@@ -733,6 +758,7 @@ def phase_visual(args, dev):
                 "fused_visual", "similari_tpu/ops/pallas_visual.py:85", k_ms,
                 p_ms, visual_bound_ms(CHUNK, per_launch(stats),
                                       cfg.feature_precision == "bf16"))
+            entry["plan"] = fv.fused_visual_chunk.plan
     entry["max_abs_err"] = max(errs)
     return entry, check_gallery_dots(dev, random_walk[3])
 
@@ -1366,9 +1392,9 @@ def phase_batched_visual(args, dev):
 
 
 def phase_general_visual(args, dev, dets, feats, fused_out):
-    """Phase 11, first half: the general step on the fused path's
-    sequence.  Returns its outputs."""
-    n = min(args.step_frames, args.main_frames)
+    """Phase 11, first half: the general step on the fused path's whole
+    sequence (--main-frames).  Returns its outputs."""
+    n = args.main_frames
     frames = sorted(dets)[:n]
     sub_d = {f: dets[f] for f in frames}
     sub_f = {f: feats[f] for f in frames}
@@ -4188,6 +4214,11 @@ def main(argv=None) -> int:
         if any(w in line for w in ("Compiling entry", "registers", "spill",
                                    "error")):
             log("    " + line.strip())
+    for name in ("fused_visual_kernel", "fused_sort_kernel"):
+        res = kernel_resources(build_log, name)
+        log(f"[2] {name}: " + ("library built before this run, no ptxas "
+                               "report" if res is None else
+                               f"{res[0]} registers, {res[1]} (ptxas)"))
     mma = mma_counts()
     log("[2] HGMMA / HMMA instructions in csrc/gallery_dots.cu: " + ", ".join(
         f"{name} {hg} / {hm}" for name, (hg, hm) in sorted(mma.items())))

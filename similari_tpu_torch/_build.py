@@ -56,9 +56,9 @@ _F = ctypes.c_float
 SORT_ARGTYPES = [_P] * (3 + 13 + 5 + 2) + [_I] * 6 + [_F] * 6 + [_P, _P]
 # fused_sort_plan: D, T; plan[4]
 SORT_PLAN_ARGTYPES = [_I, _I, ctypes.POINTER(_I)]
-# fused_visual_plan: D, T, K; plan[2]
+# fused_visual_plan: D, T, K; plan[4]
 VISUAL_PLAN_ARGTYPES = [_I, _I, _I, ctypes.POINTER(_I)]
-VISUAL_ARGTYPES = ([_P] * (7 + 20 + 8 + 5 + 2) + [_I] * 13 + [_F] * 12
+VISUAL_ARGTYPES = ([_P] * (7 + 20 + 8 + 2 + 2) + [_I] * 13 + [_F] * 12
                    + [_P, _P, _P] + [_P])
 # csrc/gallery_dots.cu: x, g, dots, norms, bf16 staging; n, m, f, d, bf16;
 # stream

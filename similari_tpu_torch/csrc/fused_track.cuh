@@ -1,14 +1,12 @@
 // Device functions shared by the fused SORT and VisualSORT frame kernels
 // (fused_track.cu): block-wide reductions and scans, the box sanitizer, the
-// aligned IoU weight, the per-row Kalman step, and the one-block forward
-// auction of the VisualSORT kernel (the SORT kernel splits its auction
-// over a cluster, fused_track.cu).
+// aligned IoU weight, the per-row Kalman step, and the forward auction that
+// both kernels split over their thread-block cluster (`cluster_auction`).
 //
-// Every helper runs on one thread block of NT threads (the block-wide
-// reductions and the scan take another count, NTB, as a template
-// argument: the SORT kernel's cluster blocks are smaller).  Ties always go to
-// the lowest index, as in the reference (`similari_tpu/ops/pallas_sort.py`
-// `_row_argmax`, `forward_auction`); no atomic decides a winner.
+// The block-wide helpers take the block's thread count, NTB, as a template
+// argument.  Ties always go to the lowest index, as in the reference
+// (`similari_tpu/ops/pallas_sort.py` `_row_argmax`, `forward_auction`); no
+// atomic decides a winner.
 //
 // The file is compiled with --fmad=false: each product and sum is rounded
 // on its own, in the order written here, which is the order of the plain
@@ -16,13 +14,15 @@
 // `fused_visual.py`).
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace ft {
 
-constexpr int NT = 1024;        // threads per block
-constexpr int NW = NT / 32;     // warps per block
+namespace cg = cooperative_groups;
+
+constexpr int MAX_ROWS = 1024;  // detections per frame
 constexpr float NEG = -1e30f;   // the reference's masked value
 constexpr int MAX_AUCTION_ROUNDS = 3000;
 constexpr unsigned FULL = 0xffffffffu;
@@ -42,7 +42,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // Block-wide max; every thread gets the result.  `red` holds NTB / 32
 // floats.
-template <int NTB = NT>
+template <int NTB>
 __device__ float block_max(float v, float* red) {
   v = warp_max(v);
   __syncthreads();
@@ -53,7 +53,7 @@ __device__ float block_max(float v, float* red) {
 
 // In-place inclusive prefix sum of a[0..n) in shared memory.
 // `red` holds NTB / 32 ints.
-template <int NTB = NT>
+template <int NTB>
 __device__ void block_scan_inclusive(int* a, int n, int* red) {
   constexpr int NWB = NTB / 32;
   const int lane = lane_id(), w = warp_id();
@@ -83,6 +83,24 @@ __device__ void block_scan_inclusive(int* a, int n, int* red) {
   }
 }
 
+// In-place inclusive prefix sum of a[0..n) in shared memory by one warp
+// (every lane calls it), 32 items at a time with a carry: no block
+// barrier, for the short row vectors.
+__device__ __forceinline__ void warp_scan_inclusive(int* a, int n) {
+  const int lane = lane_id();
+  int carry = 0;
+  for (int base = 0; base < n; base += 32) {
+    const int i = base + lane;
+    int v = i < n ? a[i] : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(FULL, v, o);
+      if (lane >= o) v += y;
+    }
+    if (i < n) a[i] = v + carry;
+    carry += __shfl_sync(FULL, v, 31);
+  }
+}
+
 // First-max (value, index) merge across a warp, plus the largest value
 // other than the chosen maximum.  Lanes hold (b1, i1, b2) over disjoint
 // column sets.
@@ -96,6 +114,20 @@ __device__ __forceinline__ void warp_top2(float& b1, int& i1, float& b2) {
     if (take) { b1 = ob1; i1 = oi1; }
     b2 = nb2;
   }
+}
+
+// Appends i to list[] (its count *n in shared memory) where `push`, with
+// one shared-memory atomic per warp; every lane of the warp calls it.  The
+// order within the list is arbitrary.
+__device__ __forceinline__ void warp_push(bool push, int i, int* list,
+                                          int* n) {
+  const unsigned m = __ballot_sync(FULL, push);
+  if (m == 0) return;  // uniform across the warp
+  const int lane = lane_id(), leader = __ffs(m) - 1;
+  int base = 0;
+  if (lane == leader) base = atomicAdd(n, __popc(m));
+  base = __shfl_sync(FULL, base, leader);
+  if (push) list[base + __popc(m & ((1u << lane) - 1u))] = i;
 }
 
 // First-max (value, index) across a warp.
@@ -183,115 +215,184 @@ __device__ __forceinline__ float aligned_iou(const float* b, const float* p,
   return inter / (inter > 0.0f ? uni : 1.0f);
 }
 
-// Shared-memory working set of the auction.
-struct AuctionSmem {
-  float* prices;  // [D+T]
-  int* c2r;       // [D+T]
-  int* r2c;       // [D]
-  float* bid;     // [D]
-  int* jb;        // [D]
-  int* win;       // [D]
+// A bid of round `round` as one 64-bit word whose unsigned order is the
+// auction's within a round (the higher bid, then the lower row) and puts
+// every round above the ones before it, so a column's key needs no reset
+// between rounds: round + 1 in bits 52-63 (at most 3000 rounds), the
+// float's bits made order-preserving in bits 20-51 (bids are > 0, never
+// -0), the inverted row in bits 0-19 (D <= 1024).
+__device__ __forceinline__ unsigned long long bid_key(int round, float bid,
+                                                      int row) {
+  const unsigned b = __float_as_uint(bid);
+  const unsigned ord = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+  return ((unsigned long long)(round + 1) << 52)
+       | ((unsigned long long)ord << 20) | (unsigned long long)(0xFFFFF - row);
+}
+
+// One block's working set of `cluster_auction`, in shared memory except
+// the column arrays, which may lie in device memory.
+struct ClusterAuction {
+  int* r2c;  // [D] the column of each row (>= D: a track)
+  int* jb;  // [D] the column each bidding row bids on
+  float* bid;  // [D] the round's bid of each bidding row
+  int* plist;  // [2, D] the bidding rows of this round and the next
+  int* np;  // [2] their counts
+  float4* part;  // [2, D] this block's (b1, i1, b2) of each bidding row
+  float* prices;  // [D + T] every column's, alike in every block
+  int* c2r;  // [D + T]
+  unsigned long long* key;  // [D + T] the best (round, bid, row) so far
+  int* wok;  // [nt] own track column: its owner row's weight passes thr
 };
 
-// Jacobi forward auction on the augmented weights A[D, D+T]
-// (replaces `similari_tpu/ops/pallas_sort.py::forward_auction`).
-// A[r, j<D] = thr if j == r and row r is valid, else 0 (the new-track
-// diagonal is never stored); A[r, D+t] = W[r*T + t] in global memory.
-// Leaves r2c[r] = the column of row r (>= D: a track).  Padded rows start
-// assigned.  Rows that are still unassigned bid on their first-max column;
-// the highest bid wins a column, the lowest row among equal bids; outbid
-// owners return to the pool.  At most 3000 rounds.
-// Adds this call's rounds and bids to *rounds / *bids (thread 0).
-__device__ void forward_auction(const float* __restrict__ W, int D, int T,
-                                float thr, const int* rvalid, float eps,
-                                AuctionSmem s, int* rounds, int* bids) {
-  const int N = D + T;
-  const int tid = threadIdx.x, lane = lane_id(), w = warp_id();
-  for (int j = tid; j < N; j += NT) { s.prices[j] = 0.0f; s.c2r[j] = -1; }
-  if (tid < D) s.r2c[tid] = rvalid[tid] ? -1 : 0;
+// Jacobi forward auction on the augmented weights A[D, D+T] over a
+// cluster of G blocks of NTB threads (replaces
+// `similari_tpu/ops/pallas_sort.py::forward_auction`).  A[r, j<D] = thr
+// if j == r (only valid rows bid), else 0; A[r, D+t] = W[r, t].  Block g
+// owns the diagonal columns [d0, d0 + nd) and the track columns
+// tb + q*STRIDE (q < nt), whose weights it holds as Wl[D, nt]; every block
+// keeps the rows' r2c and all columns' prices and owners, and updates them
+// alike from the same data, so they need no exchange.  An auction round is
+// one cluster barrier: each block scans its own columns for every bidding
+// row (a few lanes per row) and publishes a (first max, column, runner-up)
+// partial; after the barrier every block reads the G partials through
+// distributed shared memory, merges them (ties to the lower column), and
+// resolves every bid itself (a shared-memory atomicMax per column on
+// `bid_key`): the highest bid wins a column, the lowest row among equal
+// bids; outbid owners return to the pool.  Padded rows start assigned, at
+// most 3000 rounds.  Leaves r2c[r] = the column of row r, wok[q] for each
+// own track column its final owner's weight >= thr, and the rounds and
+// bids in *rounds / *bids; adds its cluster barriers to *barriers.  Ends
+// with a cluster barrier, after which any block may read another's wok.
+template <int G, int NTB, int STRIDE>
+__device__ void cluster_auction(cg::cluster_group& cluster,
+                                const ClusterAuction& s, const float* Wl,
+                                const int* valid, int D, int T, int d0,
+                                int nd, int tb, int nt, float thr, float eps,
+                                int* rounds_out, int* bids_out,
+                                int* barriers) {
+  constexpr int NWB = NTB / 32;
+  const int N = D + T, tid = threadIdx.x, lane = lane_id(), w = warp_id();
+  for (int j = tid; j < N; j += NTB) {
+    s.prices[j] = 0.0f;
+    s.c2r[j] = -1;
+    s.key[j] = 0ull;
+  }
+  if (tid == 0) s.np[0] = 0;
   __syncthreads();
-  int it = 0, nbids = 0;
+  for (int r0 = tid - lane; r0 < D; r0 += NTB) {  // warp by warp
+    const int r = r0 + lane;
+    if (r < D) s.r2c[r] = valid[r] ? -1 : 0;
+    warp_push(r < D && valid[r], r, s.plist, &s.np[0]);
+  }
+  __syncthreads();
+  // lanes per bidding row in the scan of own columns
+  const int ncol = nd + nt;
+  const int L = ncol > 256 ? 32 : ncol > 64 ? 16 : 8;
+  const int sub = lane % L, grp = lane / L, gpw = 32 / L;
+  int rounds = 0, bids = 0;
   while (true) {
-    const int pending = __syncthreads_count(tid < D && s.r2c[tid] < 0
-                                            && rvalid[tid]);
-    if (pending == 0 || it >= MAX_AUCTION_ROUNDS) break;
-    nbids += pending;
-    // bids: one warp per unassigned row
-    for (int r = w; r < D; r += NW) {
-      if (s.r2c[r] >= 0) continue;
+    const int cur = rounds & 1, nxt = cur ^ 1;
+    const int np = s.np[cur];
+    if (np == 0 || rounds >= MAX_AUCTION_ROUNDS) break;
+    bids += np;
+    const int* pl = s.plist + cur * D;
+    // this block's first max, its column and the runner-up of each
+    // bidding row over its own columns, L lanes per row
+    for (int k0 = w * gpw; k0 < np; k0 += NWB * gpw) {
+      const int k = k0 + grp;
+      const int r = k < np ? pl[k] : -1;
       float b1 = -INFINITY, b2 = -INFINITY;
       int i1 = N;
-      const bool rv = rvalid[r] != 0;
-      const float* Wr = W + (size_t)r * T;
-      for (int j = lane; j < N; j += 32) {
-        const float a = j < D ? ((j == r && rv) ? thr : 0.0f) : Wr[j - D];
-        const float v = a - s.prices[j];
-        if (v > b1) { b2 = b1; b1 = v; i1 = j; }
-        else if (v > b2) { b2 = v; }
-      }
-      warp_top2(b1, i1, b2);
-      if (lane == 0) {
-        s.bid[r] = s.prices[i1] + (b1 - b2) + eps;
-        s.jb[r] = i1;
-      }
-    }
-    __syncthreads();
-    // winners: highest bid per column, lowest row on ties
-    if (tid < D) {
-      int won = 0;
-      if (s.r2c[tid] < 0) {
-        const int j = s.jb[tid];
-        const float b = s.bid[tid];
-        won = b > NEG * 0.5f;
-        for (int q = 0; q < D && won; ++q) {
-          if (q == tid || s.r2c[q] >= 0 || s.jb[q] != j) continue;
-          const float bq = s.bid[q];
-          if (bq > b || (bq == b && q < tid)) won = 0;
+      if (r >= 0) {
+        for (int q = sub; q < ncol; q += L) {
+          float v;
+          int j;
+          if (q < nd) {
+            j = d0 + q;
+            v = (j == r ? thr : 0.0f) - s.prices[j];
+          } else {
+            const int t = q - nd;
+            j = D + tb + t * STRIDE;
+            v = Wl[r * nt + t] - s.prices[j];
+          }
+          if (v > b1) { b2 = b1; b1 = v; i1 = j; }
+          else if (v > b2) { b2 = v; }
         }
       }
-      s.win[tid] = won;
+      for (int o = L / 2; o > 0; o >>= 1) {
+        const float ob1 = __shfl_xor_sync(FULL, b1, o);
+        const int oi1 = __shfl_xor_sync(FULL, i1, o);
+        const float ob2 = __shfl_xor_sync(FULL, b2, o);
+        const bool take = (ob1 > b1) || (ob1 == b1 && oi1 < i1);
+        const float nb2 = take ? fmaxf(b1, ob2) : fmaxf(ob1, b2);
+        if (take) { b1 = ob1; i1 = oi1; }
+        b2 = nb2;
+      }
+      if (r >= 0 && sub == 0)
+        s.part[cur * D + r] = make_float4(b1, __int_as_float(i1), b2, 0.0f);
+    }
+    cluster.sync();
+    ++*barriers;
+    // every block merges every bidding row's partials in block order and
+    // keeps, per column, the best key of the round
+    for (int k = tid; k < np; k += NTB) {
+      const int r = pl[k];
+      float4 p[G];
+#pragma unroll
+      for (int h = 0; h < G; ++h)
+        p[h] = *cluster.map_shared_rank(&s.part[cur * D + r], h);
+      float b1 = -INFINITY, b2 = -INFINITY;
+      int i1 = N;
+#pragma unroll
+      for (int h = 0; h < G; ++h) {
+        const int oi1 = __float_as_int(p[h].y);
+        const bool take = (p[h].x > b1) || (p[h].x == b1 && oi1 < i1);
+        const float nb2 = take ? fmaxf(b1, p[h].z) : fmaxf(p[h].x, b2);
+        if (take) { b1 = p[h].x; i1 = oi1; }
+        b2 = nb2;
+      }
+      const float bid = s.prices[i1] + (b1 - b2) + eps;
+      s.jb[r] = i1;
+      s.bid[r] = bid;
+      if (bid > NEG * 0.5f) atomicMax(&s.key[i1], bid_key(rounds, bid, r));
+    }
+    if (tid == 0) s.np[nxt] = 0;
+    __syncthreads();
+    // winners take their columns at their bids; outbid owners and the
+    // losers bid in the next round
+    int* nl = s.plist + nxt * D;
+    for (int k0 = tid - lane; k0 < np; k0 += NTB) {  // warp by warp
+      const int k = k0 + lane;
+      int push = -1;
+      if (k < np) {
+        const int r = pl[k], j = s.jb[r];
+        const float bid = s.bid[r];
+        if (bid > NEG * 0.5f && s.key[j] == bid_key(rounds, bid, r)) {
+          const int old = s.c2r[j];
+          if (old >= 0) {
+            s.r2c[old] = -1;
+            push = old;
+          }
+          s.c2r[j] = r;
+          s.prices[j] = bid;
+          s.r2c[r] = j;
+          const int q = j - D - tb;
+          if (q >= 0 && q % STRIDE == 0 && q / STRIDE < nt)
+            s.wok[q / STRIDE] = Wl[r * nt + q / STRIDE] >= thr;
+        } else {
+          push = r;
+        }
+      }
+      warp_push(push >= 0, push, nl, &s.np[nxt]);
     }
     __syncthreads();
-    // apply: evict the previous owner, take the column at the bid price
-    if (tid < D && s.win[tid]) {
-      const int j = s.jb[tid];
-      const int old = s.c2r[j];
-      if (old >= 0) s.r2c[old] = -1;
-      s.c2r[j] = tid;
-      s.prices[j] = s.bid[tid];
-      s.r2c[tid] = j;
-    }
-    __syncthreads();
-    ++it;
+    ++rounds;
   }
-  if (tid == 0) { *rounds += it; *bids += nbids; }
-}
-
-// Free-slot allocation shared by both kernels: the r-th new detection
-// (in row order) takes the r-th free slot (in slot order).
-// freef[T]: free flags (kept); frank[T]: scratch; flist[T] out: flist[k] =
-// the k-th free slot.  nr[D]: is_new flags in, inclusive new ranks out.
-// Returns (n_new, n_free) to every thread.
-__device__ void allocate_slots(const int* freef, int* frank, int* flist,
-                               int T, int* nr, int D, int* red, int* n_new,
-                               int* n_free) {
-  for (int t = threadIdx.x; t < T; t += NT) frank[t] = freef[t];
-  __syncthreads();
-  block_scan_inclusive(frank, T, red);
-  block_scan_inclusive(nr, D, red);
-  for (int t = threadIdx.x; t < T; t += NT)
-    if (freef[t]) flist[frank[t] - 1] = t;
-  __syncthreads();
-  *n_free = frank[T - 1];
-  *n_new = nr[D - 1];
-}
-
-// Slot of a detection: its matched track, else the free slot of its new
-// rank (T-1 when there is none; such rows never write).
-__device__ __forceinline__ int slot_of(bool matched, int tgt, int rank,
-                                       const int* flist, int n_free, int T) {
-  if (matched) return tgt;
-  return (rank >= 1 && rank <= n_free) ? flist[rank - 1] : T - 1;
+  // the owners' match flags are read across the cluster after this
+  cluster.sync();
+  ++*barriers;
+  *rounds_out = rounds;
+  *bids_out = bids;
 }
 
 }  // namespace ft

@@ -71,6 +71,14 @@ def write_csv(file_path, rows):
         csv.writer(f, lineterminator="\n").writerows(rows)
 
 
+def frame_rows(rows) -> np.ndarray:
+    """One frame's detections as float32 [N, >=5] rows; an empty frame
+    (`[]`, or any array of no rows) is [0, 5]: a frame with no
+    detection."""
+    dets = np.asarray(rows, np.float32)
+    return dets.reshape(0, 5) if dets.size == 0 else dets
+
+
 def ltwh_to_vec5(dets: np.ndarray) -> np.ndarray:
     """[N, >=4] LTWH (col 4, when present, = confidence) -> [N,5]
     (xc, yc, angle, aspect, height).  Only an exactly-6-column input
@@ -106,7 +114,7 @@ def run_sequence_interactive(tracker, detections: Detections) -> Outputs:
         if prev is not None and frame - prev > 1:
             tracker.skip_epochs_for_scene(0, int(frame - prev - 1))
         prev = frame
-        dets = np.asarray(detections[frame], np.float32)
+        dets = frame_rows(detections[frame])
         boxes = ltwh_to_vec5(dets)
         confs = np.clip(dets[:, 4], 0.0, 1.0).astype(np.float32)
         _, ids, pred, _, _ = tracker.predict_arrays(0, boxes, confs)
@@ -131,21 +139,11 @@ def run_sequence_interactive_visual(
         if prev is not None and frame - prev > 1:
             tracker.skip_epochs_for_scene(0, int(frame - prev - 1))
         prev = frame
-        dets = np.asarray(detections[frame], np.float32)
-        boxes = ltwh_to_vec5(dets)
-        confs = np.clip(dets[:, 4], 0.0, 1.0).astype(np.float32)
-        frow = features.get(frame, [])
-        fdim = max((len(x) for x in frow if x is not None), default=1)
-        feat = np.zeros((len(dets), fdim), np.float32)
-        fvalid = np.zeros((len(dets),), bool)
-        for i, fv in enumerate(frow[: len(dets)]):
-            if fv is not None:
-                feat[i, : len(fv)] = fv
-                fvalid[i] = True
-        qual = np.ones((len(dets),), np.float32)
-        if qualities is not None:
-            q = qualities.get(frame, [])[: len(dets)]
-            qual[: len(q)] = q
+        dets = frame_rows(detections[frame])
+        fdim = max((len(x) for x in features.get(frame, []) if x is not None),
+                   default=1)
+        boxes, confs, _, feat, fvalid, qual = (x[0] for x in _buffers(
+            {frame: dets}, len(dets), features, fdim, qualities))
         _, ids, _pred, _, _, _ = tracker.predict_arrays(
             0, boxes, confs, feat, fvalid, qual)
         ltwh = dets[:, :4]
@@ -286,22 +284,35 @@ def sequence_visual_config(
     return dataclasses.replace(cfg, **cfg_overrides) if cfg_overrides else cfg
 
 
-def _sort_buffers(detections: Detections):
-    """(frames ascending, box [F, dpad, 5], conf [F, dpad] clipped to
-    [0, 1], valid [F, dpad]) of a detections dict, dpad a power of two
-    from 8."""
+def _buffers(detections: Detections, dpad: int, features=None, fdim=1,
+             qualities=None):
+    """The padded SoA buffers of a detections dict, frames ascending: box
+    [S, dpad, 5], conf [S, dpad] clipped to [0, 1], valid [S, dpad], feat
+    [S, dpad, fdim] and fvalid [S, dpad] from `features` (none without),
+    qual [S, dpad] from `qualities` (default 1.0).  An empty frame holds
+    no valid row."""
     frames = sorted(detections)
-    dpad = _pad_pow2(max((len(detections[f]) for f in frames), default=1))
-    box = np.zeros((len(frames), dpad, 5), np.float32)
-    conf = np.zeros((len(frames), dpad), np.float32)
-    valid = np.zeros((len(frames), dpad), bool)
+    steps = len(frames)
+    box = np.zeros((steps, dpad, 5), np.float32)
+    conf = np.zeros((steps, dpad), np.float32)
+    valid = np.zeros((steps, dpad), bool)
+    feat = np.zeros((steps, dpad, fdim), np.float32)
+    fvalid = np.zeros((steps, dpad), bool)
+    qual = np.ones((steps, dpad), np.float32)
     for s, f in enumerate(frames):
-        dets = np.asarray(detections[f], np.float32)
+        dets = frame_rows(detections[f])
         n = len(dets)
         box[s, :n] = ltwh_to_vec5(dets)
         conf[s, :n] = np.clip(dets[:, 4], 0.0, 1.0)
         valid[s, :n] = True
-    return frames, box, conf, valid
+        for i, fv in enumerate((features or {}).get(f, [])[:n]):
+            if fv is not None:
+                feat[s, i, : len(fv)] = fv
+                fvalid[s, i] = True
+        if qualities is not None:
+            q = qualities.get(f, [])[:n]
+            qual[s, : len(q)] = q
+    return box, conf, valid, feat, fvalid, qual
 
 
 def run_sequence_device(
@@ -350,7 +361,10 @@ def run_sequence_device(
         frames = frames_arr.tolist()
         conf = np.clip(conf, 0.0, 1.0) * valid
     else:
-        frames, box, conf, valid = _sort_buffers(detections)
+        frames = sorted(detections)
+        dpad = _pad_pow2(max((len(detections[f]) for f in frames),
+                             default=1))
+        box, conf, valid = _buffers(detections, dpad)[:3]
     steps = len(frames)
     if steps == 0:
         return {}, 0.0
@@ -419,8 +433,8 @@ def run_sequence_device_visual(
     own-area gates only as precomputed shares, and raises ValueError
     before any launch, on every device, for more than 1024 detections in
     a frame or a state past the kernel's shared memory
-    (`ops/fused_visual.py::check_visual_shape`: about 2,570 slots at 128
-    rows and 3 lanes).  engine="step" runs the general step
+    (`ops/fused_visual.py::check_visual_shape`: 51,200 slots at 128 rows
+    and 3 lanes).  engine="step" runs the general step
     (`trackers/visual_step.py::visual_scan`) frame by frame with per-frame
     epochs, any assignment, and own-area gates with shares computed on the
     device (`own_area_backend="device"`); the JAX package's `engine="xla"`.
@@ -460,26 +474,9 @@ def run_sequence_device_visual(
         from ..ops.fused_visual import check_visual_shape
 
         check_visual_shape(dpad, capacity, gallery)
-    box = np.zeros((steps, dpad, 5), np.float32)
-    conf = np.zeros((steps, dpad), np.float32)
-    valid = np.zeros((steps, dpad), bool)
-    feat = np.zeros((steps, dpad, fdim), np.float32)
-    fvalid = np.zeros((steps, dpad), bool)
-    qual = np.ones((steps, dpad), np.float32)
+    box, conf, valid, feat, fvalid, qual = _buffers(
+        detections, dpad, features, fdim, qualities)
     oa = np.ones((steps, dpad), np.float32)
-    for s, f in enumerate(frames):
-        dets = np.asarray(detections[f], np.float32)
-        n = len(dets)
-        box[s, :n] = ltwh_to_vec5(dets)
-        conf[s, :n] = np.clip(dets[:, 4], 0.0, 1.0)
-        valid[s, :n] = True
-        for i, fv in enumerate(features.get(f, [])[:n]):
-            if fv is not None:
-                feat[s, i, : len(fv)] = fv
-                fvalid[s, i] = True
-        if qualities is not None:
-            q = qualities.get(f, [])[:n]
-            qual[s, : len(q)] = q
     gates = cfg.own_area_use > 0.0 or cfg.own_area_collect > 0.0
     if gates and cfg.own_area_backend == "host":
         from ..trackers.visual import own_area_shares_host

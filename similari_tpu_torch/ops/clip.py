@@ -149,26 +149,6 @@ def pair_block_plain(det8: torch.Tensor, trk8: torch.Tensor,
     return _iou(inter, det8[:, 7:8], trk8[None, :, 7])
 
 
-def clip_lanes_replay(det8: torch.Tensor, trk8: torch.Tensor,
-                      want_iou: bool) -> torch.Tensor:
-    """The kernel's split of the clip, replayed on the CPU (tests only):
-    the in-radius pairs listed, each pair's 8 edge terms (2 passes x 4
-    edges) computed apart, as the 8 lanes of its group do, then added in
-    the fixed order (((c0 + c1) + c2) + c3) + (((c4 + c5) + c6) + c7);
-    every other pair 0."""
-    rows, cols = (~far_pairs(det8, trk8)).nonzero(as_tuple=True)
-    a, b = det8[rows], trk8[cols]
-    ax, ay, bx, by = _recentred(a, b)
-    e = ([_edge_term(ax, ay, bx, by, i, False) for i in range(4)]
-         + [_edge_term(bx, by, ax, ay, i, True) for i in range(4)])
-    s = (((e[0] + e[1]) + e[2]) + e[3]) + (((e[4] + e[5]) + e[6]) + e[7])
-    inter = torch.abs(s) * 0.5
-    out = torch.zeros((det8.shape[0], trk8.shape[0]), dtype=_F32,
-                      device=det8.device)
-    out[rows, cols] = _iou(inter, a[:, 7], b[:, 7]) if want_iou else inter
-    return out
-
-
 def _check(det8: torch.Tensor, trk8: torch.Tensor, tiles) -> None:
     for name, x in (("det8", det8), ("trk8", trk8)):
         if x.dim() != 2 or x.shape[1] != 8:

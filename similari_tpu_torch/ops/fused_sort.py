@@ -8,9 +8,9 @@ IoU x confidence weights with compatibility gating, the forward auction on
 the augmented `[D, D+T]` matrix, free-slot allocation, the Kalman
 predict/update, the state write (dropped on overflow) and the overflow flag.
 The kernel runs the chunk on one thread-block cluster of 8 blocks, each
-holding a column slice of the weights and of the state;
-`cluster_auction_replay` and `cluster_slots_replay` replay its split of
-the auction and the slot allocation on the CPU for the tests.
+holding a column slice of the weights and of the state
+(`tests/kernel_replay.py` replays its split of the auction and the slot
+allocation on the CPU).
 
 Scope, as the reference kernel's: method = IoU on axis-aligned boxes, no
 spatio-temporal constraints, history depth 1.  Shapes: at most MAX_ROWS
@@ -55,8 +55,8 @@ STORAGE = {7: "columns, state and W in shared memory",
            4: "columns in shared memory, state and W in device memory",
            0: "all in device memory"}
 # the fused kernels' limits (`csrc/fused_track.cu`, `.cuh`): a frame's rows
-# on one block of NT threads, a block's shared memory on sm_90; the SORT
-# cluster's blocks and their threads
+# (`MAX_ROWS`), a block's shared memory on sm_90; the SORT cluster's
+# blocks and their threads
 MAX_ROWS = 1024
 MAX_SMEM = 232448
 SORT_CLUSTER, SORT_THREADS = 8, 512
@@ -297,118 +297,6 @@ def fused_sort_chunk_plain(cfg: SortConfig, state: SortTuple, box, conf,
     return (tuple(st), torch.stack(ids), torch.stack(slots),
             torch.stack(preds), torch.stack(ovfs),
             torch.stack(stats).to(box.device))
-
-
-# ---------------------------------------------------------------------------
-# the kernel's decomposition over a thread-block cluster, replayed on the CPU
-# (tests only: nothing on the CUDA path calls these)
-# ---------------------------------------------------------------------------
-
-def cluster_columns(d: int, t: int, g: int):
-    """Owner block of each column of the augmented [D, D+T] matrix when G
-    blocks split it as `fused_sort_kernel` does: block b owns the diagonal
-    columns [b*ceil(D/G), ...) and the track columns D + [b*ceil(T/G),
-    ...); the last slices are ragged and may be empty."""
-    dc, tc = -(-d // g), -(-t // g)
-    return torch.cat([torch.arange(d) // dc, torch.arange(t) // tc])
-
-
-def _top2(values: torch.Tensor, n: int):
-    """Per row: (first max, its column, the largest other value) over the
-    columns of `values`; (-inf, n, -inf) when there are none."""
-    rows = values.shape[0]
-    inf = torch.full((rows,), -torch.inf)
-    if values.shape[1] == 0:
-        return inf, torch.full((rows,), n), inf
-    b1, i1 = first_argmax(values, 1)
-    rest = values.index_put((torch.arange(rows), i1), inf)
-    b2 = rest.max(dim=1).values if values.shape[1] > 1 else inf
-    return b1, i1, b2
-
-
-def bid_keys(bid: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-    """int64 keys whose order is (bid, then the lower row): the float's bits
-    made order-preserving, then the inverted row, as the kernel packs them
-    (below its round tag) into one 64-bit word for its shared-memory
-    atomicMax; shifted by 2^63 to stay signed here."""
-    u = bid.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    order = torch.where(u >= 0x80000000, 0xFFFFFFFF - u, u + 0x80000000)
-    return (order - 0x80000000) * (1 << 32) + (0xFFFFFFFF - rows)
-
-
-def cluster_auction_replay(A: torch.Tensor, dvalid: torch.Tensor, g: int):
-    """`forward_auction_plain` as G column blocks run it: each block takes
-    the bidding rows' (first max, column, runner-up) over its own columns,
-    the partials merge in ascending block order by `warp_top2`'s rule, each
-    column keeps the bid with the highest (bid, lowest row) key, and the
-    winners take their columns, evicting the owners.  Returns (r2c[D],
-    rounds, bids)."""
-    d, n = A.shape
-    span = torch.clamp(A.max(), min=1e-6)
-    eps = span / max(4096.0, 64.0 * d)
-    owner = cluster_columns(d, n - d, g)
-    blocks = [torch.nonzero(owner == b).flatten() for b in range(g)]
-    rows = torch.arange(d)
-    prices = torch.zeros(n, dtype=_F32)
-    c2r = torch.full((n,), -1, dtype=torch.int64)
-    r2c = torch.where(dvalid, -1, 0).to(torch.int64)
-    rounds = bids = 0
-    none = torch.iinfo(torch.int64).min
-    while rounds < MAX_AUCTION_ROUNDS:
-        pending = dvalid & (r2c < 0)
-        if not bool(pending.any()):
-            break
-        rounds += 1
-        bids += int(pending.sum())
-        b1 = i1 = b2 = None
-        for cols in blocks:  # ascending block order
-            pb1, pi1, pb2 = _top2(A[:, cols] - prices[cols], n)
-            if len(cols):
-                pi1 = cols[pi1]
-            if b1 is None:
-                b1, i1, b2 = pb1, pi1, pb2
-                continue
-            take = (pb1 > b1) | ((pb1 == b1) & (pi1 < i1))
-            b2 = torch.where(take, torch.maximum(b1, pb2),
-                             torch.maximum(pb1, b2))
-            b1, i1 = torch.where(take, pb1, b1), torch.where(take, pi1, i1)
-        bid = prices[i1] + (b1 - b2) + eps
-        bidding = pending & (bid > NEG * 0.5)
-        keys = bid_keys(bid, rows)
-        best = torch.full((n,), none).scatter_reduce(
-            0, i1[bidding], keys[bidding], "amax")
-        won = bidding & (best[i1] == keys)
-        cols = i1[won]
-        old = c2r[cols]
-        r2c[old[old >= 0]] = -1
-        c2r[cols] = rows[won]
-        prices[cols] = bid[won]
-        r2c[won] = cols
-    return r2c, rounds, bids
-
-
-def cluster_slots_replay(is_new: torch.Tensor, matched: torch.Tensor,
-                         tgt: torch.Tensor, free: torch.Tensor, g: int):
-    """`allocate_slots` as G blocks run it: block b lists its own free slots
-    [b*ceil(T/G), ...) in order; an exclusive scan of the blocks' free
-    counts places the r-th new detection at the owner of the r-th free
-    slot, which looks it up in its own list."""
-    t = free.shape[0]
-    tc = -(-t // g)
-    new_rank = torch.cumsum(is_new.to(torch.int64), 0)
-    lists = [torch.nonzero(free[b * tc:(b + 1) * tc]).flatten() + b * tc
-             for b in range(g)]
-    counts = torch.tensor([len(x) for x in lists])
-    pre = torch.cumsum(counts, 0) - counts
-    n_free = int(counts.sum())
-    slot = torch.full_like(new_rank, t - 1)
-    for r, k in enumerate(new_rank.tolist()):
-        if 1 <= k <= n_free:
-            b = int(torch.nonzero((pre < k) & (k <= pre + counts))[0])
-            slot[r] = lists[b][k - int(pre[b]) - 1]
-    slot = torch.where(matched, tgt, slot)
-    n_new = new_rank[-1]
-    return slot, new_rank, n_new, n_new > n_free
 
 
 def check_chunk_inputs(state, box, conf, valid, t_shapes, extra=()):

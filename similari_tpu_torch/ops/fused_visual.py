@@ -5,8 +5,10 @@ state update for a chunk of C frames per launch (mirrors
 `fused_visual_chunk` launches two CUDA kernels for CUDA tensors: the
 chunk's gallery products (`ops/gallery_dots.py::gallery_dots`), then the
 frame loop `fused_visual_kernel` (`csrc/fused_track.cu`), which gathers
-each gated pair's dot product and norms from them.  For CPU tensors it
-runs the plain PyTorch version, `fused_visual_chunk_plain`.  Per frame
+each gated pair's dot product and norms from them.  The frame loop runs
+the chunk on one thread-block cluster of VISUAL_CLUSTER blocks, the slots
+dealt to the blocks in turn.  For CPU tensors it runs the plain PyTorch
+version, `fused_visual_chunk_plain`.  Per frame
 both compute: the positional metric (aligned IoU, or Mahalanobis against the
 stored Kalman state) with spatio-temporal constraints; K per-lane gallery
 distances (euclidean or cosine, f32 or bf16-rounded inputs) gated by
@@ -16,8 +18,9 @@ allocation; the Kalman step; gallery insert with quality-sorted eviction.
 
 Scope, as the reference kernel's: axis-aligned boxes, history depth 1,
 own-area shares precomputed when own-area gating is on.  Shapes: at most
-MAX_ROWS rows per frame, MAX_LANES lanes, and shared arrays within
-MAX_SMEM (`check_visual_shape`, before any launch on every device).
+MAX_ROWS rows per frame, MAX_LANES lanes, and a block's shared arrays
+within MAX_SMEM with every slice in device memory (`check_visual_shape`,
+before any launch on every device).
 
 The state travels as a tuple (see `state_to_tuple`): the 12 SORT columns
 of `fused_sort.state_to_tuple`, then feats f32[T,K,F], feat_quality
@@ -33,8 +36,8 @@ from typing import Tuple
 
 import torch
 
-from .fused_sort import (MAX_ROWS, MAX_SMEM, NEG, STEP_HINT, aligned_iou,
-                         allocate_slots, augmented, carve_bytes,
+from .fused_sort import (MAX_ROWS, MAX_SMEM, NEG, STEP_HINT,
+                         aligned_iou, allocate_slots, augmented, carve_bytes,
                          check_chunk_inputs, check_prof, first_argmax,
                          forward_auction_plain, kalman_rows, pointers,
                          sanitize_boxes, sort_state_shapes, write_rows)
@@ -50,11 +53,26 @@ VisualTuple = Tuple[torch.Tensor, ...]
 
 # the phases of a frame in `fused_visual_kernel`, in order; a profiled
 # launch stamps the start of the frame and the end of each into an int64
-# [C, len(PHASES) + 1] buffer (`csrc/fused_track.cu::ST_*`)
+# [C, PROF_WIDTH] buffer (`csrc/fused_track.cu::ST_*`), and the frame's
+# cluster barriers into its last column
 PHASES = ("rows and tracks", "lists", "positional pass", "norms",
           "gallery distances", "votes", "argmaxes", "auction",
           "slots and KF", "state write")
-PROF_WIDTH = len(PHASES) + 1
+PROF_WIDTH = len(PHASES) + 2
+# the frame loop's cluster (`csrc/fused_track.cu`): blocks, threads per
+# block; slot t lies in block t % VISUAL_CLUSTER
+VISUAL_CLUSTER, VISUAL_THREADS = 16, 512
+# where a block keeps its data (`fused_visual_chunk.plan["storage"]`, bits:
+# 4 the auction's column arrays, 2 its state slice, 1 its [D, Tc] matrices
+# in shared memory; the rest in device memory)
+STORAGE_BITS = ((4, "column arrays"), (2, "state"), (1, "matrices"))
+
+
+def storage_name(storage: int) -> str:
+    """What a block of the cluster keeps in shared memory under
+    `storage`."""
+    kept = [name for bit, name in STORAGE_BITS if storage & bit]
+    return (", ".join(kept) or "nothing") + " in shared memory"
 
 
 def check_visual_scope(cfg: VisualConfig) -> None:
@@ -80,33 +98,58 @@ def check_visual_scope(cfg: VisualConfig) -> None:
 MAX_LANES = 31  # gallery lanes per track: bits of a per-track int mask
 
 
-def visual_smem_bytes(d: int, t: int, k: int) -> int:
-    """Shared bytes of `VisualSmem::carve` (`csrc/fused_track.cu`) at D = d
-    rows, T = t slots and K = k gallery lanes, all arrays of 4-byte items
+def visual_smem_bytes(d: int, t: int, k: int, storage: int) -> int:
+    """Shared bytes per block of `VisualSmem::carve` (`csrc/fused_track.cu`)
+    at D = d rows, T = t slots, K = k gallery lanes and the storage bits
     (the library's `fused_visual_plan` gives the same count)."""
-    nw = MAX_ROWS // 32
-    return carve_bytes([5 * d] + [d] * 20 + [t] * 10 + [k * t] * 3
-                       + [nw, nw, 1 + k, 1, d + t, d + t] + [d] * 4)
+    g = VISUAL_CLUSTER
+    tc = -(-t // g)
+    mw, tw = -(-tc // 32), -(-t // 32)
+    counts = ([5 * d] + [d] * 5 + [d] * 18 + [(d, 8)] + [d] * 3
+              + [2 * d, 2, (2 * d, 16)])
+    if storage & 4:
+        counts += [d + t, d + t, (d + t, 8)]
+    counts += ([tc] * 9 + [k * tc] * 2 + [(VISUAL_THREADS, 8)]
+               + [2 * mw, g * mw, tw] + [2] * 3 + [g] * 3 + [32, 32]
+               + [4, 1])
+    if storage & 2:
+        counts += [5 * tc] * 7 + [tc] * 5 + [k * tc] * 2 + [tc] * 3
+    if storage & 1:
+        counts += [d * tc, d * tc, (d * tc, 1)]
+    return carve_bytes(counts)
 
 
-def check_visual_shape(d: int, t: int, k: int) -> None:
+def visual_storage(d: int, t: int, k: int):
+    """(storage, shared bytes per block) that `visual_storage` in
+    `csrc/fused_track.cu` chooses: the first of 7, 6, ..., 0 that fits;
+    storage -1 (with the bytes of 0) when none fits."""
+    for s in range(7, -1, -1):
+        nbytes = visual_smem_bytes(d, t, k, s)
+        if nbytes <= MAX_SMEM:
+            return s, nbytes
+    return -1, nbytes
+
+
+def check_visual_shape(d: int, t: int, k: int):
     """Raise ValueError, before any launch and alike on every device, for
     a shape `fused_visual_kernel` does not take: more than MAX_ROWS rows
-    per frame, more than MAX_LANES lanes, or shared arrays past
-    MAX_SMEM."""
+    per frame, more than MAX_LANES lanes, or a block's shared arrays past
+    MAX_SMEM with every slice in device memory.  Returns
+    `visual_storage(d, t, k)`."""
     if d > MAX_ROWS:
         raise ValueError(f"the fused VisualSORT kernel takes at most "
-                         f"{MAX_ROWS} rows per frame (one per thread), got "
-                         f"D={d}" + STEP_HINT)
+                         f"{MAX_ROWS} rows per frame, got D={d}" + STEP_HINT)
     if k > MAX_LANES:
         raise ValueError(f"the fused VisualSORT kernel takes at most "
                          f"{MAX_LANES} gallery lanes per track, got K={k}"
                          + STEP_HINT)
-    nbytes = visual_smem_bytes(d, t, k)
-    if nbytes > MAX_SMEM:
+    storage, nbytes = visual_storage(d, t, k)
+    if storage < 0:
         raise ValueError(f"the fused VisualSORT kernel's shared arrays at "
-                         f"D={d}, T={t}, K={k} take {nbytes} bytes, past the "
-                         f"{MAX_SMEM} bytes a block may use" + STEP_HINT)
+                         f"D={d}, T={t}, K={k} take {nbytes} bytes per "
+                         f"block, past the {MAX_SMEM} bytes a block may use"
+                         + STEP_HINT)
+    return storage, nbytes
 
 
 def _gallery_distances(cfg: VisualConfig, feat, gf):
@@ -130,6 +173,29 @@ def _gallery_distances(cfg: VisualConfig, feat, gf):
             w = 1.0 - sim
         out.append((w, ok))
     return out
+
+
+def _max_distance(dists, valids) -> torch.Tensor:
+    """The largest gallery distance over the pairs that pass, or NEG."""
+    max_dist = torch.tensor(NEG, dtype=_F32, device=valids[0].device)
+    for (w, _), v in zip(dists, valids):
+        max_dist = torch.maximum(max_dist, torch.where(v, w, NEG).max())
+    return max_dist
+
+
+def _best_fit(w_m: torch.Tensor, eligible: torch.Tensor):
+    """The greedy best-fit claim in closed form on the weights w_m [D, T]
+    (NEG where not eligible): each row's best track t1 (first max), whether
+    it has any, whether it wins t1 (it is t1's heaviest row, the first
+    one), and the tracks claimed so."""
+    _, t1 = first_argmax(w_m, 1)
+    has_any = eligible.any(dim=1)
+    _, best_q = first_argmax(w_m, 0)
+    rows = torch.arange(w_m.shape[0], device=w_m.device)
+    wins = has_any & (best_q[t1] == rows)
+    claimed = torch.zeros(w_m.shape[1], dtype=torch.bool, device=w_m.device)
+    claimed[t1[wins]] = True
+    return t1, has_any, wins, claimed
 
 
 def _visual_frame_plain(cfg: VisualConfig, st: list, box, conf, valid, feat,
@@ -189,9 +255,7 @@ def _visual_frame_plain(cfg: VisualConfig, st: list, box, conf, valid, feat,
     lanes = [gate & (st[14][:, i] > 0)[None, :] for i in range(k)]
     n_pairs = sum(int(x.sum()) for x in lanes)  # the pairs the kernel scores
     valids = [x & ok for x, (_, ok) in zip(lanes, dists)]
-    max_dist = torch.tensor(NEG, dtype=_F32, device=dev)
-    for (w, _), v in zip(dists, valids):
-        max_dist = torch.maximum(max_dist, torch.where(v, w, NEG).max())
+    max_dist = _max_distance(dists, valids)
     votes = torch.zeros((d, t), dtype=torch.int64, device=dev)
     weight = torch.zeros((d, t), dtype=_F32, device=dev)
     for (w, _), v in zip(dists, valids):
@@ -200,13 +264,8 @@ def _visual_frame_plain(cfg: VisualConfig, st: list, box, conf, valid, feat,
     # ---- greedy best-fit claim in closed form ----------------------------
     eligible = (votes >= cfg.visual_min_votes) & dvalid[:, None]
     w_m = torch.where(eligible, weight, NEG)
-    _, t1 = first_argmax(w_m, 1)
-    has_any = eligible.any(dim=1)
-    _, best_q = first_argmax(w_m, 0)
+    t1, has_any, wins, claimed = _best_fit(w_m, eligible)
     rows = torch.arange(d, device=dev)
-    wins = has_any & (best_q[t1] == rows)
-    claimed = torch.zeros(t, dtype=torch.bool, device=dev)
-    claimed[t1[wins]] = True
     # ---- positional auction on the remainder -----------------------------
     row_open = dvalid & ~has_any
     col_open = active & ~claimed
@@ -298,7 +357,10 @@ def fused_visual_chunk(cfg: VisualConfig, state: VisualTuple, box, conf,
     the kernel scores.
     CUDA tensors launch the kernels; CPU tensors run the plain version.
     `prof`, an int64 [C, PROF_WIDTH] CUDA tensor, receives the
-    kernel's phase stamps (ns of the device's global timer).
+    kernel's phase stamps (ns of the device's global timer) and cluster
+    barriers.  A launch records its plan in `fused_visual_chunk.plan`:
+    cluster size, threads per block, storage (`storage_name`) and shared
+    bytes per block.
     """
     check_visual_scope(cfg)
     valid, fvalid = valid.to(_I32), fvalid.to(_I32)
@@ -314,7 +376,7 @@ def fused_visual_chunk(cfg: VisualConfig, state: VisualTuple, box, conf,
     if qual.dtype != _F32 or oa.dtype != _F32:
         raise TypeError("qual and oa must be float32")
     check_prof(prof, box, PROF_WIDTH)
-    check_visual_shape(d, t, k)
+    storage, smem_bytes = check_visual_shape(d, t, k)
     if box.device.type == "cpu":
         return fused_visual_chunk_plain(cfg, state, box, conf, valid, feat,
                                         fvalid, qual, oa, epoch0)
@@ -333,9 +395,12 @@ def fused_visual_chunk(cfg: VisualConfig, state: VisualTuple, box, conf,
     outs = [empty((c, d), _I32), empty((c, d), _I32), empty((c, d, 5), _F32),
             empty((c, d), _I32), empty((c, d), _I32), empty((c, d), _I32),
             empty((c,), _I32), empty((c, 3), _I32)]
-    scratch = [empty((d, t), _F32), empty((d, t), torch.uint8),
-               empty((k, d, t), _F32), empty((k, d, t), torch.uint8),
-               empty((d, t), _F32)]
+    # device-memory scratch only for what the plan keeps out of shared
+    # memory: the blocks' [D, Tc] matrices (two f32, one byte), the column
+    # arrays ([G, 4 (D+T)] words)
+    g, tc = VISUAL_CLUSTER, -(-t // VISUAL_CLUSTER)
+    mats = None if storage & 1 else empty((g * d * tc * 9 + 3) // 4, _F32)
+    cols = None if storage & 4 else empty((g, 4 * (d + t)), _I32)
     # every product the chunk can need, from the launch-start gallery
     dots, norms = gallery_dots(ins[3].view(c * d, f), st[12].view(t * k, f),
                                cfg.feature_precision == "bf16", d)
@@ -346,7 +411,9 @@ def fused_visual_chunk(cfg: VisualConfig, state: VisualTuple, box, conf,
     pw, vw = cfg.position_weight, cfg.velocity_weight
     with torch.cuda.device(dev):  # the launch and its attributes
         code = lib.fused_visual_launch(
-            *pointers(*ins, *st, *outs, *scratch, dots, norms),
+            *pointers(*ins, *st, *outs),
+            *(None if x is None else x.data_ptr() for x in (mats, cols)),
+            *pointers(dots, norms),
             c, d, t, k, f, int(epoch0), cfg.max_idle_epochs,
             int(cfg.recycle_idle), cfg.visual_minimal_track_length,
             cfg.visual_min_votes, int(cfg.positional_kind == "maha"),
@@ -361,12 +428,16 @@ def fused_visual_chunk(cfg: VisualConfig, state: VisualTuple, box, conf,
             None if prof is None else prof.data_ptr(),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     check(code, "fused_visual_launch")
+    fused_visual_chunk.plan = dict(cluster=VISUAL_CLUSTER,
+                                   threads=VISUAL_THREADS, storage=storage,
+                                   smem_bytes=smem_bytes)
     fused_visual_chunk.launches += 1
     ids, slots, pred, vt, newf, length, ovf, stats = outs
     return st, ids, slots, pred, vt, newf, length, ovf > 0, stats
 
 
 fused_visual_chunk.launches = 0
+fused_visual_chunk.plan = None
 
 
 def state_to_tuple(state: VisualState) -> VisualTuple:

@@ -20,10 +20,10 @@ always those of the unrounded values (`similari_tpu/ops/pallas_visual.py`
 CUDA tensors, which skip the tiles the scan never reads (outside
 `needed_columns`), and runs their plain version, `gallery_dots_plain`, for
 CPU tensors.  With bf16 inputs a staging kernel first writes the norms and
-a bf16 copy of [G ; X] (`stage_bf16` is its plain version), then a TMA +
-wgmma kernel multiplies that copy in TILE_ROWS x TILE_COLS output tiles;
-`staged_dots_replay` replays that on the CPU for the tests.  f32 inputs
-take one kernel of exact f32 products.
+a bf16 copy of [G ; X] (rows rounded once, zero-padded to PAD columns),
+then a TMA + wgmma kernel multiplies that copy in TILE_ROWS x TILE_COLS
+output tiles (`tests/kernel_replay.py` replays both on the CPU).  f32
+inputs take one kernel of exact f32 products.
 """
 
 from __future__ import annotations
@@ -69,45 +69,6 @@ def gallery_dots_plain(x: torch.Tensor, g: torch.Tensor, bf16: bool):
     if bf16:
         x, cols = round_bf16(x), round_bf16(cols)
     return f32_dots(x, cols), norms
-
-
-def stage_bf16(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """The bf16 staging pass's copy of [G ; X]: each row rounded to bf16
-    (nearest even) once, zero-padded to a multiple of PAD columns."""
-    cols = torch.cat([g, x])
-    f = cols.shape[1]
-    out = torch.zeros((cols.shape[0], -(-f // PAD) * PAD),
-                      dtype=torch.bfloat16, device=cols.device)
-    out[:, :f] = cols.to(torch.bfloat16)
-    return out
-
-
-def tile_needed(n: int, m: int, rows_per_frame: int, tm: int, r0: int,
-                c0: int) -> bool:
-    """Whether the output tile at (r0, c0) holds an entry of
-    `needed_columns` (the kernels' `tile_needed`): a gallery column, or a
-    chunk row of a later frame than its first chunk-row column."""
-    if c0 < m:
-        return True
-    return (min(r0 + tm, n) - 1) // rows_per_frame > (c0 - m) // rows_per_frame
-
-
-def staged_dots_replay(x: torch.Tensor, g: torch.Tensor,
-                       rows_per_frame: int) -> torch.Tensor:
-    """The bf16 product as the kernel tiles it, on the CPU (tests only):
-    the staged copy multiplied in f32 over its padded width, one
-    TILE_ROWS x TILE_COLS output tile at a time, the tiles the kernel skips
-    left NaN."""
-    st = stage_bf16(x, g).to(_F32)
-    n, m = x.shape[0], g.shape[0]
-    a = st[m:]
-    out = torch.full((n, m + n), float("nan"), dtype=_F32, device=x.device)
-    for r0 in range(0, n, TILE_ROWS):
-        for c0 in range(0, m + n, TILE_COLS):
-            if tile_needed(n, m, rows_per_frame, TILE_ROWS, r0, c0):
-                out[r0:r0 + TILE_ROWS, c0:c0 + TILE_COLS] = f32_dots(
-                    a[r0:r0 + TILE_ROWS], st[c0:c0 + TILE_COLS])
-    return out
 
 
 def needed_columns(n: int, m: int, rows_per_frame: int,

@@ -5,8 +5,8 @@ The JAX tool asks whether the fused single-scene kernel can serve batch
 workloads: n independent single-scene `pallas_call`s in one jit.  Here
 each frame chunk of n scenes is n calls of `ops/fused_visual.py::
 fused_visual_chunk` on one stream, i.e. n `gallery_dots` launches and n
-`fused_visual_kernel` launches, one block each: the baseline a fused
-kernel with one block per scene would have to beat.  The shape and
+`fused_visual_kernel` launches, one cluster each: the baseline a fused
+kernel with a scene axis would have to beat.  The shape and
 inputs are the JAX tool's: chunk 32, D=100 detections, T=400 slots, K=3
 lanes, F=512, the bf16 euclidean configuration, scene i's random walk and
 features from seed 7 + i; every chunk runs from the state the last one

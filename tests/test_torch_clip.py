@@ -17,6 +17,7 @@ from similari_tpu.ops.nms import nms_kernel as jax_nms
 from similari_tpu_torch.ops import clip as cl
 from similari_tpu_torch.ops.nms import nms_kernel, use_block_skip
 
+from kernel_replay import clip_lanes_replay
 from torch_parity import EXACT_BOX_COLUMNS, one_cpu_thread, random_boxes
 
 one_cpu_thread()
@@ -151,7 +152,7 @@ def test_lane_replay_matches_plain_bit_for_bit(case, want_iou):
     terms on 8 lanes, added in the fixed order) equals the plain version
     bit for bit."""
     det8, trk8 = _replay_inputs(case)
-    replay = cl.clip_lanes_replay(det8, trk8, want_iou)
+    replay = clip_lanes_replay(det8, trk8, want_iou)
     plain = cl.pair_block_plain(det8, trk8, want_iou)
     assert torch.equal(replay, plain)
     assert bool((~cl.far_pairs(det8, trk8)).any())  # pairs were listed

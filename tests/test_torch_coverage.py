@@ -77,7 +77,7 @@ RENAMED = {
     "ops/pallas_sort.py::_cumsum_rows":
         "similari_tpu_torch/csrc/fused_track.cuh::block_scan_inclusive",
     "ops/pallas_sort.py::forward_auction":
-        "similari_tpu_torch/csrc/fused_track.cuh::forward_auction",
+        "similari_tpu_torch/csrc/fused_track.cuh::cluster_auction",
     "ops/pallas_sort.py::_kernel":
         "similari_tpu_torch/csrc/fused_track.cu::fused_sort_kernel",
     "ops/pallas_sort.py::pallas_sort_chunk":

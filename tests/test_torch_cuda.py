@@ -164,28 +164,82 @@ def test_fused_sort_phase_stamps(cuda):
     assert torch.equal(prof[:, -1], 2 + stats[:, 0].cpu().long())
 
 
+def _visual_walk(seed, steps, d, n, f, spread):
+    """n crowded random-walk objects in rows 0..n-1 of d, the rest
+    padding (all-zero, invalid)."""
+    out = []
+    for x in crowded_stream(seed, steps, n, n, f, spread, copies=0):
+        pad = np.zeros((steps, d - n) + x.shape[2:], x.dtype)
+        out.append(np.concatenate([x, pad], axis=1))
+    return out
+
+
+def _all_padded_frames():
+    """`visual_stream` with two frames of padding only."""
+    stream = list(visual_stream(2, 8, 8, 16))
+    stream[2][2] = False
+    stream[2][5] = False
+    return stream
+
+
+MAIN = dict(VISUAL_CONFIGS["cosine_gates"], feature_precision="bf16")
+
+# name: (config, stream, capacity T, `fused_visual_chunk.plan["storage"]`
+# or None)
 VISUAL_CASES = {
-    **{name: (kw, lambda: visual_stream(0, 8, 8, 16), 32)
+    **{name: (kw, lambda: visual_stream(0, 8, 8, 16), 32, None)
        for name, kw in VISUAL_CONFIGS.items()},
     "bf16": (dict(VISUAL_CONFIGS["euclid_iou"], feature_precision="bf16"),
-             lambda: visual_stream(1, 8, 8, 16), 32),
+             lambda: visual_stream(1, 8, 8, 16), 32, None),
+    "overflow": (dict(VISUAL_CONFIGS["euclid_iou"], max_idle_epochs=2),
+                 lambda: visual_overflow_stream(8, 8, 16), 8, None),
     "overflow_recycle": (dict(VISUAL_CONFIGS["euclid_iou"], max_idle_epochs=2,
                               recycle_idle=True),
-                         lambda: visual_overflow_stream(8, 8, 16), 8),
+                         lambda: visual_overflow_stream(8, 8, 16), 8, None),
     "padded": (dict(VISUAL_CONFIGS["cosine_gates"], feature_precision="bf16"),
-               lambda: visual_padded_stream(12, 16, 16), 64),
+               lambda: visual_padded_stream(12, 16, 16), 64, None),
+    "all_padded_frames": (VISUAL_CONFIGS["euclid_iou"], _all_padded_frames,
+                          32, None),
     "large_norm": (dict(VISUAL_CONFIGS["euclid_iou"], visual_threshold=1e4,
                         visual_minimal_track_length=1),
-                   lambda: large_norm_stream(8, 8, 16), 32),
+                   lambda: large_norm_stream(8, 8, 16), 32, None),
     **{f"crowded_{name}": (VISUAL_CONFIGS[name], lambda: crowded_stream(
-        0, 8, 16, 12, 16, 133.0, noise=2.0, copies=1), 64)
-       for name in ("euclid_iou", "maha")},
+        0, 8, 16, 12, 16, 133.0, noise=2.0, copies=1), 64, None)
+       for name in ("euclid_iou", "maha", "constraints")},
+    # D in {1, 128, 1024} against T not a multiple of the cluster: each
+    # storage of a block's data; T=2573 is the most slots the one-block
+    # kernel took at D=128, K=3
+    "d1_t500": (VISUAL_CONFIGS["euclid_iou"],
+                lambda: _visual_walk(1, 8, 1, 1, 16, 50.0), 500, 7),
+    "d128_t500": (MAIN, lambda: _visual_walk(2, 8, 128, 100, 16, 1000.0),
+                  500, 7),
+    "d128_t2573": (MAIN, lambda: _visual_walk(3, 8, 128, 100, 16, 1000.0),
+                   2573, 6),
+    "d128_t8000": (dict(MAIN, recycle_idle=True), lambda: _visual_walk(
+        4, 8, 128, 100, 16, 1000.0), 8000, 4),
+    "d128_t11000": (MAIN, lambda: _visual_walk(5, 4, 128, 100, 16, 1000.0),
+                    11000, 2),
+    "d128_t14000": (MAIN, lambda: _visual_walk(11, 4, 128, 100, 16, 1000.0),
+                    14000, 0),
+    "d1024_t20": (VISUAL_CONFIGS["euclid_iou"], lambda: _visual_walk(
+        6, 4, 1024, 16, 16, 400.0), 20, 7),
+    "d1024_t700": (dict(MAIN, recycle_idle=True), lambda: _visual_walk(
+        7, 4, 1024, 400, 16, 3000.0), 700, 6),
+    "d1024_t1500": (MAIN, lambda: _visual_walk(8, 4, 1024, 400, 16, 3000.0),
+                    1500, 4),
+    "d1024_t2000": (MAIN, lambda: _visual_walk(9, 4, 1024, 400, 16, 3000.0),
+                    2000, 2),
+    "d1024_t4000": (VISUAL_CONFIGS["maha"], lambda: _visual_walk(
+        10, 4, 1024, 400, 16, 3000.0), 4000, 0),
 }
 
 
 @pytest.mark.parametrize("case", sorted(VISUAL_CASES))
 def test_fused_visual_kernel_matches_plain(cuda, case):
-    kw, make, t = VISUAL_CASES[case]
+    """One cluster of VISUAL_CLUSTER blocks; a block's column arrays, state
+    slice and [D, Tc] matrices in shared memory where they fit, else in
+    device memory, as `storage` says."""
+    kw, make, t, storage = VISUAL_CASES[case]
     cfg = VisualConfig(**kw)
     stream = make()
     inputs = [torch.tensor(x, device=cuda) for x in stream]
@@ -194,8 +248,30 @@ def test_fused_visual_kernel_matches_plain(cuda, case):
     before = gd.gallery_dots.launches
     k = _chunks(fv.fused_visual_chunk, cfg, st, inputs, len(stream[0]))
     assert gd.gallery_dots.launches == before + len(stream[0]) // CHUNK
+    assert (fv.fused_visual_chunk.plan["cluster"],
+            fv.fused_visual_chunk.plan["threads"]) == (
+                fv.VISUAL_CLUSTER, fv.VISUAL_THREADS)
+    if storage is not None:
+        assert fv.fused_visual_chunk.plan["storage"] == storage
     p = _chunks(fv.fused_visual_chunk_plain, cfg, st, inputs, len(stream[0]))
     _assert_same(k, p)
+
+
+def test_fused_visual_phase_stamps(cuda):
+    """A profiled launch stamps every phase in order and counts the
+    cluster barriers: four per frame (the max distance, the argmaxes, the
+    span, the match flags), one per auction round."""
+    cfg = VisualConfig(**VISUAL_CONFIGS["euclid_iou"])
+    inputs = [torch.tensor(x, device=cuda) for x in crowded_stream(
+        0, CHUNK, 16, 12, 16, 133.0, noise=2.0, copies=1)]
+    st = fv.state_to_tuple(new_visual_state(64, 1, 3, 16, device=cuda))
+    prof = torch.zeros((CHUNK, fv.PROF_WIDTH), dtype=torch.int64,
+                       device=cuda)
+    stats = fv.fused_visual_chunk(cfg, st, *inputs, 1, prof=prof)[8]
+    prof = prof.cpu()
+    stamps = prof[:, :len(fv.PHASES) + 1]
+    assert bool((stamps[:, 1:] >= stamps[:, :-1]).all())
+    assert torch.equal(prof[:, -1], 4 + stats[:, 0].cpu().long())
 
 
 @pytest.mark.parametrize("bf16", [False, True])
@@ -248,19 +324,24 @@ def test_kernel_wrapper_checks_inputs(cuda):
 
 def test_shape_check_counts_the_library_bytes(cuda):
     """The Python count of the fused kernels' shared bytes equals the
-    library's launch plans: VisualSORT over a grid of (D, T, K), within and
-    past the limit; SORT's storage and bytes over (D, T)."""
+    library's launch plans: VisualSORT's cluster, storage and bytes over a
+    grid of (D, T, K), within and past the limit; SORT's storage and bytes
+    over (D, T)."""
     from similari_tpu_torch._build import library
 
     lib = library()
     out = (ctypes.c_int * 4)()
     for d in (1, 8, 100, 128, 1024):
-        for t in (1, 200, 512, 1252, 1253, 2573, 2574, 4000):
+        for t in (1, 200, 512, 1252, 1253, 2573, 2574, 4000, 12816, 12817,
+                  51200, 51201):
             for k in (1, 3, 8, 31):
                 code = lib.fused_visual_plan(d, t, k, out)
-                nbytes = fv.visual_smem_bytes(d, t, k)
-                assert (out[0], out[1]) == (1024, nbytes), (d, t, k)
-                assert (code == 0) == (nbytes <= fs.MAX_SMEM), (d, t, k)
+                storage, nbytes = fv.visual_storage(d, t, k)
+                assert (out[0], out[1]) == (fv.VISUAL_CLUSTER,
+                                            fv.VISUAL_THREADS), (d, t, k)
+                assert (code == 0) == (storage >= 0), (d, t, k)
+                if storage >= 0:
+                    assert (out[2], out[3]) == (storage, nbytes), (d, t, k)
     for d in (1, 100, 128, 1024):
         for t in (1, 200, 512, 2000, 4000, 8000, 24000):
             storage, nbytes = fs.sort_storage(d, t)

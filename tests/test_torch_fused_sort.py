@@ -21,15 +21,16 @@ from similari_tpu.trackers.state import new_sort_state as jax_new_sort_state
 from similari_tpu_torch.convert import sort_state_from_numpy, sort_state_to_numpy
 from similari_tpu_torch.ops.assignment import MAX_AUCTION_ROUNDS
 from similari_tpu_torch.ops import fused_sort
-from similari_tpu_torch.ops.fused_sort import (allocate_slots, bid_keys,
-                                               cluster_auction_replay,
-                                               cluster_slots_replay,
+from similari_tpu_torch.ops.fused_sort import (allocate_slots,
                                                forward_auction_plain,
                                                fused_sort_chunk,
                                                fused_sort_chunk_plain,
                                                fused_sort_scan,
                                                state_to_tuple)
 from similari_tpu_torch.trackers.sort_step import SortConfig
+
+from kernel_replay import (bid_keys, cluster_auction_replay,
+                           cluster_slots_replay)
 
 from torch_parity import (ATOL, RTOL, assert_state_dicts_match,
                           crowded_stream, jax_state_dict,

@@ -28,12 +28,12 @@ from similari_tpu_torch.ops.fused_visual import (_gallery_distances,
 from similari_tpu_torch.ops.gallery_dots import (PAD, TILE_COLS, TILE_ROWS,
                                                  gallery_dots,
                                                  gallery_dots_plain,
-                                                 needed_columns, stage_bf16,
-                                                 staged_dots_replay)
+                                                 needed_columns)
 from similari_tpu_torch.trackers.visual_state import new_visual_state
 from similari_tpu_torch.trackers.visual_step import (VisualConfig,
                                                      visual_scan, visual_step)
 
+from kernel_replay import stage_bf16, staged_dots_replay
 from torch_parity import (ATOL, RTOL, VISUAL_CONFIGS, assert_state_dicts_match,
                           crowded_stream, jax_state_dict, large_norm_stream,
                           one_cpu_thread, visual_overflow_stream,

@@ -445,3 +445,41 @@ def test_read_gt_write_csv_round_trip(tmp_path):
             2: [(3, 11.5, 21.0, 30.0, 40.25)]}
     assert pmot.read_gt(path) == jmot.read_gt(path) == want
     assert pmot.read_detections(path) == jmot.read_detections(path)
+
+
+@pytest.mark.parametrize("visual", [False, True])
+def test_host_engine_first_call_without_detections(visual):
+    """A store's first call holds no detection: the port's host engine
+    returns an empty result, as the JAX package's device engine does (its
+    host engine raises there), and the next call opens the same tracks."""
+    f = 6
+    if visual:
+        def make(pkg, **kw):
+            return pkg.VisualSort(1, _visual_opts(pkg), **kw)
+
+        def call(tr, boxes, conf):
+            n = len(boxes)
+            feat = np.ones((n, f), np.float32) * np.arange(1, n + 1)[:, None]
+            return tr.predict_arrays(0, boxes, conf, feat, np.ones(n, bool),
+                                     np.ones(n, np.float32))
+    else:
+        def make(pkg, **kw):
+            return pkg.Sort(1, method=pkg.PositionalMetricType.iou(0.3),
+                            **kw)
+
+        def call(tr, boxes, conf):
+            return tr.predict_arrays(0, boxes, conf)
+
+    jt = make(jx, engine="device")
+    ptr = make(pt, engine="host", device="cpu")
+    empty = (np.zeros((0, 5), np.float32), np.zeros((0,), np.float32))
+    out_j, out_p = call(jt, *empty), call(ptr, *empty)
+    assert len(out_p) == len(out_j) and out_p[0] == out_j[0]  # the epoch
+    for a, b in zip(out_j[1:], out_p[1:]):
+        assert np.asarray(b).shape == np.asarray(a).shape
+        assert np.asarray(b).size == 0
+    boxes = np.array([[10.0, 20.0, 0.0, 0.5, 40.0],
+                      [200.0, 220.0, 0.0, 0.6, 30.0]], np.float32)
+    conf = np.ones((2,), np.float32)
+    out_j, out_p = call(jt, boxes, conf), call(ptr, boxes, conf)
+    np.testing.assert_array_equal(np.asarray(out_p[1]), np.asarray(out_j[1]))

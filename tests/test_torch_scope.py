@@ -34,11 +34,13 @@ VISUAL_CFG = VisualConfig(**VISUAL_CONFIGS["euclid_iou"])
 
 
 def _last_fitting_slots(d, k):
-    """The most slots whose VisualSORT shared arrays fit at D=d, K=k."""
-    t = 1
-    while fv.visual_smem_bytes(d, t + 1, k) <= fs.MAX_SMEM:
-        t += 1
-    return t
+    """The most slots whose VisualSORT shared arrays fit at D=d, K=k, with
+    every slice in device memory where it must."""
+    lo, hi = 1, 1 << 20
+    while lo < hi:
+        t = (lo + hi + 1) // 2
+        lo, hi = (t, hi) if fv.visual_storage(d, t, k)[0] >= 0 else (lo, t - 1)
+    return lo
 
 
 def _sort_inputs(c, d):
@@ -93,12 +95,13 @@ def test_sort_chunk_runs_the_largest_shape_the_kernel_takes():
 
 
 def test_visual_shared_bytes_limit_slots():
-    """The count at the main path's shape, and the slots that fit (about
-    2,570 at D=128, K=3; 1,500 at K=8; 1,250 at D=1024)."""
-    assert fv.visual_smem_bytes(128, 512, 3) == 59168
-    assert _last_fitting_slots(128, 3) == 2573
-    assert _last_fitting_slots(128, 8) == 1500
-    assert _last_fitting_slots(1024, 3) == 1252
+    """The plan at the main path's shape (everything in shared memory),
+    and the slots that fit (51,200 at D=128, K=3; 31,552 at K=8; 12,816
+    at D=1024), past the one-block kernel's 2,573, 1,500 and 1,252."""
+    assert fv.visual_storage(128, 512, 3) == (7, 82096)
+    assert _last_fitting_slots(128, 3) == 51200
+    assert _last_fitting_slots(128, 8) == 31552
+    assert _last_fitting_slots(1024, 3) == 12816
 
 
 @pytest.mark.parametrize("case", ["rows", "lanes", "shared"])
