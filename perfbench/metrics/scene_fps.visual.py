@@ -1,0 +1,3 @@
+"""`scene_fps` in the VisualSORT stream cells (`perfbench/readers.py::scene_fps`)."""
+
+from perfbench.readers import scene_fps as read  # noqa: F401
