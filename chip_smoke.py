@@ -319,6 +319,7 @@ from similari_tpu_torch.trackers.visual_step import (  # noqa: E402
     VT_VISUAL, VisualConfig, visual_scan)
 from similari_tpu_torch.utils import (  # noqa: E402
     StepTimer, load_tracker, save_tracker, trace)
+from similari_tpu_torch.utils import profiling  # noqa: E402
 from similari_tpu_torch.utils.kalman import box_sequence_numpy  # noqa: E402
 from similari_tpu_torch.utils.nms import HOST_MAX_BOXES  # noqa: E402
 from similari_tpu_torch.utils.pad import pad_pow2  # noqa: E402
@@ -601,10 +602,9 @@ def device_ms_per_call(fn, match, calls):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
     times = {}
-    for e in prof.events():
-        if e.device_type == cuda and match in e.name:
+    for e in profiling.device_events(prof):
+        if match in e.name:
             times.setdefault(e.name, []).append(e.time_range.elapsed_us())
     return (sum(float(np.mean(t)) for t in times.values()) / 1e3,
             {name: len(t) for name, t in times.items()})
@@ -814,15 +814,13 @@ def main_path_device_ms(dets, feats):
 
 
 def phase_main(args, dets, feats):
-    fs.fused_sort_chunk.launches = 0
-    fv.fused_visual_chunk.launches = 0
-    gd.gallery_dots.launches = 0
+    zero_counts()
     vout, vfps = run_sequence_device_visual(dets, feats, capacity=T,
                                             gallery=K)
     sout, sfps = run_sequence_device(dets, capacity=T)
-    launches = {"fused_visual": fv.fused_visual_chunk.launches,
-                "gallery_dots": gd.gallery_dots.launches,
-                "fused_sort": fs.fused_sort_chunk.launches}
+    counts = read_counts()
+    launches = {k: counts[k]
+                for k in ("fused_visual", "gallery_dots", "fused_sort")}
     log(f"[4] main path: {args.main_frames} frames x {D_VALID} objects; "
         f"run_sequence_device_visual {vfps:.1f} frames/s, "
         f"run_sequence_device {sfps:.1f} frames/s (CUDA events); "
@@ -1037,10 +1035,10 @@ def phase_oriented_sort(args, dev):
                              "path on CUDA")
     st0 = new_sort_state(OT, 1, device=dev)
     sort_scan(cfg, st0, box[:2], conf[:2], valid[:2], 1)  # warm-up
-    cl.clip_pairs.launches = 0
+    zero_counts()
     with DeviceTimer(dev) as timer:
         state, out = sort_scan(cfg, st0, box, conf, valid, 1)
-    launches = cl.clip_pairs.launches
+    launches = read_counts()["clip_pairs"]
     if launches != s:
         raise AssertionError(f"oriented SORT: {launches} clip launches for "
                              f"{s} frames")
@@ -1078,10 +1076,10 @@ def phase_nms(args, dev):
         raise AssertionError("NMS at n=1000 does not take the block-skip "
                              "route on CUDA")
     nms_kernel(frames[0], valid, NMS_THRESHOLD)  # warm-up
-    cl.clip_pairs.launches = 0
+    zero_counts()
     with DeviceTimer(dev) as timer:
         keep = [nms_kernel(b, valid, NMS_THRESHOLD) for b in frames]
-    launches = cl.clip_pairs.launches
+    launches = read_counts()["clip_pairs"]
     with DeviceTimer(dev) as dense_timer:
         dense = [nms_kernel(b, valid, NMS_THRESHOLD, block_skip=False)
                  for b in frames]
@@ -1257,12 +1255,10 @@ def device_profile(run, frames):
     with torch.profiler.profile(activities=acts) as prof:
         run()
         torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    events = [e for e in prof.key_averages() if e.device_type == cuda]
-    busy = sum(e.self_device_time_total for e in events) / 1e3 / frames
-    launches = sum(e.count for e in events) / frames
-    kernels = sorted((e for e in prof.events() if e.device_type == cuda),
+    kernels = sorted(profiling.device_events(prof),
                      key=lambda e: e.time_range.start)
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / frames
+    launches = len(kernels) / frames
     return busy, launches, kernels
 
 
@@ -1317,10 +1313,10 @@ def phase_batched_visual(args, dev):
             with DeviceTimer(dev) as timer:
                 st_pl, out_pl = run(plain_step, start, n)
         else:
-            mi.lane_merge_inplace.launches = 0
+            zero_counts()
             with DeviceTimer(dev) as timer:
                 st_in, out_in = run(inplace_step, start, n)
-            launches = mi.lane_merge_inplace.launches
+            launches = read_counts()["lane_merge"]
         secs[form].append(timer.seconds)
     t_in, t_pl = (float(np.median(secs[f])) for f in ("in-place", "plain"))
     for i, (a, b) in enumerate(zip(out_in, out_pl)):
@@ -1510,22 +1506,25 @@ def phase_batched_sort(args, dev):
 # BatchSort) on the paths above, each driven with every launch counter at 0
 # ---------------------------------------------------------------------------
 
-COUNTERS = {"fused_sort": fs.fused_sort_chunk,
-            "fused_visual": fv.fused_visual_chunk,
-            "gallery_dots": gd.gallery_dots,
-            "clip_pairs": cl.clip_pairs,
-            "lane_merge": mi.lane_merge_inplace}
+# the kernel wrappers' launch counters (`utils/profiling.py`) by label
+COUNTERS = {"fused_sort": "fused_sort.launches",
+            "fused_visual": "fused_visual.launches",
+            "gallery_dots": "gallery_dots.launches",
+            "clip_pairs": "clip.launches",
+            "lane_merge": "merge_inplace.launches"}
+_COUNT_BASE = {}
 OBJECT_FRAMES = 8  # phase 13's frames through `predict` on box objects
 API_PROFILED_FRAMES = 16  # calls under torch.profiler for the idle share
 
 
 def zero_counts():
-    for wrapper in COUNTERS.values():
-        wrapper.launches = 0
+    """Start every launch count of `read_counts` from 0."""
+    _COUNT_BASE.update({k: profiling.counter(n) for k, n in COUNTERS.items()})
 
 
 def read_counts():
-    return {name: w.launches for name, w in COUNTERS.items()}
+    return {k: profiling.counter(n) - _COUNT_BASE.get(k, 0)
+            for k, n in COUNTERS.items()}
 
 
 def expect_counts(label, counts, want):

@@ -75,6 +75,7 @@ from .trackers.sort_step import SortConfig, sort_scan
 from .trackers.state import new_sort_state
 from .trackers.visual_state import new_visual_state
 from .trackers.visual_step import VisualConfig, visual_scan
+from .utils import profiling
 
 # Reference baselines (FPS): the Rust reference's published CPU numbers
 # (BASELINE.md / the reference's benchmarks.md)
@@ -567,7 +568,7 @@ def device_busy_ms(w: Workload, n: int) -> Optional[float]:
         w.step(state, n)
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    events = [e for e in prof.events() if e.device_type == cuda]
+    events = profiling.device_events(prof)
     kernels = sum(not e.name.startswith(("Memcpy", "Memset"))
                   for e in events)
     launches = sum(e.device_type != cuda and e.name.startswith(LAUNCH_CALLS)

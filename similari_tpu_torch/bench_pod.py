@@ -71,13 +71,13 @@ from .bench import GALLERY, box_stream
 from .bench_interactive import device_line, log
 from .device import resolve_device
 from .eval.mot import DeviceTimer
-from .ops import merge_inplace
 from .parallel.gallery import global_gallery_query
 from .parallel.mesh import (Mesh, new_batched_state, new_batched_visual_state,
                             scene_mesh, shard_batched_state, sharded_sort_scan,
                             sharded_visual_scan)
 from .trackers.sort_step import SortConfig
 from .trackers.visual_step import VisualConfig
+from .utils import profiling
 
 JOIN_SECONDS = 1800  # a group still running after this is killed
 COLLECTIVE_SECONDS = 600  # the process group's timeout
@@ -284,12 +284,13 @@ def rank_point(mesh: Mesh, spec: PodSpec) -> Dict[str, dict]:
     out = {}
     for tracker in spec.trackers:
         point = POINTS[tracker](mesh, spec)
-        merge_inplace.lane_merge_inplace.launches = 0
+        merges = profiling.counter("merge_inplace.launches")
         samples, outputs = time_point(mesh, point, spec.point_reps)
         out[tracker] = {
             "samples": samples, "units": point.units,
             "outputs": _numpy(outputs),
-            "lane_merge": merge_inplace.lane_merge_inplace.launches}
+            "lane_merge": profiling.counter("merge_inplace.launches")
+            - merges}
         del point  # its inputs go before the next tracker's are built
     return out
 

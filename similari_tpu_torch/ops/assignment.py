@@ -11,8 +11,10 @@ col >= D is track col - D.
   JAX package, round for round (3 rounds, then more until every row is
   assigned or 3000 rounds ran).  Ties go to the first column and the lowest
   row.  It is tensor code on the device of its input, with one host check
-  per round after the third.  A leading scene axis [S, D, N] solves S
-  problems at once, each with its own eps, as the JAX package's vmap does.
+  per round after the third (the wait `auction.converged`; the counter
+  `auction.rounds` counts every round).  A leading scene axis [S, D, N]
+  solves S problems at once, each with its own eps, as the JAX package's
+  vmap does.
 * `hungarian_host`: the exact optimum by scipy's `linear_sum_assignment`;
   the matrix goes to the host and the columns come back.
 * `native_host`: the exact optimum by the port's host C++ solver
@@ -30,6 +32,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from ..utils.profiling import count, wait
 
 NEG = -1e30
 MAX_AUCTION_ROUNDS = 3000
@@ -113,9 +117,15 @@ def _run_rounds(round_fn, carry, max_iters, pending):
     single-scene run."""
     for _ in range(UNROLLED_ROUNDS):
         carry = round_fn(carry)
+    count("auction.rounds", UNROLLED_ROUNDS)
     i = UNROLLED_ROUNDS
-    while i < max_iters and bool(pending(carry[1]).any()):
+    while i < max_iters:
+        with wait("auction.converged"):
+            more = bool(pending(carry[1]).any())
+        if not more:
+            break
         carry = round_fn(carry)
+        count("auction.rounds")
         i += 1
     return carry
 
@@ -228,10 +238,12 @@ def hungarian_host(weights: torch.Tensor) -> torch.Tensor:
     """Exact Hungarian on the host, one scene after another for [S, D, N]
     (as the JAX package's sequential callback); the columns come back to
     the weights' device."""
-    w = weights.detach().cpu().numpy()
+    with wait("assignment.to_host"):
+        w = weights.detach().cpu().numpy()
     out = (_hungarian_np(w) if w.ndim == 2
            else np.stack([_hungarian_np(x) for x in w]))
-    return torch.from_numpy(out).to(weights.device)
+    with wait("assignment.to_device"):
+        return torch.from_numpy(out).to(weights.device)
 
 
 def native_host(weights: torch.Tensor) -> torch.Tensor:
@@ -239,10 +251,12 @@ def native_host(weights: torch.Tensor) -> torch.Tensor:
     (`lap_max_batch`); the columns come back to the weights' device."""
     from .lap import lap_max_batch
 
-    w = weights.detach().cpu().numpy()
+    with wait("assignment.to_host"):
+        w = weights.detach().cpu().numpy()
     out = lap_max_batch(w if w.ndim == 3 else w[None])
     out = out if w.ndim == 3 else out[0]
-    return torch.from_numpy(out.astype(np.int64)).to(weights.device)
+    with wait("assignment.to_device"):
+        return torch.from_numpy(out.astype(np.int64)).to(weights.device)
 
 
 def resolve_backend(backend: str, device: torch.device) -> str:

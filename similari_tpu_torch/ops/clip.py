@@ -24,6 +24,8 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import count
+
 TILE = 32  # the kernel's tile edge: a tile is TILE x TILE (det, trk) pairs
 _F32 = torch.float32
 
@@ -191,11 +193,8 @@ def clip_pairs(det8: torch.Tensor, trk8: torch.Tensor, want_iou: bool,
             d, t, int(want_iou), ctypes.c_void_p(
                 torch.cuda.current_stream(det8.device).cuda_stream))
     check(code, "clip_pairs_launch")
-    clip_pairs.launches += 1
+    count("clip.launches")
     return out
-
-
-clip_pairs.launches = 0
 
 
 def oriented_iou_blockskip(det_box: torch.Tensor, trk_box: torch.Tensor,

@@ -35,6 +35,7 @@ from .assignment import MAX_AUCTION_ROUNDS, NEG, first_argmax
 from .kalman import KalmanSpec, KalmanState
 from ..trackers.sort_step import SortConfig
 from ..trackers.state import SortState
+from ..utils.profiling import count, span, spanned
 
 _F32, _I32 = torch.float32, torch.int32
 
@@ -345,6 +346,7 @@ def sort_state_shapes(t: int):
     return [f5] * 7 + [f1] + [i1] * 4 + [((1,), _I32)]
 
 
+@spanned("fused_sort_chunk")
 def fused_sort_chunk(cfg: SortConfig, state: SortTuple, box: torch.Tensor,
                      conf: torch.Tensor, valid: torch.Tensor, epoch0: int,
                      prof=None):
@@ -376,7 +378,8 @@ def fused_sort_chunk(cfg: SortConfig, state: SortTuple, box: torch.Tensor,
 
     lib = library()
     box, conf, valid = box.contiguous(), conf.contiguous(), valid.contiguous()
-    st = tuple(x.contiguous().clone() for x in state)  # updated in place
+    with span("fused_sort.clone"):
+        st = tuple(x.contiguous().clone() for x in state)  # updated in place
     dev = box.device
     ids = torch.empty((c, d), dtype=_I32, device=dev)
     slots = torch.empty((c, d), dtype=_I32, device=dev)
@@ -389,7 +392,8 @@ def fused_sort_chunk(cfg: SortConfig, state: SortTuple, box: torch.Tensor,
     cols = (None if storage & 4 else
             torch.empty((SORT_CLUSTER, 4 * (d + t)), dtype=_I32, device=dev))
     pw, vw = cfg.position_weight, cfg.velocity_weight
-    with torch.cuda.device(dev):  # the launch and its attributes
+    # the launch and its attributes
+    with span("fused_sort.launch"), torch.cuda.device(dev):
         code = lib.fused_sort_launch(
             *pointers(box, conf, valid, *st, ids, slots, pred, ovf, stats),
             *(None if x is None else x.data_ptr() for x in (W, cols)), c, d,
@@ -398,14 +402,13 @@ def fused_sort_chunk(cfg: SortConfig, state: SortTuple, box: torch.Tensor,
             2.0 * pw, 1.0 * pw, 10.0 * vw, 1.0 * vw,
             None if prof is None else prof.data_ptr(),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    check(code, "fused_sort_launch")
+        check(code, "fused_sort_launch")
     fused_sort_chunk.plan = dict(cluster=SORT_CLUSTER, threads=SORT_THREADS,
                                  storage=storage, smem_bytes=smem_bytes)
-    fused_sort_chunk.launches += 1
+    count("fused_sort.launches")
     return st, ids, slots, pred, ovf > 0, stats
 
 
-fused_sort_chunk.launches = 0
 fused_sort_chunk.plan = None
 
 

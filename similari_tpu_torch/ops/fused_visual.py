@@ -45,6 +45,7 @@ from .gallery_dots import f32_dots, gallery_dots, round_bf16
 from .kalman import KalmanState, calculate_cost
 from ..trackers.visual_state import VisualState
 from ..trackers.visual_step import VisualConfig
+from ..utils.profiling import count, keep, span, spanned
 
 _F32, _I32 = torch.float32, torch.int32
 _BIG = 3.0e38
@@ -343,6 +344,7 @@ def visual_state_shapes(t: int, k: int, f: int):
                ((1,), _I32)])
 
 
+@spanned("fused_visual_chunk")
 def fused_visual_chunk(cfg: VisualConfig, state: VisualTuple, box, conf,
                        valid, feat, fvalid, qual, oa, epoch0: int,
                        prof=None):
@@ -386,7 +388,8 @@ def fused_visual_chunk(cfg: VisualConfig, state: VisualTuple, box, conf,
 
     lib = library()
     ins = [x.contiguous() for x in (box, conf, valid, feat, fvalid, qual, oa)]
-    st = tuple(x.contiguous().clone() for x in state)  # updated in place
+    with span("fused_visual.clone"):
+        st = tuple(x.contiguous().clone() for x in state)  # updated in place
     dev = box.device
 
     def empty(shape, dtype):
@@ -409,7 +412,8 @@ def fused_visual_chunk(cfg: VisualConfig, state: VisualTuple, box, conf,
     dd = (ctypes.c_int * max(n_cons, 1))(*[int(a) for a, _ in cons])
     md = (ctypes.c_float * max(n_cons, 1))(*[float(b) for _, b in cons])
     pw, vw = cfg.position_weight, cfg.velocity_weight
-    with torch.cuda.device(dev):  # the launch and its attributes
+    # the launch and its attributes
+    with span("fused_visual.launch"), torch.cuda.device(dev):
         code = lib.fused_visual_launch(
             *pointers(*ins, *st, *outs),
             *(None if x is None else x.data_ptr() for x in (mats, cols)),
@@ -427,16 +431,15 @@ def fused_visual_chunk(cfg: VisualConfig, state: VisualTuple, box, conf,
             ctypes.cast(dd, ctypes.c_void_p), ctypes.cast(md, ctypes.c_void_p),
             None if prof is None else prof.data_ptr(),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    check(code, "fused_visual_launch")
+        check(code, "fused_visual_launch")
     fused_visual_chunk.plan = dict(cluster=VISUAL_CLUSTER,
                                    threads=VISUAL_THREADS, storage=storage,
                                    smem_bytes=smem_bytes)
-    fused_visual_chunk.launches += 1
+    count("fused_visual.launches")
     ids, slots, pred, vt, newf, length, ovf, stats = outs
     return st, ids, slots, pred, vt, newf, length, ovf > 0, stats
 
 
-fused_visual_chunk.launches = 0
 fused_visual_chunk.plan = None
 
 
@@ -473,6 +476,7 @@ def tuple_to_state(tup: VisualTuple, template: VisualState) -> VisualState:
     )
 
 
+@spanned("fused_visual_scan")
 def fused_visual_scan(cfg: VisualConfig, state: VisualState, det_box,
                       det_conf, det_valid, det_feat, det_feat_valid,
                       det_quality, det_own_area, epoch0: int, chunk: int):
@@ -495,6 +499,7 @@ def fused_visual_scan(cfg: VisualConfig, state: VisualState, det_box,
             det_feat[sl].to(_F32), det_feat_valid[sl], det_quality[sl],
             det_own_area[sl], epoch0 + c0)
         outs.append(o[:7])
+        keep("fused_visual.stats", o[7])
     ids, slots, pred, vt, newf, length, ovf = (torch.cat(x) for x in zip(*outs))
     return tuple_to_state(tup, state), (ids, slots, pred, vt, newf, length,
                                         ovf)

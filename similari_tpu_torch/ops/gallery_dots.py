@@ -32,6 +32,8 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import count, spanned
+
 _F32 = torch.float32
 # the bf16 copy's row width is a multiple of this (`csrc/gallery_dots.cu`
 # KT: TMA needs 16-byte row strides, wgmma a depth of 16, a stage is 64
@@ -81,6 +83,7 @@ def needed_columns(n: int, m: int, rows_per_frame: int,
                       frame[:, None] > frame[None, :]], dim=1)
 
 
+@spanned("gallery_dots")
 def gallery_dots(x: torch.Tensor, g: torch.Tensor, bf16: bool,
                  rows_per_frame: int):
     """(dots f32[N, M + N], norms f32[M + N]) for chunk rows x f32[N, F]
@@ -122,8 +125,5 @@ def gallery_dots(x: torch.Tensor, g: torch.Tensor, bf16: bool,
             rows_per_frame, int(bf16),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     check(code, "gallery_dots_launch")
-    gallery_dots.launches += 1
+    count("gallery_dots.launches")
     return dots, norms
-
-
-gallery_dots.launches = 0

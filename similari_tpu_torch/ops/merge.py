@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import wait
+
 
 def writer_hit(slot: torch.Tensor, safe: torch.Tensor,
                capacity: int) -> torch.Tensor:
@@ -46,7 +48,10 @@ def written(index: torch.Tensor, capacity: int) -> torch.Tensor:
     n = lead.numel()
     out = torch.zeros(n * (capacity + 1), dtype=torch.bool,
                       device=index.device)
-    out[index.reshape(-1)] = True
+    # on the card, the Python scalar's copy from the host waits for the
+    # stream: a sync of the step
+    with wait("merge.written"):
+        out[index.reshape(-1)] = True
     return out.view(*lead, capacity + 1)[..., :capacity]
 
 

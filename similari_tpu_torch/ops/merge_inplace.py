@@ -19,6 +19,8 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import count
+
 _DTYPES = (torch.float32, torch.bfloat16, torch.int32)
 
 
@@ -84,8 +86,5 @@ def lane_merge_inplace(state: torch.Tensor, src: torch.Tensor,
             s, src.shape[1], r, f * state.element_size(), ctypes.c_void_p(
                 torch.cuda.current_stream(state.device).cuda_stream))
     check(code, "lane_merge_launch")
-    lane_merge_inplace.launches += 1
+    count("merge_inplace.launches")
     return state
-
-
-lane_merge_inplace.launches = 0

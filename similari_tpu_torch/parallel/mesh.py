@@ -24,6 +24,11 @@ tensors take the NCCL backend, CPU tensors (`device="cpu"`) gloo.
 `batched_sort_step_chunked` / `batched_visual_step_chunked` step the
 scene axis in slices one after another, which bounds the [S, D, T]
 temporaries of one step.
+
+Each batched step call is one span of `utils/profiling.py`,
+`batched_sort_step` or `batched_visual_step` (the in-place form too, its
+two merges the child spans `merge_inplace.feats` and
+`merge_inplace.hist_feat`), around the step's own stage spans.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from ..trackers.state import SortState, map_tensors, new_sort_state
 from ..trackers.visual_state import VisualState, new_visual_state
 from ..trackers.visual_step import (VisualConfig, visual_step,
                                     visual_step_deferred)
+from ..utils.profiling import span
 
 
 def _stack_scenes(one, n_scenes: int):
@@ -74,7 +80,9 @@ def batched_sort_step(cfg: SortConfig):
     cfg = dataclasses.replace(cfg, oriented_block_sort=False)
 
     def step(states, det_box, det_conf, det_valid, epochs):
-        return sort_step(cfg, states, det_box, det_conf, det_valid, epochs)
+        with span("batched_sort_step"):
+            return sort_step(cfg, states, det_box, det_conf, det_valid,
+                             epochs)
 
     return step
 
@@ -149,7 +157,8 @@ def batched_visual_step(cfg: VisualConfig):
     [S, D, ...], epochs int[S]."""
 
     def step(states, *args):
-        return visual_step(cfg, states, *args)
+        with span("batched_visual_step"):
+            return visual_step(cfg, states, *args)
 
     return step
 
@@ -170,14 +179,18 @@ def batched_visual_step_inplace(cfg: VisualConfig):
     `batched_visual_step`."""
 
     def step(states, *args):
-        states, out, (src, rowf, maskf, rowh, maskh) = visual_step_deferred(
-            cfg, states, *args)
-        s, t, k, f = states.feats.shape
-        h = states.hist_feat.shape[2]
-        lane_merge_inplace(states.feats.view(s, t * k, f), src, rowf, maskf)
-        lane_merge_inplace(states.hist_feat.view(s, t * h, f), src, rowh,
-                           maskh)
-        return states, out
+        with span("batched_visual_step"):
+            states, out, (src, rowf, maskf, rowh, maskh) = (
+                visual_step_deferred(cfg, states, *args))
+            s, t, k, f = states.feats.shape
+            h = states.hist_feat.shape[2]
+            with span("merge_inplace.feats"):
+                lane_merge_inplace(states.feats.view(s, t * k, f), src, rowf,
+                                   maskf)
+            with span("merge_inplace.hist_feat"):
+                lane_merge_inplace(states.hist_feat.view(s, t * h, f), src,
+                                   rowh, maskh)
+            return states, out
 
     return step
 

@@ -61,6 +61,7 @@ from ..trackers.sort_step import _compat
 from ..trackers.state import map_tensors
 from ..trackers.visual_step import (VisualConfig, positional_weights,
                                     visual_votes)
+from ..utils import profiling
 
 N_OBJECTS, FEAT_DIM, GALLERY, BASE_LEN = 100, 512, 3, 8
 WARM_STEPS = 4
@@ -245,10 +246,10 @@ def main(argv=None) -> int:
 
     times, launches = {}, {}
     for name, (start, body) in stage_programs(CONFIG, inp).items():
-        lane_merge_inplace.launches = 0
+        merges = profiling.counter("merge_inplace.launches")
         dt = time_stage(dev, start, body, BASE_LEN, REPS)
         times[name] = dt
-        launches[name] = lane_merge_inplace.launches
+        launches[name] = profiling.counter("merge_inplace.launches") - merges
         print(f"{name:12s}: {dt:8.3f} ms/step "
               f"({dt * 1e3 / scenes:7.2f} us/scene-frame)", flush=True)
 

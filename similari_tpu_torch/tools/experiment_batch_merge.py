@@ -48,6 +48,7 @@ from ..device import resolve_device
 from ..eval.mot import DeviceTimer
 from ..ops import merge as mrg
 from ..ops import merge_inplace as mi
+from ..utils import profiling
 
 # the JAX tool's bench shape: scenes, slots, lanes, feature width, rows a
 # scene, steps
@@ -147,12 +148,13 @@ def run_form(form, dev, feats0, src, slot, lane, valid, reps):
 
 def experiment(dev, inputs, variants=VARIANTS, reps=REPS):
     """({form: seconds per step}, {form: final state}, kernel launches)."""
-    mi.lane_merge_inplace.launches = 0
+    merges = profiling.counter("merge_inplace.launches")
     results, finals = {}, {}
     for name in variants:
         results[name], finals[name] = run_form(FORMS[name](), dev, *inputs,
                                                reps)
-    return results, finals, mi.lane_merge_inplace.launches
+    return (results, finals,
+            profiling.counter("merge_inplace.launches") - merges)
 
 
 def main(argv=None) -> int:

@@ -40,9 +40,9 @@ from ..bench_interactive import device_line, log
 from ..device import resolve_device
 from ..eval.mot import DeviceTimer
 from ..ops import fused_visual as fv
-from ..ops import gallery_dots as gd
 from ..trackers.visual_state import new_visual_state
 from ..trackers.visual_step import VisualConfig
+from ..utils import profiling
 
 CHUNK, D, T, K, F = 32, 100, 400, 3, 512
 SCENES = (1, 2)  # scenes a chunk, one launch of each kernel a scene
@@ -100,7 +100,9 @@ def measure(dev, n_scenes, iters, reps, shape=(CHUNK, D, T, K, F)):
     all_args = [scene_inputs(7 + i, dev, chunk, d, f)
                 for i in range(n_scenes)]
     _, first = step([fresh_state(dev, t, k, f) for _ in all_args], all_args)
-    fv.fused_visual_chunk.launches = gd.gallery_dots.launches = 0
+    names = {"fused_visual": "fused_visual.launches",
+             "gallery_dots": "gallery_dots.launches"}
+    before = {k: profiling.counter(n) for k, n in names.items()}
     times = []
     for _ in range(reps):
         states = [fresh_state(dev, t, k, f) for _ in all_args]
@@ -110,8 +112,8 @@ def measure(dev, n_scenes, iters, reps, shape=(CHUNK, D, T, K, F)):
             for _ in range(iters):
                 states, _ids = step(states, all_args)
         times.append(timer.seconds / (iters * chunk))
-    launches = {"fused_visual": fv.fused_visual_chunk.launches,
-                "gallery_dots": gd.gallery_dots.launches}
+    launches = {k: profiling.counter(n) - before[k]
+                for k, n in names.items()}
     return statistics.median(times), first, launches, all_args
 
 

@@ -22,7 +22,7 @@ the port: the same oriented 500-box call's CUDA-event ms (median), the
 clip kernel's device ms per launch and the device's busy ms, kernel
 launches and idle share per call from `torch.profiler` over `--profiled`
 calls, and the clip kernel's launches per call from its wrapper's
-counter (`ops/clip.py::clip_pairs.launches`).
+counter (`clip.launches` of `utils/profiling.py`).
 
 Run: python -m similari_tpu_torch.tools.profile_oriented
          [--device cuda|cpu] [--reps N] [--profiled N]
@@ -45,8 +45,8 @@ import torch
 from .. import native
 from ..bench_interactive import call_ms, device_line, log
 from ..device import resolve_device
-from ..ops import clip
 from ..trackers import PositionalMetricType, Sort
+from ..utils import profiling
 
 
 OBJECTS = 500  # boxes a call (the oriented-500 row)
@@ -162,8 +162,7 @@ def device_profile(fn, calls: int) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    events = [e for e in prof.events() if e.device_type == cuda]
+    events = profiling.device_events(prof)
     kernels = [e for e in events
                if not e.name.startswith(("Memcpy", "Memset"))]
     clips = [e.time_range.elapsed_us() for e in kernels
@@ -186,13 +185,14 @@ def device_split(dev: torch.device, n: int, reps: int,
     tracker = _tracker(engine="device", device=dev)
     for _ in range(5):
         tracker.predict_arrays(0, *frame())
-    clip.clip_pairs.launches = 0
+    clips = profiling.counter("clip.launches")
     times = [call_ms(dev, lambda: tracker.predict_arrays(0, *frame()))
              for _ in range(reps)]
     out = {"device_call_ms": round(statistics.median(times), 4),
            "device_call_spread_ms": [round(min(times), 4),
                                      round(max(times), 4)],
-           "clip_launches_per_call": clip.clip_pairs.launches / reps,
+           "clip_launches_per_call":
+               (profiling.counter("clip.launches") - clips) / reps,
            "device_capacity": int(tracker._get_store(0).state.capacity)}
     if dev.type == "cuda":
         out.update(device_profile(

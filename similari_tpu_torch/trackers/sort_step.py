@@ -26,6 +26,9 @@ forces it on any device (on the CPU the clip's plain version runs); False
 keeps the dense path; it matches one scene, so the batched steps
 (`parallel/mesh.py`) turn it off.  The fused kernel (`ops/fused_sort.py`) covers the
 aligned-IoU case of the same step for whole frame chunks.
+
+The step's stages are spans of `utils/profiling.py`: `sort_step.weights`,
+`sort_step.auction`, `sort_step.slots_kalman`, `sort_step.state_write`.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from ..ops import kalman as kal
 from ..ops import merge as mrg
 from .constraints import allowed_distance_for_delta
 from .state import SortState, map_tensors
+from ..utils.profiling import span, wait
 
 MAHALANOBIS_NEW_TRACK_THRESHOLD = 1.0
 DEFAULT_SORT_IOU_THRESHOLD = 0.3
@@ -103,8 +107,14 @@ class StepOutput:
 
 def scene_epochs(epoch, scenes: int, device: torch.device) -> torch.Tensor:
     """The epoch of each of `scenes` scenes as an int tensor [S]: a scalar
-    is shared, a sequence or tensor gives one per scene."""
-    e = torch.as_tensor(epoch, device=device)
+    is shared, a sequence or tensor gives one per scene.  An epoch from
+    the host copied to the card waits for the card's stream."""
+    if device.type == "cpu" or (isinstance(epoch, torch.Tensor)
+                                and epoch.device == device):
+        e = torch.as_tensor(epoch, device=device)
+    else:
+        with wait("sort_step.epochs"):
+            e = torch.as_tensor(epoch, device=device)
     return e.expand(scenes) if e.dim() == 0 else e
 
 
@@ -156,8 +166,10 @@ def _assign(cfg, W, det_valid, active):
 
 
 def _match_plain(cfg, state, det_box, det_conf, det_valid, epoch):
-    W = distance_weights(cfg, state, det_box, det_conf, epoch)
-    return _assign(cfg, W, det_valid, state.active)
+    with span("sort_step.weights"):
+        W = distance_weights(cfg, state, det_box, det_conf, epoch)
+    with span("sort_step.auction"):
+        return _assign(cfg, W, det_valid, state.active)
 
 
 def _match_sorted(cfg, state, det_box, det_conf, det_valid, epoch):
@@ -168,23 +180,25 @@ def _match_sorted(cfg, state, det_box, det_conf, det_valid, epoch):
     tiles.  The auction runs in sorted space; only the [D] results go back.
     The same LP as `_match_plain` up to near-tie resolution.
     """
-    tkey = torch.where(state.active, state.pred_box[:, 0], _BIG)
-    tperm = torch.sort(tkey, stable=True).indices
-    pred_s = state.pred_box[tperm]
-    act_s = state.active[tperm]
-    dkey = torch.where(det_valid, det_box[:, 0], _BIG)
-    dperm = torch.sort(dkey, stable=True).indices
-    det_s = det_box[dperm]
-    dval_s = det_valid[dperm]
+    with span("sort_step.weights"):
+        tkey = torch.where(state.active, state.pred_box[:, 0], _BIG)
+        tperm = torch.sort(tkey, stable=True).indices
+        pred_s = state.pred_box[tperm]
+        act_s = state.active[tperm]
+        dkey = torch.where(det_valid, det_box[:, 0], _BIG)
+        dperm = torch.sort(dkey, stable=True).indices
+        det_s = det_box[dperm]
+        dval_s = det_valid[dperm]
 
-    compat = _compat(cfg, act_s, state.last_epoch[tperm], det_s, pred_s,
-                     epoch)
-    conf = torch.clamp(det_conf[dperm], min=cfg.min_confidence)
-    iou, valid = clip.oriented_iou_blockskip(det_s, pred_s)
-    m = iou * conf[:, None]
-    valid = valid & (m >= cfg.iou_threshold)
-    W = torch.where(compat & valid, m, 0.0)
-    matched_s, tgt_s = _assign(cfg, W, dval_s, act_s)
+        compat = _compat(cfg, act_s, state.last_epoch[tperm], det_s, pred_s,
+                         epoch)
+        conf = torch.clamp(det_conf[dperm], min=cfg.min_confidence)
+        iou, valid = clip.oriented_iou_blockskip(det_s, pred_s)
+        m = iou * conf[:, None]
+        valid = valid & (m >= cfg.iou_threshold)
+        W = torch.where(compat & valid, m, 0.0)
+    with span("sort_step.auction"):
+        matched_s, tgt_s = _assign(cfg, W, dval_s, act_s)
     matched = torch.empty_like(matched_s)
     matched[dperm] = matched_s
     tgt = torch.empty_like(tgt_s)
@@ -247,60 +261,64 @@ def _sort_step(cfg: SortConfig, state: SortState, det_box, det_conf,
         matched, tgt = _match_plain(cfg, state, det_box, det_conf, det_valid,
                                     epoch)
 
-    # slot allocation: the r-th new detection takes the r-th free slot
-    is_new = det_valid & ~matched
-    new_rank = torch.cumsum(is_new.long(), -1) - 1
-    n_new = is_new.sum(-1)
-    n_free = (~state.active).sum(-1)
-    overflow = n_new > n_free
-    slot = torch.where(matched, tgt, mrg.nth_free_slot(state.active, new_rank))
-    safe = det_valid & ~overflow[:, None]
+    with span("sort_step.slots_kalman"):
+        # slot allocation: the r-th new detection takes the r-th free slot
+        is_new = det_valid & ~matched
+        new_rank = torch.cumsum(is_new.long(), -1) - 1
+        n_new = is_new.sum(-1)
+        n_free = (~state.active).sum(-1)
+        overflow = n_new > n_free
+        slot = torch.where(matched, tgt,
+                           mrg.nth_free_slot(state.active, new_rank))
+        safe = det_valid & ~overflow[:, None]
 
-    # one masked Kalman step for matched and new rows
-    kf_fields = [f.name for f in dataclasses.fields(kal.KalmanState)]
-    init = spec.initiate(det_box)
-    prev = kal.KalmanState(*(
-        torch.where(matched[..., None],
-                    mrg.take_rows(getattr(state.kf, f), slot),
-                    getattr(init, f))
-        for f in kf_fields))
-    st = spec.update(spec.predict(prev), det_box)
-    pred_box = st.mean_pos
+        # one masked Kalman step for matched and new rows
+        kf_fields = [f.name for f in dataclasses.fields(kal.KalmanState)]
+        init = spec.initiate(det_box)
+        prev = kal.KalmanState(*(
+            torch.where(matched[..., None],
+                        mrg.take_rows(getattr(state.kf, f), slot),
+                        getattr(init, f))
+            for f in kf_fields))
+        st = spec.update(spec.predict(prev), det_box)
+        pred_box = st.mean_pos
 
-    new_length = torch.where(matched, mrg.take_rows(state.length, slot) + 1, 1)
-    new_ids = torch.where(matched, mrg.take_rows(state.track_id, slot),
-                          state.next_id[:, None] + new_rank + 1).to(
-                              torch.int32)
+        new_length = torch.where(matched,
+                                 mrg.take_rows(state.length, slot) + 1, 1)
+        new_ids = torch.where(matched, mrg.take_rows(state.track_id, slot),
+                              state.next_id[:, None] + new_rank + 1).to(
+                                  torch.int32)
 
-    # state write: unsafe rows go to their scene's scratch row
-    index = mrg.write_index(slot, safe, t)
-    written = mrg.written(index, t)
-    hix = (new_length - 1) % state.history
-    new_state = SortState(
-        kf=kal.KalmanState(*(
-            mrg.merge_rows(getattr(state.kf, f), getattr(st, f), index)
-            for f in kf_fields)),
-        pred_box=mrg.merge_rows(state.pred_box, pred_box, index),
-        obs_box=mrg.merge_rows(state.obs_box, det_box, index),
-        conf=mrg.merge_rows(state.conf, det_conf, index),
-        active=state.active | written,
-        last_epoch=torch.where(written, epoch[:, None],
-                               state.last_epoch).to(torch.int32),
-        length=mrg.merge_rows(state.length, new_length, index),
-        track_id=mrg.merge_rows(state.track_id, new_ids, index),
-        hist_obs=mrg.merge_ring(state.hist_obs, det_box, hix, index),
-        hist_pred=mrg.merge_ring(state.hist_pred, pred_box, hix, index),
-        hist_conf=mrg.merge_ring(state.hist_conf, det_conf, hix, index),
-        next_id=(state.next_id + n_new).to(torch.int32),
-    )
-    out = StepOutput(
-        slot=slot.to(torch.int32),
-        track_id=new_ids,
-        is_new=is_new,
-        pred_box=pred_box,
-        length=new_length.to(torch.int32),
-        overflow=overflow,
-    )
+    with span("sort_step.state_write"):
+        # state write: unsafe rows go to their scene's scratch row
+        index = mrg.write_index(slot, safe, t)
+        written = mrg.written(index, t)
+        hix = (new_length - 1) % state.history
+        new_state = SortState(
+            kf=kal.KalmanState(*(
+                mrg.merge_rows(getattr(state.kf, f), getattr(st, f), index)
+                for f in kf_fields)),
+            pred_box=mrg.merge_rows(state.pred_box, pred_box, index),
+            obs_box=mrg.merge_rows(state.obs_box, det_box, index),
+            conf=mrg.merge_rows(state.conf, det_conf, index),
+            active=state.active | written,
+            last_epoch=torch.where(written, epoch[:, None],
+                                   state.last_epoch).to(torch.int32),
+            length=mrg.merge_rows(state.length, new_length, index),
+            track_id=mrg.merge_rows(state.track_id, new_ids, index),
+            hist_obs=mrg.merge_ring(state.hist_obs, det_box, hix, index),
+            hist_pred=mrg.merge_ring(state.hist_pred, pred_box, hix, index),
+            hist_conf=mrg.merge_ring(state.hist_conf, det_conf, hix, index),
+            next_id=(state.next_id + n_new).to(torch.int32),
+        )
+        out = StepOutput(
+            slot=slot.to(torch.int32),
+            track_id=new_ids,
+            is_new=is_new,
+            pred_box=pred_box,
+            length=new_length.to(torch.int32),
+            overflow=overflow,
+        )
     return new_state, out
 
 

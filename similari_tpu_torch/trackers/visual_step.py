@@ -22,6 +22,11 @@ Like `sort_step`, the step takes an optional leading scene axis (state
 scene; `parallel/mesh.py` builds the batched steps on it.  The fused
 VisualSORT kernel (`ops/fused_visual.py::fused_visual_scan`) runs the
 aligned, history-1 case of the same step for whole frame chunks.
+
+The step's stages are spans of `utils/profiling.py`, in order:
+`visual_step.weights` (positional weights and the candidate gates),
+`.votes`, `.best_fit`, `.auction`, `.slots_kalman`, `.gallery`,
+`.state_write`.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from .sort_step import (MAHALANOBIS_NEW_TRACK_THRESHOLD, _compat,
                         scene_epochs)
 from .state import map_tensors
 from .visual_state import VisualState
+from ..utils.profiling import span
 
 VT_VISUAL = 0
 VT_POSITIONAL = 1
@@ -181,148 +187,159 @@ def _visual_step_impl(cfg: VisualConfig, defer: bool, state: VisualState,
     det_valid = det_valid.bool()
     det_feat_valid = det_feat_valid.bool()
 
-    if cfg.recycle_idle:
-        state = dataclasses.replace(
-            state, active=state.active
-            & (epoch[:, None] - state.last_epoch <= cfg.max_idle_epochs))
+    with span("visual_step.weights"):
+        if cfg.recycle_idle:
+            state = dataclasses.replace(
+                state, active=state.active
+                & (epoch[:, None] - state.last_epoch <= cfg.max_idle_epochs))
 
-    compat = _compat(cfg, state.active, state.last_epoch, det_box,
-                     state.pred_box, epoch)
-    P, p_valid = positional_weights(cfg, state, det_box, det_conf, compat)
-    if cfg.own_area_on_device:
-        det_own_area = owna.own_area_shares(
-            det_box, det_valid, order=cfg.own_area_order,
-            neighbors=cfg.own_area_neighbors)
+        compat = _compat(cfg, state.active, state.last_epoch, det_box,
+                         state.pred_box, epoch)
+        P, p_valid = positional_weights(cfg, state, det_box, det_conf, compat)
+        if cfg.own_area_on_device:
+            det_own_area = owna.own_area_shares(
+                det_box, det_valid, order=cfg.own_area_order,
+                neighbors=cfg.own_area_neighbors)
 
-    # candidate-side feature gates
-    area_ok = geo.box_area(det_box) >= cfg.visual_minimal_area
-    use_gate = (det_feat_valid & det_valid
-                & (det_quality >= cfg.visual_minimal_quality_use)
-                & (det_own_area >= cfg.own_area_use) & area_ok)
-    collect_gate = (det_feat_valid
-                    & (det_quality >= cfg.visual_minimal_quality_collect)
-                    & (det_own_area >= cfg.own_area_collect) & area_ok)
+        # candidate-side feature gates
+        area_ok = geo.box_area(det_box) >= cfg.visual_minimal_area
+        use_gate = (det_feat_valid & det_valid
+                    & (det_quality >= cfg.visual_minimal_quality_use)
+                    & (det_own_area >= cfg.own_area_use) & area_ok)
+        collect_gate = (det_feat_valid
+                        & (det_quality >= cfg.visual_minimal_quality_collect)
+                        & (det_own_area >= cfg.own_area_collect) & area_ok)
 
-    votes, vweight = visual_votes(cfg, state, det_feat, use_gate, compat)
-    eligible = (votes >= cfg.visual_min_votes) & det_valid[..., None]
-    w = torch.where(eligible, vweight, _NEG)
+    with span("visual_step.votes"):
+        votes, vweight = visual_votes(cfg, state, det_feat, use_gate, compat)
 
-    # greedy best-fit in closed form (first-max argmaxes: exact copies of
-    # a detection tie, and the lowest row must win)
-    _, t1 = asg.first_argmax(w, -1)  # [S, D] best track per candidate
-    has_any = eligible.any(-1)
-    _, best_query = asg.first_argmax(w, -2)  # [S, T] heaviest candidate
-    rows = torch.arange(d, device=w.device)
-    wins_visual = has_any & (best_query.gather(-1, t1) == rows)
-    claimed = mrg.written(mrg.write_index(t1, wins_visual, t), t)
+    with span("visual_step.best_fit"):
+        eligible = (votes >= cfg.visual_min_votes) & det_valid[..., None]
+        w = torch.where(eligible, vweight, _NEG)
 
-    # positional assignment on the remainder (a candidate with any vote
-    # is decided, winner or not)
-    row_open = det_valid & ~has_any
-    col_open = state.active & ~claimed
-    P_masked = torch.where(row_open[..., None] & col_open[..., None, :]
-                           & p_valid, P, 0.0)
-    col = asg.solve_voting(P_masked, cfg.new_track_threshold, det_valid,
-                           col_open,
-                           asg.resolve_backend(cfg.assignment, w.device))
-    ptgt = torch.clamp(col - d, 0, t - 1)
-    pos_matched = (row_open & (col >= d)
-                   & (mrg.take_at(P_masked, ptgt) >= cfg.new_track_threshold))
-    matched = wins_visual | pos_matched
-    tgt = torch.where(wins_visual, t1, ptgt)
-    vt = torch.where(wins_visual, VT_VISUAL, VT_POSITIONAL).to(torch.int32)
+        # greedy best-fit in closed form (first-max argmaxes: exact copies of
+        # a detection tie, and the lowest row must win)
+        _, t1 = asg.first_argmax(w, -1)  # [S, D] best track per candidate
+        has_any = eligible.any(-1)
+        _, best_query = asg.first_argmax(w, -2)  # [S, T] heaviest candidate
+        rows = torch.arange(d, device=w.device)
+        wins_visual = has_any & (best_query.gather(-1, t1) == rows)
+        claimed = mrg.written(mrg.write_index(t1, wins_visual, t), t)
 
-    # slot allocation
-    is_new = det_valid & ~matched
-    new_rank = torch.cumsum(is_new.long(), -1) - 1
-    n_new = is_new.sum(-1)
-    overflow = n_new > (~state.active).sum(-1)
-    slot = torch.where(matched, tgt, mrg.nth_free_slot(state.active, new_rank))
-    safe = det_valid & ~overflow[:, None]
+    with span("visual_step.auction"):
+        # positional assignment on the remainder (a candidate with any vote
+        # is decided, winner or not)
+        row_open = det_valid & ~has_any
+        col_open = state.active & ~claimed
+        P_masked = torch.where(row_open[..., None] & col_open[..., None, :]
+                               & p_valid, P, 0.0)
+        col = asg.solve_voting(P_masked, cfg.new_track_threshold, det_valid,
+                               col_open,
+                               asg.resolve_backend(cfg.assignment, w.device))
+        ptgt = torch.clamp(col - d, 0, t - 1)
+        pos_matched = (row_open & (col >= d)
+                       & (mrg.take_at(P_masked, ptgt)
+                          >= cfg.new_track_threshold))
+        matched = wins_visual | pos_matched
+        tgt = torch.where(wins_visual, t1, ptgt)
+        vt = torch.where(wins_visual, VT_VISUAL, VT_POSITIONAL).to(torch.int32)
 
-    # Kalman update
-    kf_fields = [f.name for f in dataclasses.fields(kal.KalmanState)]
-    init = spec.initiate(det_box)
-    prev = kal.KalmanState(*(
-        torch.where(matched[..., None],
-                    mrg.take_rows(getattr(state.kf, f), slot),
-                    getattr(init, f))
-        for f in kf_fields))
-    st = spec.update(spec.predict(prev), det_box)
-    pred_box = st.mean_pos
+    with span("visual_step.slots_kalman"):
+        # slot allocation
+        is_new = det_valid & ~matched
+        new_rank = torch.cumsum(is_new.long(), -1) - 1
+        n_new = is_new.sum(-1)
+        overflow = n_new > (~state.active).sum(-1)
+        slot = torch.where(matched, tgt,
+                           mrg.nth_free_slot(state.active, new_rank))
+        safe = det_valid & ~overflow[:, None]
 
-    new_length = torch.where(matched, mrg.take_rows(state.length, slot) + 1, 1)
-    new_ids = torch.where(matched, mrg.take_rows(state.track_id, slot),
-                          state.next_id[:, None] + new_rank + 1).to(
-                              torch.int32)
+        # Kalman update
+        kf_fields = [f.name for f in dataclasses.fields(kal.KalmanState)]
+        init = spec.initiate(det_box)
+        prev = kal.KalmanState(*(
+            torch.where(matched[..., None],
+                        mrg.take_rows(getattr(state.kf, f), slot),
+                        getattr(init, f))
+            for f in kf_fields))
+        st = spec.update(spec.predict(prev), det_box)
+        pred_box = st.mean_pos
 
-    # gallery update: evict the lowest-quality lane of a full gallery (the
-    # first among equals), insert into the first free lane
-    gal_valid = matched[..., None] & mrg.take_rows(state.feat_valid, slot)
-    gal_q = mrg.take_rows(state.feat_quality, slot)
-    lanes = torch.arange(k, device=w.device)
-    evict_needed = gal_valid.sum(-1) >= k
-    _, evict_k = asg.first_argmax(
-        -torch.where(gal_valid, gal_q, float("inf")), -1)
-    gal_valid = gal_valid & ~(evict_needed[..., None]
-                              & (lanes == evict_k[..., None]))
-    # the first feature of a brand-new track bypasses the collect gate
-    keep_new = det_feat_valid & (is_new | collect_gate)
-    free_k = _first_free(~gal_valid)  # always exists after eviction
-    new_lane = (lanes == free_k[..., None]) & keep_new[..., None]
-    final_valid = gal_valid | new_lane
-    final_q = torch.where(new_lane, det_quality[..., None], gal_q)
-    collected = final_valid.sum(-1).to(torch.int32)
+        new_length = torch.where(matched,
+                                 mrg.take_rows(state.length, slot) + 1, 1)
+        new_ids = torch.where(matched, mrg.take_rows(state.track_id, slot),
+                              state.next_id[:, None] + new_rank + 1).to(
+                                  torch.int32)
 
-    hix = (new_length - 1) % h
-    index = mrg.write_index(slot, safe, t)
-    written = mrg.written(index, t)
+    with span("visual_step.gallery"):
+        # gallery update: evict the lowest-quality lane of a full gallery (the
+        # first among equals), insert into the first free lane
+        gal_valid = matched[..., None] & mrg.take_rows(state.feat_valid, slot)
+        gal_q = mrg.take_rows(state.feat_quality, slot)
+        lanes = torch.arange(k, device=w.device)
+        evict_needed = gal_valid.sum(-1) >= k
+        _, evict_k = asg.first_argmax(
+            -torch.where(gal_valid, gal_q, float("inf")), -1)
+        gal_valid = gal_valid & ~(evict_needed[..., None]
+                                  & (lanes == evict_k[..., None]))
+        # the first feature of a brand-new track bypasses the collect gate
+        keep_new = det_feat_valid & (is_new | collect_gate)
+        free_k = _first_free(~gal_valid)  # always exists after eviction
+        new_lane = (lanes == free_k[..., None]) & keep_new[..., None]
+        final_valid = gal_valid | new_lane
+        final_q = torch.where(new_lane, det_quality[..., None], gal_q)
+        collected = final_valid.sum(-1).to(torch.int32)
 
-    if defer:
-        feats, hist_feat = state.feats, state.hist_feat
-        slot_i = torch.clamp(slot, 0, t - 1)
-        fmerge = (det_feat.to(state.feats.dtype),
-                  (slot_i * k + free_k).to(torch.int32),
-                  (safe & keep_new).to(torch.int32),
-                  (slot_i * h + hix).to(torch.int32),
-                  safe.to(torch.int32))
-    else:
-        # gallery lanes take the tighter collect mask, so a skipped feature
-        # leaves its lane untouched
-        feats = mrg.merge_lane(state.feats, det_feat, free_k,
-                               mrg.write_index(slot, safe & keep_new, t))
-        hist_feat = mrg.merge_ring(state.hist_feat, det_feat, hix, index)
-        fmerge = None
+    with span("visual_step.state_write"):
+        hix = (new_length - 1) % h
+        index = mrg.write_index(slot, safe, t)
+        written = mrg.written(index, t)
 
-    new_state = VisualState(
-        kf=kal.KalmanState(*(
-            mrg.merge_rows(getattr(state.kf, f), getattr(st, f), index)
-            for f in kf_fields)),
-        pred_box=mrg.merge_rows(state.pred_box, pred_box, index),
-        obs_box=mrg.merge_rows(state.obs_box, det_box, index),
-        conf=mrg.merge_rows(state.conf, det_conf, index),
-        active=state.active | written,
-        last_epoch=torch.where(written, epoch[:, None],
-                               state.last_epoch).to(torch.int32),
-        length=mrg.merge_rows(state.length, new_length, index),
-        track_id=mrg.merge_rows(state.track_id, new_ids, index),
-        hist_obs=mrg.merge_ring(state.hist_obs, det_box, hix, index),
-        hist_pred=mrg.merge_ring(state.hist_pred, pred_box, hix, index),
-        hist_conf=mrg.merge_ring(state.hist_conf, det_conf, hix, index),
-        next_id=(state.next_id + n_new).to(torch.int32),
-        feats=feats,
-        feat_quality=mrg.merge_rows(state.feat_quality, final_q, index),
-        feat_valid=mrg.merge_rows(state.feat_valid, final_valid, index),
-        collected=mrg.merge_rows(state.collected, collected, index),
-        voting_type=mrg.merge_rows(state.voting_type, vt, index),
-        hist_feat=hist_feat,
-        hist_feat_valid=mrg.merge_ring(state.hist_feat_valid, det_feat_valid,
-                                       hix, index),
-    )
-    out = VisualStepOutput(
-        slot=slot.to(torch.int32), track_id=new_ids, is_new=is_new,
-        pred_box=pred_box, length=new_length.to(torch.int32),
-        voting_type=vt, overflow=overflow)
+        if defer:
+            feats, hist_feat = state.feats, state.hist_feat
+            slot_i = torch.clamp(slot, 0, t - 1)
+            fmerge = (det_feat.to(state.feats.dtype),
+                      (slot_i * k + free_k).to(torch.int32),
+                      (safe & keep_new).to(torch.int32),
+                      (slot_i * h + hix).to(torch.int32),
+                      safe.to(torch.int32))
+        else:
+            # gallery lanes take the tighter collect mask, so a skipped feature
+            # leaves its lane untouched
+            feats = mrg.merge_lane(state.feats, det_feat, free_k,
+                                   mrg.write_index(slot, safe & keep_new, t))
+            hist_feat = mrg.merge_ring(state.hist_feat, det_feat, hix, index)
+            fmerge = None
+
+        new_state = VisualState(
+            kf=kal.KalmanState(*(
+                mrg.merge_rows(getattr(state.kf, f), getattr(st, f), index)
+                for f in kf_fields)),
+            pred_box=mrg.merge_rows(state.pred_box, pred_box, index),
+            obs_box=mrg.merge_rows(state.obs_box, det_box, index),
+            conf=mrg.merge_rows(state.conf, det_conf, index),
+            active=state.active | written,
+            last_epoch=torch.where(written, epoch[:, None],
+                                   state.last_epoch).to(torch.int32),
+            length=mrg.merge_rows(state.length, new_length, index),
+            track_id=mrg.merge_rows(state.track_id, new_ids, index),
+            hist_obs=mrg.merge_ring(state.hist_obs, det_box, hix, index),
+            hist_pred=mrg.merge_ring(state.hist_pred, pred_box, hix, index),
+            hist_conf=mrg.merge_ring(state.hist_conf, det_conf, hix, index),
+            next_id=(state.next_id + n_new).to(torch.int32),
+            feats=feats,
+            feat_quality=mrg.merge_rows(state.feat_quality, final_q, index),
+            feat_valid=mrg.merge_rows(state.feat_valid, final_valid, index),
+            collected=mrg.merge_rows(state.collected, collected, index),
+            voting_type=mrg.merge_rows(state.voting_type, vt, index),
+            hist_feat=hist_feat,
+            hist_feat_valid=mrg.merge_ring(state.hist_feat_valid,
+                                           det_feat_valid, hix, index),
+        )
+        out = VisualStepOutput(
+            slot=slot.to(torch.int32), track_id=new_ids, is_new=is_new,
+            pred_box=pred_box, length=new_length.to(torch.int32),
+            voting_type=vt, overflow=overflow)
     return new_state, out, fmerge
 
 

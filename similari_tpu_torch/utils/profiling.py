@@ -1,22 +1,183 @@
-"""Step timing and profiler traces (mirrors `similari_tpu/utils/profiling.py`).
+"""The port's tracing: spans, waits, counters and kept tensors, the step
+timer and profiler traces (the timer and `trace` mirror
+`similari_tpu/utils/profiling.py`).
+
+`span(name)` times a block on the host clock and, while `torch.profiler`
+records, is also a `record_function` range, so the profile holds every
+span nested on the same clock as the device's kernels.  `wait(name)` is a
+span around a point where the host blocks on the device (a sync); it also
+counts the sync at its site.  `count(name, n)` is a plain counter (the
+kernel wrappers count their launches), and `keep(name, tensor)` holds a
+device tensor while a profiler records, for `summary()` to sum.  None of
+them synchronises, launches or allocates on the device.
+
+Every record lives in this module until `reset()`; `summary()` returns
+them as one dict.  The records are kept for one thread: the port steps
+its trackers from one.
 
 `StepTimer` keeps a rolling steps/s and scenes/s count; `trace` records a
 `torch.profiler` trace of CPU and CUDA activity and writes it as a Chrome
-trace (chrome://tracing, Perfetto) into a directory.
+trace (chrome://tracing, Perfetto) into a directory, with `summary()`
+beside it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import json
 import os
 import tempfile
 import time
 from collections import deque
-from typing import Optional
+from typing import Dict, List, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+from torch.autograd.profiler import record_function
 
 from ..device import DeviceLike, resolve_device
+
+# span name -> [calls, host ns, ns of its child spans, ns inside waits
+# (its own and its descendants'), syncs (the same), parent name, is a wait]
+_SPANS: Dict[str, list] = {}
+_COUNTS: Dict[str, int] = {}
+_KEPT: Dict[str, List[torch.Tensor]] = {}
+_OPEN: List["span"] = []
+
+
+def _recording() -> bool:
+    return _autograd_profiler._is_profiler_enabled
+
+
+class span:
+    """`with span(name):` times the block (`time.perf_counter_ns`) and adds
+    to the name's calls, host ns and self ns (the part no child span
+    covers), and to the time and syncs of the waits inside it.  The
+    name's parent is the span open around its first call.  While a
+    profiler records, the block is also a `record_function(name)`."""
+
+    __slots__ = ("name", "_t0", "_child", "_wait_ns", "_syncs", "_range")
+    is_wait = False
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self._child = self._wait_ns = self._syncs = 0
+        self._range = None
+        if _recording():
+            self._range = record_function(self.name)
+            self._range.__enter__()
+        _OPEN.append(self)
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        ns = time.perf_counter_ns() - self._t0
+        _OPEN.pop()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        if self.is_wait:
+            self._wait_ns += ns
+            self._syncs += 1
+        parent = _OPEN[-1] if _OPEN else None
+        rec = _SPANS.get(self.name)
+        if rec is None:
+            rec = _SPANS[self.name] = [0, 0, 0, 0, 0,
+                                       parent and parent.name, self.is_wait]
+        rec[0] += 1
+        rec[1] += ns
+        rec[2] += self._child
+        rec[3] += self._wait_ns
+        rec[4] += self._syncs
+        if parent is not None:
+            parent._child += ns
+            parent._wait_ns += self._wait_ns
+            parent._syncs += self._syncs
+        return False
+
+
+class wait(span):
+    """A span around a point where the host blocks on the device: one sync
+    counted at its site, its time counted as waiting in every span around
+    it."""
+
+    __slots__ = ()
+    is_wait = True
+
+
+def spanned(name: str):
+    """A decorator: every call of the function is the span `name`."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+
+        return call
+
+    return wrap
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to the counter `name`."""
+    _COUNTS[name] = _COUNTS.get(name, 0) + n
+
+
+def counter(name: str) -> int:
+    """The counter `name` (0 before its first count)."""
+    return _COUNTS.get(name, 0)
+
+
+def keep(name: str, tensor: torch.Tensor) -> None:
+    """Hold `tensor` (no copy) under `name` while a profiler records, for
+    `summary()` to sum; otherwise do nothing."""
+    if _recording():
+        _KEPT.setdefault(name, []).append(tensor)
+
+
+def summary() -> Dict:
+    """Every record since the last `reset()`:
+
+    - "counts": counter name -> count;
+    - "spans": span name -> calls, ns, self_ns, wait_ns (inside waits,
+      its own included), syncs, parent;
+    - "waits": wait site -> syncs, ns;
+    - "kept": name -> tensors, rows (their first dimensions summed) and
+      sum (the column sums over every row, as a list).
+
+    Reading the kept tensors synchronises with the device."""
+    spans = {name: dict(calls=r[0], ns=r[1], self_ns=r[1] - r[2],
+                        wait_ns=r[3], syncs=r[4], parent=r[5])
+             for name, r in _SPANS.items()}
+    waits = {name: dict(syncs=r[0], ns=r[1])
+             for name, r in _SPANS.items() if r[6]}
+    kept = {}
+    for name, ts in _KEPT.items():
+        total = sum(t.reshape(t.shape[0], -1).sum(0, dtype=torch.float64)
+                    for t in ts)
+        kept[name] = dict(tensors=len(ts), rows=sum(t.shape[0] for t in ts),
+                          sum=total.tolist())
+    return dict(counts=dict(_COUNTS), spans=spans, waits=waits, kept=kept)
+
+
+def device_events(prof) -> list:
+    """The device's own events (kernels, copies, sets) of a finished
+    `torch.profiler` profile.  Every `record_function` range, the spans'
+    included, has a copy on the device's timeline, flagged
+    `is_user_annotation`: it is left out."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [e for e in prof.events() if e.device_type == cuda
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def reset() -> None:
+    """Clear every counter, span total and kept tensor."""
+    _SPANS.clear()
+    _COUNTS.clear()
+    _KEPT.clear()
 
 
 class StepTimer:
@@ -66,9 +227,11 @@ class StepTimer:
 def trace(log_dir: Optional[str] = None, device: DeviceLike = None):
     """Record the block with `torch.profiler` and write a Chrome trace,
     `trace_<pid>_<ns>.json`, into `log_dir` (by default
-    `similari_tpu_torch_trace` in the temporary directory); yields
-    `log_dir`.  CUDA activity is recorded on the card (`device=None`,
-    raising without one); `device="cpu"` records the CPU only."""
+    `similari_tpu_torch_trace` in the temporary directory), and beside it
+    `summary()` at the block's end as `summary_<pid>_<ns>.json`; yields
+    `log_dir`.  The port's spans are ranges of the trace.  CUDA activity
+    is recorded on the card (`device=None`, raising without one);
+    `device="cpu"` records the CPU only."""
     if log_dir is None:
         log_dir = os.path.join(tempfile.gettempdir(),
                                "similari_tpu_torch_trace")
@@ -80,5 +243,7 @@ def trace(log_dir: Optional[str] = None, device: DeviceLike = None):
         yield log_dir
         if len(acts) > 1:
             torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(
-        log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+    stem = f"{os.getpid()}_{time.time_ns()}"
+    prof.export_chrome_trace(os.path.join(log_dir, f"trace_{stem}.json"))
+    with open(os.path.join(log_dir, f"summary_{stem}.json"), "w") as f:
+        json.dump(summary(), f, indent=1)

@@ -35,6 +35,7 @@ from similari_tpu_torch.trackers.sort_step import SortConfig, sort_scan
 from similari_tpu_torch.trackers.state import map_tensors, new_sort_state
 from similari_tpu_torch.trackers.visual_state import new_visual_state
 from similari_tpu_torch.trackers.visual_step import VT_VISUAL, VisualConfig
+from similari_tpu_torch.utils import profiling
 
 from torch_parity import (ATOL, EXACT_BOX_COLUMNS, RTOL, VISUAL_CONFIGS,
                           crowded_stream, large_norm_stream, oriented_stream,
@@ -136,9 +137,9 @@ def test_fused_sort_kernel_matches_plain(cuda, case):
     inputs = [torch.tensor(x, device=cuda) for x in make()]
     steps = len(inputs[0])
     st = fs.state_to_tuple(new_sort_state(t, 1, device=cuda))
-    before = fs.fused_sort_chunk.launches
+    before = profiling.counter("fused_sort.launches")
     k = _chunks(fs.fused_sort_chunk, cfg, st, inputs, steps)
-    assert fs.fused_sort_chunk.launches == before + steps // CHUNK
+    assert profiling.counter("fused_sort.launches") == before + steps // CHUNK
     assert (fs.fused_sort_chunk.plan["cluster"],
             fs.fused_sort_chunk.plan["threads"]) == (8, 512)
     if storage is not None:
@@ -245,9 +246,10 @@ def test_fused_visual_kernel_matches_plain(cuda, case):
     inputs = [torch.tensor(x, device=cuda) for x in stream]
     st = fv.state_to_tuple(new_visual_state(t, 1, 3, stream[3].shape[2],
                                             device=cuda))
-    before = gd.gallery_dots.launches
+    before = profiling.counter("gallery_dots.launches")
     k = _chunks(fv.fused_visual_chunk, cfg, st, inputs, len(stream[0]))
-    assert gd.gallery_dots.launches == before + len(stream[0]) // CHUNK
+    assert (profiling.counter("gallery_dots.launches")
+            == before + len(stream[0]) // CHUNK)
     assert (fv.fused_visual_chunk.plan["cluster"],
             fv.fused_visual_chunk.plan["threads"]) == (
                 fv.VISUAL_CLUSTER, fv.VISUAL_THREADS)
@@ -288,9 +290,9 @@ def test_gallery_dots_kernel_matches_plain(cuda, f, m, bf16):
     c, d = 5, 24
     x = torch.randn((c * d, f), generator=g).to(cuda)
     gal = (3.0 * torch.randn((m, f), generator=g)).to(cuda)
-    before = gd.gallery_dots.launches
+    before = profiling.counter("gallery_dots.launches")
     dots, norms = gd.gallery_dots(x, gal, bf16, d)
-    assert gd.gallery_dots.launches == before + 1
+    assert profiling.counter("gallery_dots.launches") == before + 1
     p_dots, p_norms = gd.gallery_dots_plain(x, gal, bf16)
     torch.cuda.synchronize()
     need = gd.needed_columns(c * d, m, d, cuda)
@@ -315,11 +317,11 @@ def test_kernel_wrapper_checks_inputs(cuda):
     rng = np.random.default_rng(0)
     big = torch.tensor(rng.uniform(size=(1, 2048, 5)), dtype=torch.float32,
                        device=cuda)
-    before = fs.fused_sort_chunk.launches
+    before = profiling.counter("fused_sort.launches")
     with pytest.raises(ValueError, match='engine="step"'):
         fs.fused_sort_chunk(cfg, st, big, torch.ones(1, 2048, device=cuda),
                             torch.ones(1, 2048, device=cuda), 1)
-    assert fs.fused_sort_chunk.launches == before
+    assert profiling.counter("fused_sort.launches") == before
 
 
 def test_shape_check_counts_the_library_bytes(cuda):
@@ -436,9 +438,9 @@ def test_clip_kernel_matches_plain(cuda, case, want_iou):
     det, trk = (torch.tensor(x, device=cuda) for x in _clip_boxes(case))
     det8, trk8 = cl.clip_columns(det), cl.clip_columns(trk)
     tiles = torch.zeros(1, dtype=torch.int32, device=cuda)
-    before = cl.clip_pairs.launches
+    before = profiling.counter("clip.launches")
     k = cl.clip_pairs(det8, trk8, want_iou, tiles)
-    assert cl.clip_pairs.launches == before + 1
+    assert profiling.counter("clip.launches") == before + 1
     p = cl.pair_block_plain(det8, trk8, want_iou)
     torch.cuda.synchronize()
     assert torch.equal(k > 0, p > 0)
@@ -486,9 +488,9 @@ def test_sorted_sort_path_matches_plain_clip(cuda, block_sort, monkeypatch):
     cfg = SortConfig(method="iou", assignment="auction", max_idle_epochs=5,
                      oriented=True, oriented_block_sort=block_sort)
     st = new_sort_state(512, 1, device=cuda)
-    before = cl.clip_pairs.launches
+    before = profiling.counter("clip.launches")
     sk, ok = sort_scan(cfg, st, box, conf, valid, 1)
-    assert cl.clip_pairs.launches == before + 6
+    assert profiling.counter("clip.launches") == before + 6
     monkeypatch.setattr(cl, "clip_pairs", _plain_clip)
     sp, op = sort_scan(cfg, st, box, conf, valid, 1)
     for f in ("slot", "track_id", "is_new", "length", "overflow"):
@@ -504,9 +506,9 @@ def test_block_skip_nms_matches_dense(cuda, n, block_skip):
     boxes = torch.tensor(random_boxes(rng, n, spread=60.0 * np.sqrt(n)),
                          device=cuda)
     valid = torch.tensor(rng.uniform(size=n) < 0.9, device=cuda)
-    before = cl.clip_pairs.launches
+    before = profiling.counter("clip.launches")
     blk = nms_kernel(boxes, valid, 0.7, block_skip=block_skip)
-    assert cl.clip_pairs.launches == before + 1
+    assert profiling.counter("clip.launches") == before + 1
     dense = nms_kernel(boxes, valid, 0.7, block_skip=False)
     assert torch.equal(blk, dense)
     assert 0 < int(blk.sum()) < int(valid.sum())
@@ -535,9 +537,9 @@ def test_merge_kernel_matches_plain(cuda, dtype, f):
     row[:, 1], valid[:, 1] = r, 0
     state, src, row, valid = (x.to(cuda) for x in (state, src, row, valid))
     kernel, plain = state.clone(), state.clone()
-    before = mi.lane_merge_inplace.launches
+    before = profiling.counter("merge_inplace.launches")
     out = mi.lane_merge_inplace(kernel, src, row, valid)
-    assert mi.lane_merge_inplace.launches == before + 1
+    assert profiling.counter("merge_inplace.launches") == before + 1
     assert out.data_ptr() == kernel.data_ptr()
     mi.lane_merge_plain(plain, src, row, valid)
     torch.cuda.synchronize()
@@ -575,7 +577,7 @@ def test_inplace_batched_step_matches_plain_step(cuda, dtype):
     alt = map_tensors(torch.clone, ref)
     vstep = pmesh.batched_visual_step(cfg)
     istep = pmesh.batched_visual_step_inplace(cfg)
-    before = mi.lane_merge_inplace.launches
+    before = profiling.counter("merge_inplace.launches")
     for i in range(n):
         args = [torch.tensor(a[i], device=cuda) for a in arrs]
         ep = torch.full((s,), i + 1, device=cuda)
@@ -583,12 +585,79 @@ def test_inplace_batched_step_matches_plain_step(cuda, dtype):
         alt, out_i = istep(alt, *args, ep)
         for name in ("track_id", "voting_type", "is_new", "overflow"):
             assert torch.equal(getattr(out_r, name), getattr(out_i, name))
-    assert mi.lane_merge_inplace.launches == before + 2 * n
+    assert profiling.counter("merge_inplace.launches") == before + 2 * n
     for fld in dataclasses.fields(ref):
         if fld.name != "kf":
             assert torch.equal(getattr(ref, fld.name),
                                getattr(alt, fld.name)), fld.name
     assert (out_i.voting_type == VT_VISUAL).any()
+
+
+def test_batched_steps_sync_only_at_counted_waits(cuda, monkeypatch):
+    """Under torch.cuda.set_sync_debug_mode("error"), relaxed only inside
+    `utils/profiling.py::wait` spans, the batched VisualSORT (in place)
+    and SORT steps run crowded frames, whose auctions take extra rounds:
+    every sync of a step is a counted wait site."""
+    enter, leave = profiling.wait.__enter__, profiling.wait.__exit__
+
+    def relaxed(self):
+        torch.cuda.set_sync_debug_mode(0)
+        return enter(self)
+
+    def strict(self, *exc):
+        out = leave(self, *exc)
+        torch.cuda.set_sync_debug_mode("error")
+        return out
+
+    s, n, d, t, f = 4, 6, 24, 64, 16
+    arrs = [np.stack([x[i] for x in (crowded_stream(k, n, d, 14, f, 120.0)
+                                     for k in range(s))], axis=1)
+            for i in range(7)]
+    frames = [[torch.tensor(a[i], device=cuda) for a in arrs]
+              for i in range(n)]
+    eps = [torch.full((s,), i + 1, dtype=torch.int32, device=cuda)
+           for i in range(n)]
+    vcfg = VisualConfig(**dict(VISUAL_CONFIGS["euclid_iou"],
+                               assignment="auction", recycle_idle=True))
+    scfg = SortConfig(method="iou", assignment="auction", oriented=False,
+                      recycle_idle=True)
+    vstep = pmesh.batched_visual_step_inplace(vcfg)
+    sstep = pmesh.batched_sort_step(scfg)
+
+    def states():
+        return (pmesh.new_batched_visual_state(s, t, 1, 3, f, device=cuda),
+                pmesh.new_batched_state(s, t, 1, device=cuda))
+
+    def run(vst, sst):
+        for fr, ep in zip(frames, eps):
+            vst, _ = vstep(vst, *fr, ep)
+            sst, _ = sstep(sst, fr[0], fr[1], fr[2], ep)
+
+    run(*states())  # the kernel library and the libraries' first calls
+    start = states()
+    torch.cuda.synchronize()
+    monkeypatch.setattr(profiling.wait, "__enter__", relaxed)
+    monkeypatch.setattr(profiling.wait, "__exit__", strict)
+    profiling.reset()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run(*start)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    summ = profiling.summary()
+    rounds = summ["counts"]["auction.rounds"]
+    checks = summ["waits"]["auction.converged"]["syncs"]
+    assert checks == rounds - 2 * 2 * n
+    assert rounds > 2 * n * 3  # some auction ran past its unrolled rounds
+    # the scalar writes of `merge.written`: two a visual step, one a SORT
+    # step
+    assert summ["waits"]["merge.written"]["syncs"] == 3 * n
+    assert set(summ["waits"]) == {"auction.converged", "merge.written"}
+    spans = summ["spans"]
+    assert spans["batched_visual_step"]["calls"] == n
+    assert spans["batched_sort_step"]["calls"] == n
+    assert (spans["batched_visual_step"]["syncs"]
+            + spans["batched_sort_step"]["syncs"]) == checks + 3 * n
 
 
 def test_f32_products_are_not_tf32(cuda):
@@ -617,9 +686,9 @@ def test_sort_api_oriented_matches_plain_clip(cuda, monkeypatch):
     kernel once per predict and tracks exactly as the same tracker with
     the plain version in the kernel's place."""
     frames = _api_frames(5, 6, 100)
-    before = cl.clip_pairs.launches
+    before = profiling.counter("clip.launches")
     kernel = _run_sort_api(cuda, frames)
-    assert cl.clip_pairs.launches == before + len(frames)
+    assert profiling.counter("clip.launches") == before + len(frames)
     monkeypatch.setattr(cl, "clip_pairs", _plain_clip)
     plain = _run_sort_api(cuda, frames)
     for (_, ik, pk, lk, sk), (_, ip, pp, lp, sp) in zip(kernel, plain):
@@ -662,9 +731,9 @@ def _run_batch_visual_api(dev, n_frames):
 def test_batch_visual_api_matches_plain_merge(cuda, monkeypatch):
     """`BatchVisualSort` launches the merge kernel twice per predict and
     tracks exactly as itself with the merge's plain version."""
-    before = mi.lane_merge_inplace.launches
+    before = profiling.counter("merge_inplace.launches")
     kernel, tr = _run_batch_visual_api(cuda, 8)
-    assert mi.lane_merge_inplace.launches == before + 2 * 8
+    assert profiling.counter("merge_inplace.launches") == before + 2 * 8
     assert tr._engine.state.feats.dtype == torch.bfloat16
     monkeypatch.setattr(pmesh, "lane_merge_inplace", mi.lane_merge_plain)
     plain, _ = _run_batch_visual_api(cuda, 8)
@@ -746,7 +815,7 @@ def test_sharded_visual_step_on_nccl_matches_inplace_step(cuda, world):
     alt = map_tensors(torch.clone, ref)
     sstep = pmesh.sharded_visual_step(cfg, mesh)
     istep = pmesh.batched_visual_step_inplace(cfg)
-    before = mi.lane_merge_inplace.launches
+    before = profiling.counter("merge_inplace.launches")
     for i in range(n):
         args = [torch.tensor(a[i], device=cuda) for a in arrs]
         ep = torch.full((s,), i + 1, device=cuda)
@@ -755,7 +824,7 @@ def test_sharded_visual_step_on_nccl_matches_inplace_step(cuda, world):
         for name in ("track_id", "voting_type", "is_new", "overflow"):
             assert torch.equal(getattr(out_r, name), getattr(out_s, name))
         assert int(new) == int(out_r.is_new.sum())
-    assert mi.lane_merge_inplace.launches == before + 4 * n
+    assert profiling.counter("merge_inplace.launches") == before + 4 * n
     for fld in dataclasses.fields(ref):
         if fld.name != "kf":
             assert torch.equal(getattr(ref, fld.name),
@@ -793,9 +862,9 @@ def test_mot_file_route_on_the_card(cuda, tmp_path):
                     float(c)) for (x, y, _, _, h), ww, c in zip(box, w, conf)]
     path = tmp_path / "det.txt"
     held = write_mot_det(path, dets, columns=6, header=True)
-    fs.fused_sort_chunk.launches = 0
+    before = profiling.counter("fused_sort.launches")
     got, _ = pmot.run_sequence_device(path, capacity=64)
-    assert fs.fused_sort_chunk.launches == 2
+    assert profiling.counter("fused_sort.launches") == before + 2
     want, _ = pmot.run_sequence_device(held, capacity=64)
     assert got == want and len(got) == 20
 

@@ -61,7 +61,9 @@ def device_ms(fn, match, calls):
     cuda = torch.autograd.DeviceType.CUDA
     times = {}
     for e in prof.events():
-        if e.device_type == cuda and match in e.name:
+        # the device copies of `record_function` ranges are no kernels
+        if (e.device_type == cuda and match in e.name
+                and not getattr(e, "is_user_annotation", False)):
             times.setdefault(e.name, []).append(e.time_range.elapsed_us())
     means = {name: sum(t) / len(t) / 1e3 for name, t in times.items()}
     return (sum(means.values()),

@@ -79,9 +79,11 @@ def profile(name, cfg, t, box, conf, valid, dev):
         sort_scan(cfg, st0, box, conf, valid, 1)
         torch.cuda.synchronize()
     # device-side entries only (the kernels); the aten ops that launch them
-    # carry the same time again
+    # carry the same time again, and the device copies of `record_function`
+    # ranges are no kernels
     events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     busy_us = sum(e.self_device_time_total for e in events)
     launches = sum(e.count for e in events)
     ms = timer.seconds * 1e3 / steps
