@@ -238,6 +238,16 @@ Phases:
      phases 20 and 22; phase 23 adds none; every kernel's, phase 24's;
      the fused visual kernel's, `gallery_dots`' and the merge's, phases
      25 and 26, counted in the tools' processes), then the result line.
+ 28. (run after phase 9) the votes and BestFit kernel
+     (`ops/visual_votes.py`) against its plain version at the two
+     VisualSORT stream cells' shapes (S=1024, D=128, T=200 and S=256,
+     D=256, T=512; K=3, 512-d f32 features, euclidean 100): t1, has_any,
+     wins and claimed bit-equal; the kernel's device ms a launch, its
+     CUDA-event ms a call, the plain version's and the byte bound.  Its
+     launches are a launch counter like the others: every phase that
+     holds the counters to a count holds it to one launch a general
+     VisualSORT step on the card, and those launches go into the
+     `kernels` line.
 
 The fused-kernel checks take the main path's configurations from the
 runners' own builders, the other configurations and the crowded stream
@@ -300,6 +310,8 @@ from similari_tpu_torch.ops import fused_visual as fv  # noqa: E402
 from similari_tpu_torch.ops import gallery_dots as gd  # noqa: E402
 from similari_tpu_torch.ops import geometry as geo  # noqa: E402
 from similari_tpu_torch.ops import merge_inplace as mi  # noqa: E402
+from similari_tpu_torch.ops import visual_votes as vv  # noqa: E402
+from similari_tpu_torch.ops.distances import gram  # noqa: E402
 from similari_tpu_torch.ops.nms import nms_kernel, use_block_skip  # noqa: E402
 from similari_tpu_torch.ops.ownarea import own_area_shares  # noqa: E402
 from similari_tpu_torch.parallel import dryrun_multichip  # noqa: E402
@@ -1203,6 +1215,96 @@ def phase_merge(args, dev):
             f"ms (bytes; {int((valid != 0).sum())} valid rows)")
 
 
+# phase 28: the votes and BestFit kernel at the VisualSORT stream cells'
+# shapes (perfbench/mixes: scenes, padded rows, slots, objects a scene)
+VOTE_CELLS = (("vsort512_stream_s1024", 1024, 128, 200, 80, 120),
+              ("vsort512_crowd_s256", 256, 256, 512, 150, 250))
+VOTE_THRESHOLD = 100.0  # perfbench/configs/visualsort_f512_g3.json
+
+
+def votes_cell_inputs(dev, seed, s, d, t, lo, hi):
+    """visual_best_fit's inputs as a cell's step makes them: lo..hi valid
+    rows a scene, as many live tracks and 10 idle, 512-d identities
+    N(0, 4^2) with N(0, 0.05^2) noise on each lane and row, a tenth of the
+    rows new, nine tenths of the lanes valid; compat the step's stride-0
+    view of the live tracks; the product and squared norms in f32."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows = torch.arange(d, device=dev)
+    cols = torch.arange(t, device=dev)
+    n = torch.randint(lo, hi + 1, (s, 1), generator=g, device=dev)
+    det_valid = rows < n
+    active = cols < torch.clamp(n + 10, max=t)
+    ident = 4.0 * torch.randn(s, t, F, generator=g, device=dev)
+    gal = ident[:, :, None] + 0.05 * torch.randn(s, t, K, F, generator=g,
+                                                 device=dev)
+    src = (rows[None] % (n + 10)).expand(s, d)
+    q = ident.gather(1, src[..., None].expand(s, d, F))
+    new = torch.rand(s, d, generator=g, device=dev) < 0.1
+    q = torch.where(new[..., None],
+                    4.0 * torch.randn(s, d, F, generator=g, device=dev), q)
+    q = q + 0.05 * torch.randn(s, d, F, generator=g, device=dev)
+    del ident
+    dot, qn, gn = gram(q, gal, "euclidean")
+    feat_valid = torch.rand(s, t, K, generator=g, device=dev) < 0.9
+    track_gate = active & (torch.rand(s, t, generator=g, device=dev) < 0.95)
+    return (dot, qn, gn, det_valid, active[:, None, :].expand(s, d, t),
+            track_gate, feat_valid, det_valid, "euclidean", VOTE_THRESHOLD)
+
+
+def votes_bound_ms(args):
+    """Every input read once (compat one row a scene where it is a
+    stride-0 view) and every output written once, at the HBM rate."""
+    dot, qn, gn, use_gate, compat, track_gate, feat_valid, det_valid = (
+        args[:8])
+    s, d = dot.shape[:2]
+    t = track_gate.shape[1]
+    nbytes = (4 * (dot.numel() + qn.numel() + gn.numel()) + use_gate.numel()
+              + (s * t if compat.stride(1) == 0 else compat.numel())
+              + track_gate.numel() + feat_valid.numel() + det_valid.numel()
+              + s * d * (8 + 1 + 1) + s * t)
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def phase_votes(dev, seed):
+    """Phase 28: the votes and BestFit kernel against its plain version at
+    the two VisualSORT stream cells' shapes: all four outputs bit-equal;
+    the kernel's device ms a launch (profiler) and CUDA-event ms a call
+    beside the byte bound and the plain version's ms a call.  Returns
+    the kernels line's entry, from the first cell."""
+    entry = None
+    for i, (cell, s, d, t, lo, hi) in enumerate(VOTE_CELLS):
+        args = votes_cell_inputs(dev, seed + i, s, d, t, lo, hi)
+        got = vv.visual_best_fit(*args, 1)
+        want = vv.visual_best_fit_plain(*args, 1)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("t1", "has_any", "wins", "claimed"), got,
+                              want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"votes[{cell}]: {name} of the kernel "
+                                     "and the plain version differ")
+        wins = int(got[2].sum())
+        if wins < s * lo // 2:
+            raise AssertionError(f"votes[{cell}]: only {wins} rows win")
+        dev_ms, seen = device_ms_per_call(
+            lambda: vv.visual_best_fit(*args, 1), "visual_votes", 20)
+        k_ms = time_ms(dev, lambda: vv.visual_best_fit(*args, 1), 50)
+        p_ms = time_ms(dev, lambda: vv.visual_best_fit_plain(*args, 1), 5)
+        bound = votes_bound_ms(args)
+        log(f"[28] votes[{cell}] S={s} D={d} T={t} K={K}: bit-equal, "
+            f"{wins} wins; kernel device {dev_ms:.5f} ms/launch ({seen}), "
+            f"call {k_ms:.5f} ms; plain {p_ms:.4f} ms; bound {bound:.5f} "
+            f"ms (bytes)")
+        if entry is None:
+            entry = dict(name="visual_votes", route="cuda",
+                         source="similari_tpu_torch/csrc/visual_votes.cu",
+                         replaces="none (the general step's votes and "
+                         "BestFit; XLA in the JAX package)", launches=0,
+                         max_abs_err=0.0, ms=k_ms, device_ms=dev_ms,
+                         plain_ms=p_ms, bound_ms=bound, bound_by="bytes",
+                         library_ms=None)
+    return entry
+
+
 def bench_visual_config(**kw):
     """bench.py's VisualSORT bench config (`bench.py:383-388`)."""
     return VisualConfig(**dict(dict(
@@ -1309,14 +1411,19 @@ def phase_batched_visual(args, dev):
     for form in ("plain", "in-place", "in-place", "plain", "plain",
                  "in-place"):
         start = map_tensors(torch.clone, st0)
+        zero_counts()
         if form == "plain":
             with DeviceTimer(dev) as timer:
                 st_pl, out_pl = run(plain_step, start, n)
+            expect_counts("batched VisualSORT, plain", read_counts(),
+                          {"visual_votes": n})
         else:
-            zero_counts()
             with DeviceTimer(dev) as timer:
                 st_in, out_in = run(inplace_step, start, n)
-            launches = read_counts()["lane_merge"]
+            counts = read_counts()
+            expect_counts("batched VisualSORT, in place", counts,
+                          {"lane_merge": 2 * n, "visual_votes": n})
+            launches = counts["lane_merge"]
         secs[form].append(timer.seconds)
     t_in, t_pl = (float(np.median(secs[f])) for f in ("in-place", "plain"))
     for i, (a, b) in enumerate(zip(out_in, out_pl)):
@@ -1326,9 +1433,6 @@ def phase_batched_visual(args, dev):
                                      "differs between the in-place and the "
                                      "plain step")
     err = compare_states("batched VisualSORT", st_in, st_pl)
-    if launches != 2 * n:
-        raise AssertionError(f"batched VisualSORT: {launches} merge launches "
-                             f"for {n} frames")
     vt = torch.stack([o.voting_type for o in out_in])
     visual = int((vt[3:] == VT_VISUAL).sum())
     if visual == 0:
@@ -1371,7 +1475,8 @@ def phase_batched_visual(args, dev):
         f"({t_in * 1e3 / n:.3f} ms/frame), plain {s * n / t_pl:.1f} "
         f"scene-frames/s ({t_pl * 1e3 / n:.3f} ms/frame) (CUDA events, "
         f"median of three runs each in turns; ms/frame {each}); merge "
-        f"launches {launches} (2 per frame); outputs equal every frame, "
+        f"launches {launches} (2 per frame), votes kernel launches {n} a run "
+        f"of either form (1 per frame); outputs equal every frame, "
         f"state equal (feature arrays bit for bit, max_abs_err {err:.3e}); "
         f"{visual} visual matches after frame 3; {kept:.4f} of ids equal "
         f"their first frame's{profile}")
@@ -1511,8 +1616,12 @@ COUNTERS = {"fused_sort": "fused_sort.launches",
             "fused_visual": "fused_visual.launches",
             "gallery_dots": "gallery_dots.launches",
             "clip_pairs": "clip.launches",
-            "lane_merge": "merge_inplace.launches"}
+            "lane_merge": "merge_inplace.launches",
+            "visual_votes": "visual_votes.launches"}
 _COUNT_BASE = {}
+# the votes kernel's launches that a phase held to its count: one a general
+# VisualSORT step on the card (the kernels line's `launches`)
+HELD = {"visual_votes": 0}
 OBJECT_FRAMES = 8  # phase 13's frames through `predict` on box objects
 API_PROFILED_FRAMES = 16  # calls under torch.profiler for the idle share
 
@@ -1532,6 +1641,7 @@ def expect_counts(label, counts, want):
     wrong = {k: v for k, v in counts.items() if v != want.get(k, 0)}
     if wrong:
         raise AssertionError(f"{label}: launches {counts}, expected {want}")
+    HELD["visual_votes"] += counts["visual_votes"]
 
 
 def api_idle_share(dev, make, call, frames):
@@ -1707,7 +1817,7 @@ def phase_visual_api(args, dev, dets, feats, step_out, oa_out):
         visual_minimal_track_length=1, max_idle_epochs=10,
         kept_history_length=1, visual_max_observations=K)
     tr, ids, secs, counts = run_visual_api(dev, opts, n, arrays.__getitem__)
-    expect_counts("VisualSort", counts, {})
+    expect_counts("VisualSort", counts, {"visual_votes": n})
     for i, f in enumerate(frames):
         check_same(f"VisualSort frame {f}: ids", ids[i],
                    [r[0] for r in step_out[f]])
@@ -1715,8 +1825,8 @@ def phase_visual_api(args, dev, dets, feats, step_out, oa_out):
         f"gallery), {n} frames x {D_VALID} objects from 128 slots (grown to "
         f"{tr._scenes[0].state.capacity}): ids equal to phase 11's every "
         f"frame; {n / secs:.1f} frames/s ({secs * 1e3 / n:.3f} ms per "
-        f"predict_arrays, CUDA events); no kernel launched (the general "
-        f"step)")
+        f"predict_arrays, CUDA events); the votes kernel launched once a "
+        f"frame (the general step), no other kernel")
 
     box, feat = own_area_stream(args.seed)
     ones = np.ones(OA_D, np.float32)
@@ -1729,7 +1839,8 @@ def phase_visual_api(args, dev, dets, feats, step_out, oa_out):
         runs[backend] = run_visual_api(
             dev, opts, OA_FRAMES, lambda f: (box[f], ones, feat[f]))
     tr, dev_ids, dev_secs, counts = runs["device"]
-    expect_counts("VisualSort own-area", counts, {})
+    expect_counts("VisualSort own-area", counts,
+                  {"visual_votes": OA_FRAMES})
     cap = tr._scenes[0].state.capacity
     # the API retires idle tracks by auto-waste, not in the step: the
     # same config without recycle_idle, at the capacity the API grew to
@@ -1854,12 +1965,14 @@ def phase_batch_api(args, dev, visual_rate, sort_rate):
                                       device=dev),
         lambda i: (boxes[i], ones, ones > 0, feat, ones > 0, ones, ones,
                    ep(i)))
-    expect_counts("BatchVisualSort", counts, {"lane_merge": 2 * n})
+    expect_counts("BatchVisualSort", counts,
+                  {"lane_merge": 2 * n, "visual_votes": n})
     log(f"[16] BatchVisualSort API S={BS} x {BD} objects, F={F} bf16, from "
         f"128 slots (grown to {cap}), {n} frames: lengths, is_new, voting "
         f"types and every slot's state equal to phase 10's in-place step "
         f"every frame, ids a fixed one-to-one map of its ids per scene; "
-        f"merge launches {counts['lane_merge']} (2 per predict); "
+        f"merge launches {counts['lane_merge']} (2 per predict), votes "
+        f"kernel launches {counts['visual_votes']} (1 per predict); "
         f"{rate:.1f} scene-frames/s in predict ({BS / rate * 1e3:.3f} ms "
         f"per request; phase 10's bare in-place step {visual_rate:.1f}; "
         f"building a request {build_ms:.3f} ms more; CUDA events)")
@@ -2206,7 +2319,7 @@ def phase_host_visual(dev):
         host_tr, dev_tr = make("host"), make("device")
         host_ms, dev_ms, ties, votes, _ = compare_engines(
             f"VisualSort n={n}", host_tr, dev_tr, frames, dev, True,
-            lambda i: {})
+            lambda i: {"visual_votes": 1})
         if votes == 0:
             raise AssertionError(f"VisualSort n={n}: no visual match")
         label = f"VisualSort {HOST_VISUAL_DIM}-d f32 euclidean(10) n={n}"
@@ -2228,15 +2341,17 @@ def phase_host_visual(dev):
     for i, fr in enumerate(frames):
         check_same(f"bf16 VisualSort call {i}: ids",
                    a.predict_arrays(0, *fr)[1], b.predict_arrays(0, *fr)[1])
-    expect_counts("bf16 VisualSort", read_counts(), {})
+    expect_counts("bf16 VisualSort", read_counts(),
+                  {"visual_votes": 2 * len(frames)})
     st = a._scenes[0].state
     if a._scenes[0].host or st.feats.dtype != torch.bfloat16 or \
             st.feats.device.type != dev.type:
         raise AssertionError("bf16 VisualSort under 'host' left the device")
     log(f"[17] bf16 VisualSort under engine='host' n=50: the device step "
         f"(bf16 gallery on {st.feats.device}), ids equal to "
-        f"engine='device' on {len(frames)}/{len(frames)} calls; no kernel "
-        f"launched (the general visual step has no sorted clip path)")
+        f"engine='device' on {len(frames)}/{len(frames)} calls; the votes "
+        f"kernel launched once a call of each, no other kernel (the general "
+        f"visual step has no sorted clip path)")
 
 
 def host_batch_boxes(n, calls):
@@ -2573,7 +2688,7 @@ def phase_sharded_visual(args, dev, gmesh, visual_ref, visual_rate, card):
         st, ids, new, ovf = scan(mesh.shard_batched_state(st0, gmesh), boxes,
                                  ones, tru, feats, tru, ones, ones, ep0)
     expect_counts("sharded VisualSORT scan", read_counts(),
-                  {"lane_merge": 2 * n})
+                  {"lane_merge": 2 * n, "visual_votes": n})
     st_ref, out_ref = visual_ref
     same_tensors("sharded VisualSORT scan ids", [ids],
                  [torch.stack([o.track_id for o in out_ref])])
@@ -2617,7 +2732,7 @@ def phase_sharded_visual(args, dev, gmesh, visual_ref, visual_rate, card):
             raise AssertionError(f"trace(): {len(traces)} files, none "
                                  "naming lane_merge_kernel")
     expect_counts("sharded VisualSORT steps", read_counts(),
-                  {"lane_merge": 2 * n})
+                  {"lane_merge": 2 * n, "visual_votes": n})
     rates = timer.summary()
     log(f"[18] sharded_visual_step frame by frame: ids and voting types "
         f"equal to phase 10's every frame; StepTimer {rates['scenes_per_sec']}"
@@ -2973,6 +3088,7 @@ def expect_launched(label, counts, names):
             v for k, v in counts.items() if k not in names):
         raise AssertionError(f"{label}: launches {counts}, expected "
                              f"{sorted(names)} only")
+    HELD["visual_votes"] += counts["visual_votes"]
 
 
 @contextlib.contextmanager
@@ -3080,7 +3196,9 @@ def zero_height_api(dev, frames):
         zero_counts()
         got, ms = timed(dev, lambda: run(make(dev, "auction")))
         counts = read_counts()
-        expect_counts(f"zero heights, {name}", counts, {})
+        expect_counts(f"zero heights, {name}", counts,
+                      {"visual_votes": len(frames)} if name == "VisualSort"
+                      else {})
         want, cpu_ms = timed(cpu, lambda: run(make(cpu, "native")))
         if got != want:
             bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
@@ -3362,7 +3480,12 @@ def phase_kit(dev):
             zero_counts()
             res, fps, ids = kit_run(data, Path(tmp) / f"{label}-cuda", kind,
                                     params, dev.type)
-            expect_counts(f"kit {label}", read_counts(), {})
+            # a VisualSORT step a frame with detections, each on the card
+            expect_counts(f"kit {label}", read_counts(),
+                          {"visual_votes": sum(
+                              sum(1 for rows in dets.values() if len(rows))
+                              for _, dets, _ in seqs)}
+                          if kind == "visual_sort" else {})
             res_c, fps_c, ids_c = kit_run(data, Path(tmp) / f"{label}-cpu",
                                           kind, params, "cpu")
             for seq, m in res.items():
@@ -3636,7 +3759,10 @@ def phase_last_forms(dev):
     sh_ms, sh_cpu_ms, polys, sh_err, quads = sh_clip(dev)
     profiles = form_profiles(dev, stream, nms_in, quads)
     counts = read_counts()
-    expect_counts("phase 23", counts, {})
+    # 23c's visual step: S / chunk slices a frame, 2 warm-up frames and two
+    # runs of CHUNK_FRAMES for each chunk
+    expect_counts("phase 23", counts, {"visual_votes": sum(
+        (2 + 2 * CHUNK_FRAMES) * max(BS // c, 1) for c in CHUNKS)})
     topk_sort_cpu(run, stream)
     box = stream[0]
     partners = max(max_partners(b, b) - 1 for b in box[:TOPK_CPU_FRAMES])
@@ -3707,7 +3833,7 @@ BENCH_ROWS = (
     ("sort_iou_oriented_500", 16, {"clip_pairs": 16}),
     ("nms_oriented_100", 16, {}),
     ("nms_oriented_1000", 16, {"clip_pairs": 16}),
-    ("batch_visual_64x100x512", 8, {"lane_merge": 16}),
+    ("batch_visual_64x100x512", 8, {"lane_merge": 16, "visual_votes": 8}),
 )
 BENCH_CMDS = (
     ("bench.py BENCH_FAST=1", ["similari_tpu_torch.bench"],
@@ -3901,8 +4027,10 @@ def adversarial_on_card(dev):
 
 
 def check_adversarial(scores, preds, counts, card):
+    # the fused axis launches the fused kernels, the card's other
+    # VisualSORT axes the votes kernel
     expect_launched("[25] the adversarial suite", counts,
-                    ("fused_visual", "gallery_dots"))
+                    ("fused_visual", "gallery_dots", "visual_votes"))
     if counts["fused_visual"] != counts["gallery_dots"]:
         raise AssertionError(f"[25] launches {counts}: one product a chunk")
     worst = 0.0
@@ -4252,7 +4380,8 @@ def main(argv=None) -> int:
     phase_maha(dets, args.main_frames)
     kernels.append(clip_entry)
     phase_merge(args, dev)
-    stamp("phases 8-9 done")
+    votes_entry = phase_votes(dev, args.seed)
+    stamp("phases 8-9 and 28 done")
     merge_entry, visual_rate, visual_ref = phase_batched_visual(args, dev)
     kernels.append(merge_entry)
     step_out = phase_general_visual(args, dev, dets, feats, fused_out)
@@ -4312,6 +4441,12 @@ def main(argv=None) -> int:
         f"(the bench rows); [25] {entry} (the adversarial suite's fused "
         f"axis; bench_pod's visual rows, counted in its process); [26] "
         f"{tools} (the last tools, counted in their processes)")
+    votes_entry["launches"] = HELD["visual_votes"]
+    kernels.append(votes_entry)
+    log(f"[28] votes kernel launches held to their phases' counts: "
+        f"{votes_entry['launches']} (one a general VisualSORT step on the "
+        f"card, phases 10, 15-18, 20 and 22-25; the processes of phases "
+        f"24-26 not counted)")
     log(json.dumps({"kernels": kernels, "not_ported": []}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -36,7 +36,8 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fused_track.cu", "gallery_dots.cu", "clip.cu", "merge.cu")
+SOURCES = ("fused_track.cu", "gallery_dots.cu", "clip.cu", "merge.cu",
+           "visual_votes.cu")
 HEADERS = ("fused_track.cuh",)
 # --fmad=false: no multiply-add contraction, so the kernels round every
 # product and sum exactly as their plain PyTorch versions do, and the clip
@@ -67,6 +68,13 @@ DOTS_ARGTYPES = [_P] * 5 + [_I] * 5 + [_P]
 CLIP_ARGTYPES = [_P] * 4 + [_I] * 3 + [_P]
 # csrc/merge.cu: state, src, row, valid; s, d, r; row bytes; stream
 MERGE_ARGTYPES = [_P] * 4 + [_I] * 3 + [ctypes.c_longlong] + [_P]
+# csrc/visual_votes.cu: dot, qn, gn, five gates, four outputs, column-key
+# scratch; compat's two strides; s, d, t, k, kind, min votes; threshold;
+# the plan's cluster size, storage bits and shared bytes; stream
+VOTES_ARGTYPES = ([_P] * 13 + [ctypes.c_longlong] * 2 + [_I] * 6 + [_F]
+                  + [_I] * 3 + [_P])
+# visual_votes_plan: s, d, t, column scratch given; plan[3]
+VOTES_PLAN_ARGTYPES = [_I] * 4 + [ctypes.POINTER(_I)]
 
 
 # the host library's sources and headers, with the flags of the JAX
@@ -205,6 +213,10 @@ def library() -> ctypes.CDLL:
         lib.clip_pairs_launch.restype = ctypes.c_int
         lib.lane_merge_launch.argtypes = MERGE_ARGTYPES
         lib.lane_merge_launch.restype = ctypes.c_int
+        lib.visual_votes_launch.argtypes = VOTES_ARGTYPES
+        lib.visual_votes_launch.restype = ctypes.c_int
+        lib.visual_votes_plan.argtypes = VOTES_PLAN_ARGTYPES
+        lib.visual_votes_plan.restype = ctypes.c_int
         _LIB.lib = lib
     return _LIB.lib
 

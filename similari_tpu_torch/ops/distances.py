@@ -19,34 +19,51 @@ import torch
 
 
 def _flatten(q: torch.Tensor, g: torch.Tensor):
-    """(q f32 [..., D, F], g f32 [..., G, F], the gallery dims *G)."""
+    """(q f32 [..., D, F], g f32 [..., G, F])."""
     lead = q.dim() - 2
-    gallery = g.shape[lead:-1]
-    gf = g.reshape(*g.shape[:lead], -1, g.shape[-1]).float()
-    return q.float(), gf, gallery
+    return q.float(), g.reshape(*g.shape[:lead], -1, g.shape[-1]).float()
 
 
-def euclidean_matrix(q: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """q[S?, D, F] x g[S?, *G, F] -> [S?, D, *G] euclidean distances
-    (square root of the clamped gram form)."""
-    qf, gf, gallery = _flatten(q, g)
+def gram(q: torch.Tensor, g: torch.Tensor, kind: str):
+    """(dot [S?, D, G], query norms [S?, D], gallery norms [S?, G]) in f32,
+    G the gallery dims flattened: squared norms for "euclidean", norms for
+    "cosine".  `from_gram` turns them into the matrix."""
+    qf, gf = _flatten(q, g)
+    # the norms first: their [.., G, F] squares are freed before the
+    # product is allocated, so the two never add up in the peak memory
     qn = (qf * qf).sum(dim=-1)
     gn = (gf * gf).sum(dim=-1)
     dot = torch.matmul(qf, gf.transpose(-1, -2))
-    d2 = torch.clamp(qn[..., :, None] + gn[..., None, :] - 2.0 * dot,
-                     min=0.0)
-    return torch.sqrt(d2).reshape(*dot.shape[:-1], *gallery)
+    if kind == "cosine":
+        qn, gn = torch.sqrt(qn), torch.sqrt(gn)
+    return dot, qn, gn
+
+
+def from_gram(dot: torch.Tensor, qn: torch.Tensor, gn: torch.Tensor,
+              kind: str) -> torch.Tensor:
+    """[S?, D, G] euclidean distances (square root of the clamped gram
+    form) or cosine similarities from `gram`'s parts."""
+    if kind == "euclidean":
+        return torch.sqrt(torch.clamp(
+            qn[..., :, None] + gn[..., None, :] - 2.0 * dot, min=0.0))
+    denom = qn[..., :, None] * gn[..., None, :]
+    return dot / torch.where(denom > 0, denom, 1.0)
+
+
+def euclidean_matrix(q: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """q[S?, D, F] x g[S?, *G, F] -> [S?, D, *G] euclidean distances."""
+    gallery = g.shape[q.dim() - 2:-1]
+    dot, qn, gn = gram(q, g, "euclidean")
+    return from_gram(dot, qn, gn, "euclidean").reshape(*dot.shape[:-1],
+                                                       *gallery)
 
 
 def cosine_matrix(q: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Cosine *similarity* (not 1 - cos), shapes as `euclidean_matrix`."""
-    qf, gf, gallery = _flatten(q, g)
-    dot = torch.matmul(qf, gf.transpose(-1, -2))
-    qn = torch.sqrt((qf * qf).sum(dim=-1))
-    gn = torch.sqrt((gf * gf).sum(dim=-1))
-    denom = qn[..., :, None] * gn[..., None, :]
-    sim = dot / torch.where(denom > 0, denom, 1.0)
-    return sim.reshape(*dot.shape[:-1], *gallery)
+    gallery = g.shape[q.dim() - 2:-1]
+    dot, qn, gn = gram(q, g, "cosine")
+    return from_gram(dot, qn, gn, "cosine").reshape(*dot.shape[:-1],
+                                                    *gallery)
 
 
 def _pair(a, b):

@@ -38,11 +38,12 @@ import torch
 
 from .fused_sort import (MAX_ROWS, MAX_SMEM, NEG, STEP_HINT,
                          aligned_iou, allocate_slots, augmented, carve_bytes,
-                         check_chunk_inputs, check_prof, first_argmax,
-                         forward_auction_plain, kalman_rows, pointers,
-                         sanitize_boxes, sort_state_shapes, write_rows)
+                         check_chunk_inputs, check_prof, forward_auction_plain,
+                         kalman_rows, pointers, sanitize_boxes,
+                         sort_state_shapes, write_rows)
 from .gallery_dots import f32_dots, gallery_dots, round_bf16
 from .kalman import KalmanState, calculate_cost
+from . import visual_votes as vv
 from ..trackers.visual_state import VisualState
 from ..trackers.visual_step import VisualConfig
 from ..utils.profiling import count, keep, span, spanned
@@ -184,21 +185,6 @@ def _max_distance(dists, valids) -> torch.Tensor:
     return max_dist
 
 
-def _best_fit(w_m: torch.Tensor, eligible: torch.Tensor):
-    """The greedy best-fit claim in closed form on the weights w_m [D, T]
-    (NEG where not eligible): each row's best track t1 (first max), whether
-    it has any, whether it wins t1 (it is t1's heaviest row, the first
-    one), and the tracks claimed so."""
-    _, t1 = first_argmax(w_m, 1)
-    has_any = eligible.any(dim=1)
-    _, best_q = first_argmax(w_m, 0)
-    rows = torch.arange(w_m.shape[0], device=w_m.device)
-    wins = has_any & (best_q[t1] == rows)
-    claimed = torch.zeros(w_m.shape[1], dtype=torch.bool, device=w_m.device)
-    claimed[t1[wins]] = True
-    return t1, has_any, wins, claimed
-
-
 def _visual_frame_plain(cfg: VisualConfig, st: list, box, conf, valid, feat,
                         fvalid, qual, oa, epoch: int):
     d = box.shape[0]
@@ -263,9 +249,8 @@ def _visual_frame_plain(cfg: VisualConfig, st: list, box, conf, valid, feat,
         votes = votes + v.to(torch.int64)
         weight = weight + torch.where(v, max_dist - w, 0.0)
     # ---- greedy best-fit claim in closed form ----------------------------
-    eligible = (votes >= cfg.visual_min_votes) & dvalid[:, None]
-    w_m = torch.where(eligible, weight, NEG)
-    t1, has_any, wins, claimed = _best_fit(w_m, eligible)
+    t1, has_any, wins, claimed = vv.best_fit(votes, weight, dvalid,
+                                             cfg.visual_min_votes)
     rows = torch.arange(d, device=dev)
     # ---- positional auction on the remainder -----------------------------
     row_open = dvalid & ~has_any

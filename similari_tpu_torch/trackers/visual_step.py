@@ -43,6 +43,7 @@ from ..ops import geometry as geo
 from ..ops import kalman as kal
 from ..ops import merge as mrg
 from ..ops import ownarea as owna
+from ..ops import visual_votes as vv
 from .sort_step import (MAHALANOBIS_NEW_TRACK_THRESHOLD, _compat,
                         scene_epochs)
 from .state import map_tensors
@@ -51,7 +52,6 @@ from ..utils.profiling import span
 
 VT_VISUAL = 0
 VT_POSITIONAL = 1
-_NEG = -1e30
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,32 +139,28 @@ def positional_weights(cfg: VisualConfig, state: VisualState, det_box,
     return torch.where(valid, m, 0.0), valid
 
 
+def _feature_gram(cfg: VisualConfig, state: VisualState, det_feat):
+    """`ops/distances.py::gram` of the detections' features against the
+    gallery lanes, at the configured precision."""
+    q, g = det_feat, state.feats
+    if cfg.feature_precision == "bf16":
+        q, g = q.to(torch.bfloat16), g.to(torch.bfloat16)
+    return dst.gram(q, g, cfg.visual_kind)
+
+
+def _track_gate(cfg: VisualConfig, state: VisualState):
+    return state.collected >= cfg.visual_minimal_track_length
+
+
 def visual_votes(cfg: VisualConfig, state: VisualState, det_feat, det_gate,
                  compat):
     """(votes [S, D, T], weight [S, D, T]): the gallery lanes that pass the
     metric and the gates, and the best-fit weight sum(max_dist - d) over
     them, where max_dist is the largest passing distance of the scene."""
-    q, g = det_feat, state.feats
-    if cfg.feature_precision == "bf16":
-        q, g = q.to(torch.bfloat16), g.to(torch.bfloat16)
-    if cfg.visual_kind == "euclidean":
-        w = dst.euclidean_matrix(q, g)  # [S, D, T, K]
-        ok = w <= cfg.visual_threshold
-    else:
-        sim = dst.cosine_matrix(q, g)
-        ok = sim >= cfg.visual_threshold
-        w = 1.0 - sim
-    track_gate = state.collected >= cfg.visual_minimal_track_length
-    valid = (det_gate[..., :, None, None] & compat[..., None]
-             & track_gate[..., None, :, None]
-             & state.feat_valid[..., None, :, :] & ok)
-    votes = valid.sum(-1)
-    max_dist = torch.where(valid, w, _NEG).amax(dim=(-3, -2, -1))
-    terms = torch.where(valid, max_dist[:, None, None, None] - w, 0.0)
-    weight = torch.zeros_like(terms[..., 0])
-    for k in range(terms.shape[-1]):  # lane order, as the reference sums
-        weight = weight + terms[..., k]
-    return votes, weight
+    dot, qn, gn = _feature_gram(cfg, state, det_feat)
+    return vv.votes_and_weight(dot, qn, gn, det_gate, compat,
+                               _track_gate(cfg, state), state.feat_valid,
+                               cfg.visual_kind, cfg.visual_threshold)
 
 
 def _first_free(mask: torch.Tensor) -> torch.Tensor:
@@ -211,20 +207,15 @@ def _visual_step_impl(cfg: VisualConfig, defer: bool, state: VisualState,
                         & (det_own_area >= cfg.own_area_collect) & area_ok)
 
     with span("visual_step.votes"):
-        votes, vweight = visual_votes(cfg, state, det_feat, use_gate, compat)
+        dot, qn, gn = _feature_gram(cfg, state, det_feat)
 
     with span("visual_step.best_fit"):
-        eligible = (votes >= cfg.visual_min_votes) & det_valid[..., None]
-        w = torch.where(eligible, vweight, _NEG)
-
-        # greedy best-fit in closed form (first-max argmaxes: exact copies of
-        # a detection tie, and the lowest row must win)
-        _, t1 = asg.first_argmax(w, -1)  # [S, D] best track per candidate
-        has_any = eligible.any(-1)
-        _, best_query = asg.first_argmax(w, -2)  # [S, T] heaviest candidate
-        rows = torch.arange(d, device=w.device)
-        wins_visual = has_any & (best_query.gather(-1, t1) == rows)
-        claimed = mrg.written(mrg.write_index(t1, wins_visual, t), t)
+        # votes and the greedy best-fit claim in closed form, in one kernel
+        # on the card (ops/visual_votes.py)
+        t1, has_any, wins_visual, claimed = vv.visual_best_fit(
+            dot, qn, gn, use_gate, compat, _track_gate(cfg, state),
+            state.feat_valid, det_valid, cfg.visual_kind,
+            cfg.visual_threshold, cfg.visual_min_votes)
 
     with span("visual_step.auction"):
         # positional assignment on the remainder (a candidate with any vote
@@ -233,9 +224,9 @@ def _visual_step_impl(cfg: VisualConfig, defer: bool, state: VisualState,
         col_open = state.active & ~claimed
         P_masked = torch.where(row_open[..., None] & col_open[..., None, :]
                                & p_valid, P, 0.0)
-        col = asg.solve_voting(P_masked, cfg.new_track_threshold, det_valid,
-                               col_open,
-                               asg.resolve_backend(cfg.assignment, w.device))
+        col = asg.solve_voting(
+            P_masked, cfg.new_track_threshold, det_valid, col_open,
+            asg.resolve_backend(cfg.assignment, det_box.device))
         ptgt = torch.clamp(col - d, 0, t - 1)
         pos_matched = (row_open & (col >= d)
                        & (mrg.take_at(P_masked, ptgt)
@@ -276,7 +267,7 @@ def _visual_step_impl(cfg: VisualConfig, defer: bool, state: VisualState,
         # first among equals), insert into the first free lane
         gal_valid = matched[..., None] & mrg.take_rows(state.feat_valid, slot)
         gal_q = mrg.take_rows(state.feat_quality, slot)
-        lanes = torch.arange(k, device=w.device)
+        lanes = torch.arange(k, device=det_box.device)
         evict_needed = gal_valid.sum(-1) >= k
         _, evict_k = asg.first_argmax(
             -torch.where(gal_valid, gal_q, float("inf")), -1)

@@ -195,13 +195,13 @@ def _first_max_merge(parts):
 
 def visual_best_fit_replay(w_m: torch.Tensor, eligible: torch.Tensor,
                            g: int):
-    """`_best_fit` as the kernel's blocks compute it: each block's
-    (first max, column) of every row over its own columns, merged across
-    the blocks; each own column's heaviest row from rs groups of rows
-    (every rs-th row, rs = VISUAL_THREADS // own columns), merged; a row
-    with any weight above NEG wins its best track when the owner block's
-    heaviest row of that track is the row.  Returns (t1, has_any, wins,
-    claimed)."""
+    """`ops/visual_votes.py::claim` as the kernel's blocks compute it:
+    each block's (first max, column) of every row over its own columns,
+    merged across the blocks; each own column's heaviest row from rs
+    groups of rows (every rs-th row, rs = VISUAL_THREADS // own columns),
+    merged; a row with any weight above NEG wins its best track when the
+    owner block's heaviest row of that track is the row.  Returns (t1,
+    has_any, wins, claimed)."""
     d, t = w_m.shape
     rows = torch.arange(d)
     row_parts, bestq = [], torch.zeros(t, dtype=torch.int64)

@@ -24,11 +24,13 @@ import numpy as np
 import pytest
 import torch
 
+from similari_tpu_torch import _build
 from similari_tpu_torch.ops import clip as cl
 from similari_tpu_torch.ops import fused_sort as fs
 from similari_tpu_torch.ops import fused_visual as fv
 from similari_tpu_torch.ops import gallery_dots as gd
 from similari_tpu_torch.ops import merge_inplace as mi
+from similari_tpu_torch.ops import visual_votes as vv
 from similari_tpu_torch.ops.nms import nms_kernel
 from similari_tpu_torch.parallel import mesh as pmesh
 from similari_tpu_torch.trackers.sort_step import SortConfig, sort_scan
@@ -38,10 +40,11 @@ from similari_tpu_torch.trackers.visual_step import VT_VISUAL, VisualConfig
 from similari_tpu_torch.utils import profiling
 
 from torch_parity import (ATOL, EXACT_BOX_COLUMNS, RTOL, VISUAL_CONFIGS,
-                          crowded_stream, large_norm_stream, oriented_stream,
-                          random_boxes, sort_overflow_stream, sort_stream,
-                          visual_overflow_stream, visual_padded_stream,
-                          visual_stream)
+                          VOTE_CASES, crowded_stream, large_norm_stream,
+                          oriented_stream, random_boxes, sort_overflow_stream,
+                          sort_stream, visual_overflow_stream,
+                          visual_padded_stream, visual_stream, votes_args,
+                          votes_inputs)
 
 pytestmark = pytest.mark.cuda
 CHUNK = 4
@@ -593,6 +596,104 @@ def test_inplace_batched_step_matches_plain_step(cuda, dtype):
     assert (out_i.voting_type == VT_VISUAL).any()
 
 
+# the votes and BestFit kernel ----------------------------------------------
+
+# (S, D, T, K): the cells' scenes alone and many (one block a scene at
+# S=1024, clusters of 2 at S=256 and of 8 below), rows and tracks off the
+# kernel's 8 x 32 items, many gallery lanes, and each storage plan of
+# `visual_votes_plan`: column keys in device memory (T >= ~29,000), no pass
+# mask (D x T past shared memory)
+VOTE_SHAPES = [(1, 128, 200, 3), (64, 128, 200, 3), (1, 256, 512, 3),
+               (16, 256, 512, 3), (1024, 16, 24, 3), (256, 37, 45, 2),
+               (3, 9, 33, 1), (2, 3, 70, 4), (1, 1, 1, 1), (1, 4, 30000, 1),
+               (2, 40, 29000, 2), (1, 16, 40, 120), (1, 4096, 8192, 1)]
+
+
+@pytest.mark.parametrize("case", VOTE_CASES)
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["euclidean", "cosine"])
+@pytest.mark.parametrize("shape", VOTE_SHAPES)
+def test_votes_kernel_matches_plain(cuda, shape, kind, precision, case):
+    """t1, has_any, wins and claimed bit-equal to the plain version on the
+    same product and norms, one launch a call."""
+    args = votes_args(votes_inputs(sum(shape), *shape, 16, kind, case), kind,
+                      precision, cuda)
+    plan = (ctypes.c_int * 3)()
+    assert _build.library().visual_votes_plan(*shape[:3], 1, plan) == 0
+    assert plan[1] == {30000: 2, 29000: 2, 8192: 1}.get(shape[2], 3)
+    before = profiling.counter("visual_votes.launches")
+    got = vv.visual_best_fit(*args, 1)
+    assert profiling.counter("visual_votes.launches") == before + 1
+    want = vv.visual_best_fit_plain(*args, 1)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("t1", "has_any", "wins", "claimed"), got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    if case == "no_pass":
+        assert not got[1].any()
+    elif case in ("base", "broadcast") and shape[1] >= 9:
+        assert got[2].any()
+
+
+@pytest.mark.parametrize("min_votes", [0, 2, 3])
+def test_votes_kernel_matches_plain_at_min_votes(cuda, min_votes):
+    args = votes_args(votes_inputs(7, 8, 40, 90, 3, 16, "euclidean"),
+                      "euclidean", "f32", cuda)
+    got = vv.visual_best_fit(*args, min_votes)
+    want = vv.visual_best_fit_plain(*args, min_votes)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name,dtype", [("euclid_iou", torch.float32),
+                                        ("cosine_gates", torch.bfloat16)])
+def test_inplace_batched_step_with_the_votes_kernel_matches_plain_votes(
+        cuda, monkeypatch, name, dtype):
+    """Over a crowded stream with exact duplicate rows, the in-place
+    batched step gives the same outputs every frame and the same final
+    state, bit for bit, with the kernel (one launch a step) as with the
+    plain votes and BestFit patched in."""
+    precision = "bf16" if dtype == torch.bfloat16 else "f32"
+    cfg = VisualConfig(**dict(VISUAL_CONFIGS[name], recycle_idle=True,
+                              feature_precision=precision))
+    s, n, d, t, f = 6, 10, 24, 64, 16
+    arrs = [np.stack([x[i] for x in (crowded_stream(k, n, d, 14, f, 120.0,
+                                                    noise=0.8)
+                                     for k in range(s))], axis=1)
+            for i in range(7)]
+    frames = [[torch.tensor(a[i], device=cuda) for a in arrs]
+              for i in range(n)]
+    start = pmesh.new_batched_visual_state(s, t, 2, 3, f, dtype, device=cuda)
+    istep = pmesh.batched_visual_step_inplace(cfg)
+
+    def run():
+        st, outs = map_tensors(torch.clone, start), []
+        for i, fr in enumerate(frames):
+            st, out = istep(st, *fr, torch.full((s,), i + 1, device=cuda))
+            outs.append(out)
+        return st, outs
+
+    before = profiling.counter("visual_votes.launches")
+    k_state, k_outs = run()
+    assert profiling.counter("visual_votes.launches") == before + n
+    monkeypatch.setattr(vv, "visual_best_fit", vv.visual_best_fit_plain)
+    p_state, p_outs = run()
+    for ko, po in zip(k_outs, p_outs):
+        for fld in dataclasses.fields(ko):
+            assert torch.equal(getattr(ko, fld.name),
+                               getattr(po, fld.name)), fld.name
+    for fld in dataclasses.fields(k_state):
+        a, b = getattr(k_state, fld.name), getattr(p_state, fld.name)
+        if fld.name == "kf":
+            for sub in dataclasses.fields(a):
+                assert torch.equal(getattr(a, sub.name),
+                                   getattr(b, sub.name)), sub.name
+        else:
+            assert torch.equal(a, b), fld.name
+    assert any((o.voting_type == VT_VISUAL).any() for o in k_outs)
+    assert any(((o.voting_type != VT_VISUAL) & ~o.is_new).any()
+               for o in k_outs)
+
+
 def test_batched_steps_sync_only_at_counted_waits(cuda, monkeypatch):
     """Under torch.cuda.set_sync_debug_mode("error"), relaxed only inside
     `utils/profiling.py::wait` spans, the batched VisualSORT (in place)
@@ -649,15 +750,17 @@ def test_batched_steps_sync_only_at_counted_waits(cuda, monkeypatch):
     checks = summ["waits"]["auction.converged"]["syncs"]
     assert checks == rounds - 2 * 2 * n
     assert rounds > 2 * n * 3  # some auction ran past its unrolled rounds
-    # the scalar writes of `merge.written`: two a visual step, one a SORT
-    # step
-    assert summ["waits"]["merge.written"]["syncs"] == 3 * n
+    # the scalar writes of `merge.written`: one in each step's state write;
+    # the votes and BestFit are one kernel launch, with no wait
+    assert summ["waits"]["merge.written"]["syncs"] == 2 * n
     assert set(summ["waits"]) == {"auction.converged", "merge.written"}
     spans = summ["spans"]
+    assert spans["visual_step.best_fit"]["syncs"] == 0
+    assert summ["counts"]["visual_votes.launches"] == n
     assert spans["batched_visual_step"]["calls"] == n
     assert spans["batched_sort_step"]["calls"] == n
     assert (spans["batched_visual_step"]["syncs"]
-            + spans["batched_sort_step"]["syncs"]) == checks + 3 * n
+            + spans["batched_sort_step"]["syncs"]) == checks + 2 * n
 
 
 def test_f32_products_are_not_tf32(cuda):

@@ -231,16 +231,18 @@ def test_the_batched_steps_record_their_stages():
         assert spans[name]["parent"] == "batched_sort_step", name
     # every auction round is counted, and every check after the unrolled
     # rounds is a wait inside the step; so is each scalar write of
-    # `merge.written` (two a visual step, one a SORT step)
+    # `merge.written` (one in each step's state write; the visual step's
+    # votes and BestFit wait for nothing)
     auctions = 2 * 4  # one a step
     rounds = s["counts"]["auction.rounds"]
     assert rounds >= auctions * asg.UNROLLED_ROUNDS
     checks = s["waits"]["auction.converged"]["syncs"]
     assert checks == rounds - 2 * auctions
-    assert s["waits"]["merge.written"]["syncs"] == 3 * 4
+    assert s["waits"]["merge.written"]["syncs"] == 2 * 4
     assert set(s["waits"]) == {"auction.converged", "merge.written"}
+    assert spans["visual_step.best_fit"]["syncs"] == 0
     assert (spans["batched_visual_step"]["syncs"]
-            + spans["batched_sort_step"]["syncs"]) == checks + 3 * 4
+            + spans["batched_sort_step"]["syncs"]) == checks + 2 * 4
     for name in ("batched_visual_step", "batched_sort_step"):
         assert 0 < spans[name]["wait_ns"] < spans[name]["ns"]
 

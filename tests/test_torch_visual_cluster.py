@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from similari_tpu_torch.ops import fused_visual
+from similari_tpu_torch.ops import fused_visual, visual_votes
 from similari_tpu_torch.ops.fused_visual import (VISUAL_CLUSTER,
                                                  fused_visual_chunk_plain,
                                                  state_to_tuple)
@@ -56,7 +56,7 @@ def _patch(monkeypatch, g):
     monkeypatch.setattr(fused_visual, "_max_distance",
                         lambda dists, valids: visual_max_distance_replay(
                             dists, valids, g))
-    monkeypatch.setattr(fused_visual, "_best_fit",
+    monkeypatch.setattr(visual_votes, "claim",
                         lambda w_m, eligible: visual_best_fit_replay(
                             w_m, eligible, g))
     monkeypatch.setattr(fused_visual, "forward_auction_plain",
@@ -118,10 +118,10 @@ def test_visual_best_fit_replay_matches_plain(case, t, g):
     """Each row's best track from the blocks' (first max, column) partials
     (ties to the lower column), each column's heaviest row from groups of
     rows (ties to the lower row), and the wins test across blocks give
-    `_best_fit`'s claim exactly."""
+    `ops/visual_votes.py::claim` exactly."""
     rng = np.random.default_rng(t + g)
     w_m, eligible = _best_fit_weights(case, 40, t, rng)
-    want = fused_visual._best_fit(w_m, eligible)
+    want = visual_votes.claim(w_m, eligible)
     got = visual_best_fit_replay(w_m, eligible, g)
     for a, b in zip(want, got):
         assert torch.equal(a, b)

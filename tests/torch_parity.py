@@ -305,6 +305,84 @@ def large_norm_stream(steps, d, f, norm=4e5, seed=5):
     return box, ones, tru, feat, tru, ones, ones
 
 
+# the inputs of ops/visual_votes.py: the gallery cases and their thresholds
+VOTE_CASES = ("base", "broadcast", "empty", "no_pass", "nan", "overflow")
+VOTE_THRESHOLDS = {"euclidean": 6.0, "cosine": 0.7}
+
+
+def votes_inputs(seed, s, d, t, k, f, kind, case="base"):
+    """Features and gates for `visual_best_fit`: (q [S, D, F], g
+    [S, T, K, F] f32, use_gate [S, D], compat [S, D, T], track_gate [S, T],
+    feat_valid [S, T, K], det_valid [S, D], threshold).  Rows re-detect
+    random tracks (0.3 noise a dimension, so a matching lane passes the
+    kind's threshold and a foreign one does not) or new identities, and
+    every gate drops a random tenth or so.  Every case holds ties: rows 2
+    and 3 are exact copies (the lower row must win) and tracks 0 and 1
+    the same gallery (the lower track must win).  Cases: "broadcast" gives
+    compat one row for every detection (the step's stride-0 view);
+    "empty" drops every row of scene 0; "no_pass" a threshold no lane
+    passes; "nan" NaN features on every fourth row from row 1 and on one
+    gallery lane; "overflow" a threshold every lane passes, with row 0
+    scaled past f32's range, so its euclidean distances are infinite and
+    the weights NaN or infinite."""
+    rng = np.random.default_rng(seed)
+    ident = rng.normal(size=(s, t, f)).astype(np.float32)
+    g = ident[:, :, None, :] + 0.3 * rng.normal(size=(s, t, k, f)).astype(
+        np.float32)
+    src = rng.integers(0, t, (s, d))
+    q = np.take_along_axis(ident, src[..., None], axis=1)
+    new = rng.random((s, d)) < 0.3
+    q = np.where(new[..., None], rng.normal(size=(s, d, f)), q)
+    q = (q + 0.3 * rng.normal(size=(s, d, f))).astype(np.float32)
+    if d > 3:
+        q[:, 3] = q[:, 2]
+    if t > 1:
+        g[:, 1] = g[:, 0]
+    use_gate = rng.random((s, d)) < 0.9
+    compat = rng.random((s, d, t)) < 0.85
+    track_gate = rng.random((s, t)) < 0.9
+    feat_valid = rng.random((s, t, k)) < 0.8
+    det_valid = rng.random((s, d)) < 0.95
+    threshold = VOTE_THRESHOLDS[kind]
+    if case == "broadcast":
+        compat = np.broadcast_to(compat[:, :1], compat.shape)
+    elif case == "empty":
+        use_gate[0] = det_valid[0] = False
+    elif case == "no_pass":
+        threshold = 1e-3 if kind == "euclidean" else 1.5
+    elif case == "nan":
+        q[:, 1::4] = np.nan
+        g[:, t // 2, k - 1] = np.nan
+    elif case == "overflow":
+        threshold = float("inf") if kind == "euclidean" else -float("inf")
+        q[:, 0] *= np.float32(1e20)
+    return (q, g, use_gate, compat, track_gate, feat_valid, det_valid,
+            threshold)
+
+
+def votes_args(inputs, kind, precision, device):
+    """`votes_inputs` as `visual_best_fit`'s arguments on `device`: (dot,
+    qn, gn, use_gate, compat, track_gate, feat_valid, det_valid, kind,
+    threshold), the product and norms taken as the step takes them (bf16
+    rounds both sides first).  A broadcast compat stays a stride-0 view."""
+    import torch
+    from similari_tpu_torch.ops import distances
+
+    q, g, use_gate, compat, track_gate, feat_valid, det_valid, thr = inputs
+    tq, tg = (torch.tensor(x, device=device) for x in (q, g))
+    if precision == "bf16":
+        tq, tg = tq.to(torch.bfloat16), tg.to(torch.bfloat16)
+    dot, qn, gn = distances.gram(tq, tg, kind)
+    if compat.strides[1] == 0:
+        tc = torch.tensor(np.ascontiguousarray(compat[:, :1]),
+                          device=device).expand(compat.shape)
+    else:
+        tc = torch.tensor(compat, device=device)
+    gates = [torch.tensor(x, device=device)
+             for x in (use_gate, track_gate, feat_valid, det_valid)]
+    return (dot, qn, gn, gates[0], tc, *gates[1:], kind, thr)
+
+
 def jax_state_dict(state) -> dict:
     """A JAX state dataclass as the dict `similari_tpu_torch.convert` reads:
     `np.asarray` per field, `kf` nested."""
