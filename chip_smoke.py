@@ -122,8 +122,8 @@ Phases:
      frame under `trace()` (its Chrome trace must name
      `lane_merge_kernel`); `sharded_sort_scan` at phase 12's equal to
      phase 12, and oriented on 8 scenes of phase 6's stream equal to the
-     unsharded batched scan (0 clip launches: the batched step's dense
-     path); `global_gallery_query` (Q=256, k=16, cosine and euclidean)
+     unsharded batched scan (1 clip launch a frame: the batched step's
+     sorted path over every scene); `global_gallery_query` (Q=256, k=16, cosine and euclidean)
      on the visual scan's state equal to a stable full sort of the score
      matrix, and `merge_shard_topk` of the state's 2, 4 and 8 blocks
      equal to it, ms per query batch and the products' share;
@@ -351,6 +351,10 @@ MIN_CROWDED_ROUNDS = 4.0  # auction rounds per frame the crowded stream needs
 OD, OT = 500, 2000
 NMS_N, NMS_THRESHOLD = 1000, 0.8
 PARITY_FRAMES = 64  # frames of the oriented path rerun with the plain clip
+# the batched clip launch at the oriented SORT cell's shape: S scenes of
+# 450-550 rotated vehicles (12-28 px tall, length / width 1.8-2.6, heading
+# in +-1.45 rad) in 1920 x 1080, rows padded to D, T slots
+CB_S, CB_D, CB_T, CB_N = 256, 640, 1024, (450, 550)
 # bench.py's batch configs (`batch_visual_256x100x512`, `batch_sort_*x100`):
 # S scenes of BD objects, BT = 2 x BD slots, K=3 lanes, F=512
 BS, BD, BT = 256, 100, 200
@@ -903,10 +907,10 @@ def time_ms(dev, fn, n):
     return timer.seconds * 1e3 / n
 
 
-def clip_bound_ms(d, t, near_pairs):
-    """The larger of: the clip columns read once and [D, T] written once
-    at the HBM rate; the in-radius pairs' clips at the f32 rate."""
-    by_bytes = ((d + t) * 8 * 4 + d * t * 4) / HBM_BYTES_PER_S * 1e3
+def clip_bound_ms(d, t, near_pairs, s=1):
+    """The larger of: the clip columns read once and [S, D, T] written
+    once at the HBM rate; the in-radius pairs' clips at the f32 rate."""
+    by_bytes = s * ((d + t) * 8 * 4 + d * t * 4) / HBM_BYTES_PER_S * 1e3
     by_ops = near_pairs * CLIP_FLOPS / F32_OPS_PER_S * 1e3
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
@@ -944,6 +948,85 @@ def check_clip_case(dev, name, det_box, trk_box, want_iou):
     return k_ms, p_ms, err, bound, dev_ms
 
 
+def vehicle_boxes(rng, n):
+    """n rotated vehicles of the oriented SORT cell's model: [n, 5]."""
+    h = rng.uniform(12, 28, n)
+    return np.stack([rng.uniform(0, 1920, n), rng.uniform(0, 1080, n),
+                     rng.uniform(-1.45, 1.45, n), rng.uniform(1.8, 2.6, n),
+                     h], axis=1)
+
+
+def batched_clip_scenes(dev, seed):
+    """CB_S scenes, x-sorted as the sorted path sorts them: (det clip
+    columns [S, D, 8], track clip columns [S, T, 8]).  A scene's n valid
+    rows are vehicles, its padded rows zero; its first n + 0-64 slots are
+    live (the vehicles moved by ~1 px and 0.02 rad, then new boxes), the
+    rest hold stale vehicles, sorted last."""
+    rng = np.random.default_rng(seed)
+    det = np.zeros((CB_S, CB_D, 5), np.float32)
+    trk = np.zeros((CB_S, CB_T, 5), np.float32)
+    live = np.zeros((CB_S, CB_T), bool)
+    for j in range(CB_S):
+        n = int(rng.integers(CB_N[0], CB_N[1] + 1))
+        m = n + int(rng.integers(0, 65))
+        det[j, :n] = vehicle_boxes(rng, n)
+        trk[j] = vehicle_boxes(rng, CB_T)
+        trk[j, :n] = det[j, :n]
+        trk[j, :n, :2] += rng.normal(0, 1.0, (n, 2))
+        trk[j, :n, 2] += rng.normal(0, 0.02, n)
+        live[j, :m] = True
+    det, trk = (torch.as_tensor(x, device=dev) for x in (det, trk))
+    live = torch.as_tensor(live, device=dev)
+
+    def x_sorted_scenes(boxes, active):
+        key = torch.where(active, boxes[..., 0], 3.0e38)
+        idx = torch.sort(key, dim=1, stable=True).indices
+        return boxes.gather(1, idx[..., None].expand_as(boxes))
+
+    return (cl.clip_columns(x_sorted_scenes(det, det[..., 4] > 0)),
+            cl.clip_columns(x_sorted_scenes(trk, live)))
+
+
+def check_batched_clip(dev, seed):
+    """The batched launch at the oriented SORT cell's shape: each scene
+    bit-equal to its own launch and within tolerance of the plain
+    version, masks equal; the tiles run equal to the tiles that hold an
+    in-radius pair.  Returns the largest difference from the plain
+    version."""
+    det8, trk8 = batched_clip_scenes(dev, seed)
+    tiles = torch.zeros(1, dtype=torch.int32, device=dev)
+    k = cl.clip_pairs(det8, trk8, True, tiles)
+    err, want, near = 0.0, 0, 0
+    for j in range(CB_S):
+        one = cl.clip_pairs(det8[j], trk8[j], True)
+        if not torch.equal(k[j], one):
+            raise AssertionError(f"batched clip: scene {j} differs from its "
+                                 "own launch")
+        p = cl.pair_block_plain(det8[j], trk8[j], True)
+        if not torch.equal(k[j] > 0, p > 0):
+            raise AssertionError(f"batched clip: scene {j}'s mask differs "
+                                 "from the plain version's")
+        torch.testing.assert_close(k[j], p, rtol=RTOL, atol=ATOL)
+        err = max(err, float((k[j] - p).abs().max()))
+        far = cl.far_pairs(det8[j], trk8[j])
+        want += int(cl.tiles_to_run(far))
+        near += int((~far).sum())
+    run = int(tiles.item())
+    if run != want:
+        raise AssertionError(f"batched clip: {run} tiles ran, {want} hold an "
+                             "in-radius pair")
+    call = lambda: cl.clip_pairs(det8, trk8, True)  # noqa: E731
+    dev_ms = device_ms_per_call(call, "clip_pairs", 10)[0]
+    bound = clip_bound_ms(CB_D, CB_T, near, CB_S)
+    log(f"[5] batched clip S={CB_S} D={CB_D} T={CB_T} (the oriented SORT "
+        f"cell's shape): every scene bit-equal to its own launch, masks "
+        f"equal to the plain version's, max_abs_err {err:.3e}; tiles run "
+        f"{run}/{cl.tile_count(CB_S, CB_D, CB_T)}, in-radius pairs {near}; "
+        f"device {dev_ms:.5f} ms per launch, bound {bound[0]:.6f} ms "
+        f"({bound[1]})")
+    return err
+
+
 def phase_clip(args, dev):
     """Phase 5; returns the kernel's entry (launches filled in later)."""
     stream = torch.as_tensor(oriented_stream(2, args.seed + 42), device=dev)
@@ -965,6 +1048,7 @@ def phase_clip(args, dev):
     nms_s = x_sorted(nms_boxes, torch.ones(NMS_N, dtype=torch.bool,
                                            device=dev))
     errs.append(check_clip_case(dev, "nms", nms_s, nms_s, False)[2])
+    errs.append(check_batched_clip(dev, args.seed + 21))
 
     exact = torch.tensor(EXACT_BOX_COLUMNS, dtype=torch.float32, device=dev)
     same = cl.clip_pairs(exact, exact, True).diagonal()
@@ -2745,8 +2829,9 @@ def phase_sharded_visual(args, dev, gmesh, visual_ref, visual_rate, card):
 
 def phase_sharded_sort(args, dev, gmesh, sort_ref, sort_rate, card):
     """The sharded SORT scan, equal to phase 12's; an oriented one on
-    8 scenes of phase 6's stream, equal to the unsharded batched scan.
-    Returns its clip launches."""
+    8 scenes of phase 6's stream, equal to the unsharded batched scan,
+    which equals itself with the plain clip patched in.  Returns the
+    sharded scan's clip launches."""
     s, n = BS, args.batch_frames
     cfg = SortConfig(method="iou", assignment="auction", max_idle_epochs=5,
                      oriented=False)
@@ -2788,7 +2873,8 @@ def phase_sharded_sort(args, dev, gmesh, sort_ref, sort_rate, card):
             mesh.new_batched_state(ORIENTED_SCENES, OT, 1, device=dev), obox,
             oconf, oconf > 0, oep)
     clip = read_counts()["clip_pairs"]
-    expect_counts("oriented sharded SORT scan", read_counts(), {})
+    expect_counts("oriented sharded SORT scan", read_counts(),
+                  {"clip_pairs": ORIENTED_SHARDED_FRAMES})
     rst, (rids, rovf) = mesh.batched_sort_scan(ocfg)(
         mesh.new_batched_state(ORIENTED_SCENES, OT, 1, device=dev), obox,
         oconf, oconf > 0, oep)
@@ -2797,15 +2883,31 @@ def phase_sharded_sort(args, dev, gmesh, sort_ref, sort_rate, card):
         raise AssertionError("oriented sharded SORT scan: overflow count "
                              "differs")
     err = compare_sort_states("oriented sharded SORT scan", ost, rst)
+    orig = cl.clip_pairs
+    cl.clip_pairs = plain_clip_pairs
+    try:
+        pst, (pids, povf) = mesh.batched_sort_scan(ocfg)(
+            mesh.new_batched_state(ORIENTED_SCENES, OT, 1, device=dev), obox,
+            oconf, oconf > 0, oep)
+    finally:
+        cl.clip_pairs = orig
+    same_tensors("oriented batched SORT scan, plain clip: ids", [pids],
+                 [rids])
+    if not torch.equal(povf, rovf):
+        raise AssertionError("oriented batched SORT scan: the plain clip's "
+                             "overflow differs")
+    perr = compare_sort_states("oriented batched SORT scan, plain clip", pst,
+                               rst)
     log(f"[18] oriented sharded_sort_scan, {ORIENTED_SCENES} scenes of phase "
         f"6's stream (frames offset by 8) x D={OD}, T={OT}, "
         f"{ORIENTED_SHARDED_FRAMES} frames: ids and overflow equal to the "
-        f"unsharded batched scan, state max_abs_err {err:.3e}; "
+        f"unsharded batched scan, state max_abs_err {err:.3e}; the "
+        f"batched scan with the plain clip patched in: ids and overflow "
+        f"equal, state max_abs_err {perr:.3e}; "
         f"{ORIENTED_SCENES * ORIENTED_SHARDED_FRAMES / timer.seconds:.1f} "
         f"scene-frames/s (CUDA events); clip launches {clip}: the batched "
-        f"step turns the sorted clip-kernel matcher off and scores every "
-        f"pair on the dense path, as the JAX package's vmapped step does; "
-        f"{card}")
+        f"step matches every scene on x-sorted views through one clip "
+        f"launch a frame; {card}")
     return clip
 
 
@@ -4433,8 +4535,8 @@ def main(argv=None) -> int:
         f"merge {api_merge} (BatchVisualSort); [17] clip {host_clip} (the "
         f"device Sort beside the host engine; the host engines launch "
         f"none); [18] merge {sharded_merge} (the sharded visual scan and "
-        f"steps), clip {sharded_clip} (the batched SORT step matches "
-        f"oriented boxes on the dense path); [19] fused_sort "
+        f"steps), clip {sharded_clip} (the batched SORT step's sorted "
+        f"path, one launch a frame); [19] fused_sort "
         f"{file_launches} (the MOT-file route, three files); [20] "
         f"{zero_height} (the fused runners on zero-height streams); [22] "
         f"{kit} (the fused runners on the kit's sequences); [24] {bench} "

@@ -64,8 +64,9 @@ VISUAL_ARGTYPES = ([_P] * (7 + 20 + 8 + 2 + 2) + [_I] * 13 + [_F] * 12
 # csrc/gallery_dots.cu: x, g, dots, norms, bf16 staging; n, m, f, d, bf16;
 # stream
 DOTS_ARGTYPES = [_P] * 5 + [_I] * 5 + [_P]
-# csrc/clip.cu: det8, trk8, out, tiles_run; d, t, want_iou; stream
-CLIP_ARGTYPES = [_P] * 4 + [_I] * 3 + [_P]
+# csrc/clip.cu: det8, trk8, out, tiles_run; s, d, t; the three per-scene
+# strides; want_iou; stream
+CLIP_ARGTYPES = [_P] * 4 + [_I] * 3 + [ctypes.c_longlong] * 3 + [_I, _P]
 # csrc/merge.cu: state, src, row, valid; s, d, r; row bytes; stream
 MERGE_ARGTYPES = [_P] * 4 + [_I] * 3 + [ctypes.c_longlong] + [_P]
 # csrc/visual_votes.cu: dot, qn, gn, five gates, four outputs, column-key

@@ -26,9 +26,15 @@
 // shared 32 x 32 tile that the block writes with 16-byte stores.  Before,
 // one thread ran up to four pairs' 32 clips one after another.
 //
+// A launch covers S scenes, grid.z one scene each (at most 65535 a
+// launch; the launcher splits more): each block offsets its scene's
+// det8, trk8 and out by the per-scene strides and then runs exactly the
+// single-scene code, so each scene's [D, T] is bit-equal to a launch on
+// that scene alone, and its tiles skip on its own boxes.
+//
 // Bound: on x-sorted inputs most tiles skip, and the work is the clip of
-// the in-radius pairs (f32 operations) against writing the [D, T] result
-// (bytes); at D=500, T=2000 the write, 4 MB, is the larger.
+// the in-radius pairs (f32 operations) against writing the [S, D, T]
+// result (bytes); at D=500, T=2000 the write, 4 MB, is the larger.
 //
 // Built with --fmad=false (similari_tpu_torch/_build.py): a contracted
 // multiply-add would break the exact b == 0 / a == 0 collinear tests, and
@@ -89,12 +95,12 @@ __device__ __forceinline__ float edge_term(float sx, float sy, float ex,
 // edge skipped), one 16-byte store a thread where the rows allow it.
 template <class Value>
 __device__ __forceinline__ void write_tile(float* out, int row0, int col0,
-                                           int d, int t, Value v) {
+                                           int d, int t, bool vec, Value v) {
   const int r = threadIdx.x >> 3, c = (threadIdx.x & 7) * 4;
   const int row = row0 + r, col = col0 + c;
   if (row >= d) return;
   float* p = out + (size_t)row * t + col;
-  if ((t & 3) == 0 && col + 3 < t) {
+  if (vec && col + 3 < t) {
     *reinterpret_cast<float4*>(p) =
         make_float4(v(r, c), v(r, c + 1), v(r, c + 2), v(r, c + 3));
   } else {
@@ -106,7 +112,9 @@ template <bool kWantIou>
 __global__ void __launch_bounds__(kThreads)
 clip_pairs_kernel(const float* __restrict__ det8,
                   const float* __restrict__ trk8, float* __restrict__ out,
-                  int* __restrict__ tiles_run, int d, int t) {
+                  int* __restrict__ tiles_run, int d, int t,
+                  long long det_stride, long long trk_stride,
+                  long long out_stride) {
   __shared__ float sdet[kTile][kCols];
   __shared__ float strk[kTile][kCols + 1];
   __shared__ float res[kTile][kTile + 1];
@@ -115,6 +123,11 @@ clip_pairs_kernel(const float* __restrict__ det8,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int row0 = blockIdx.y * kTile;
   const int col0 = blockIdx.x * kTile;
+  det8 += blockIdx.z * det_stride;
+  trk8 += blockIdx.z * trk_stride;
+  out += blockIdx.z * out_stride;
+  // 16-byte stores need every row of every scene 16-byte aligned
+  const bool vec = (t & 3) == 0 && (out_stride & 3) == 0;
   for (int k = tid; k < kTile * kCols; k += kThreads) {
     const int r = k / kCols;
     const int c = k % kCols;
@@ -144,7 +157,7 @@ clip_pairs_kernel(const float* __restrict__ det8,
   __syncthreads();
   const int n = count;
   if (n == 0) {
-    write_tile(out, row0, col0, d, t, [](int, int) { return 0.0f; });
+    write_tile(out, row0, col0, d, t, vec, [](int, int) { return 0.0f; });
     return;
   }
   if (tiles_run != nullptr && tid == 0) atomicAdd(tiles_run, 1);
@@ -200,25 +213,39 @@ clip_pairs_kernel(const float* __restrict__ det8,
     }
   }
   __syncthreads();
-  write_tile(out, row0, col0, d, t, [&](int r, int c) { return res[r][c]; });
+  write_tile(out, row0, col0, d, t, vec,
+             [&](int r, int c) { return res[r][c]; });
 }
 
 }  // namespace
 
-// det8 [d, 8] and trk8 [t, 8] row-major f32 clip columns -> out [d, t].
-// tiles_run (may be null) is increased by the number of tiles that ran the
-// clip.  Returns the launch's cudaGetLastError().
+// det8 [s, d, 8] and trk8 [s, t, 8] f32 clip columns -> out [s, d, t],
+// rows of 8 (or t) contiguous floats, scene k's at k * det_stride,
+// k * trk_stride and k * out_stride floats.  tiles_run (may be null) is
+// increased by the number of tiles that ran the clip, over every scene.
+// Returns the first failing launch's cudaGetLastError().
 extern "C" int clip_pairs_launch(const float* det8, const float* trk8,
-                                 float* out, int* tiles_run, int d, int t,
+                                 float* out, int* tiles_run, int s, int d,
+                                 int t, long long det_stride,
+                                 long long trk_stride, long long out_stride,
                                  int want_iou, cudaStream_t stream) {
-  if (d <= 0 || t <= 0) return 0;
-  const dim3 grid((t + kTile - 1) / kTile, (d + kTile - 1) / kTile);
-  if (want_iou) {
-    clip_pairs_kernel<true><<<grid, kThreads, 0, stream>>>(det8, trk8, out,
-                                                           tiles_run, d, t);
-  } else {
-    clip_pairs_kernel<false><<<grid, kThreads, 0, stream>>>(det8, trk8, out,
-                                                            tiles_run, d, t);
+  if (s <= 0 || d <= 0 || t <= 0) return 0;
+  constexpr int kMaxScenes = 65535;  // grid.z's limit
+  for (int k0 = 0; k0 < s; k0 += kMaxScenes) {
+    const int n = s - k0 < kMaxScenes ? s - k0 : kMaxScenes;
+    const dim3 grid((t + kTile - 1) / kTile, (d + kTile - 1) / kTile, n);
+    const float* det = det8 + k0 * det_stride;
+    const float* trk = trk8 + k0 * trk_stride;
+    float* o = out + k0 * out_stride;
+    if (want_iou) {
+      clip_pairs_kernel<true><<<grid, kThreads, 0, stream>>>(
+          det, trk, o, tiles_run, d, t, det_stride, trk_stride, out_stride);
+    } else {
+      clip_pairs_kernel<false><<<grid, kThreads, 0, stream>>>(
+          det, trk, o, tiles_run, d, t, det_stride, trk_stride, out_stride);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  return static_cast<int>(cudaGetLastError());
+  return 0;
 }

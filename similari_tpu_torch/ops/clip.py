@@ -5,17 +5,26 @@
 (`csrc/clip.cu`) for CUDA tensors and runs its plain PyTorch version,
 `pair_block_plain`, for CPU tensors.  Both take per-box clip columns
 (`clip_columns`: centre, two corner offsets, radius, area, so the pair
-work needs no trig) of detections [D, 8] and tracks [T, 8] and give the
-[D, T] rotated IoU, or the raw intersection area, by the Green's-theorem
-boundary integral of `ops/geometry.py`, with each pair recentred around
-the midpoint of its centres as vertex = offset +- half the centre delta.
-`too_far` pairs are exactly 0.  The kernel skips the clip for every
-32 x 32 tile of pairs with no pair in radius; callers feed it x-sorted
-boxes (`trackers/sort_step.py::_match_sorted`, `ops/nms.py`) so the
-in-radius pairs gather near the diagonal and most tiles skip.
+work needs no trig) of detections [S?, D, 8] and tracks [S?, T, 8] and
+give the [S?, D, T] rotated IoU, or the raw intersection area, by the
+Green's-theorem boundary integral of `ops/geometry.py`, with each pair
+recentred around the midpoint of its centres as vertex = offset +- half
+the centre delta.  `too_far` pairs are exactly 0.  The kernel skips the
+clip for every 32 x 32 tile of pairs with no pair in radius; callers feed
+it x-sorted boxes (`trackers/sort_step.py::_match_sorted`, `ops/nms.py`)
+so the in-radius pairs gather near the diagonal and most tiles skip.
+
+A leading scene axis is one launch over every scene (grid.z), each scene
+with its own tiles; each scene's result is bit-equal to a call on that
+scene alone.  On the CPU the plain version runs scene by scene.
 
 The result does not depend on the tile: the plain version computes every
 pair densely and zeroes the far ones.
+
+While a profiler records, a call without its own `tiles` counter keeps
+the tiles that ran and the tiles of the launch (`utils/profiling.py::
+keep`, as `clip.tiles_run` and `clip.tiles`, one row a call), so an
+unprofiled call reads nothing back.
 """
 
 from __future__ import annotations
@@ -24,7 +33,7 @@ import ctypes
 
 import torch
 
-from ..utils.profiling import count
+from ..utils.profiling import count, keep, recording
 
 TILE = 32  # the kernel's tile edge: a tile is TILE x TILE (det, trk) pairs
 _F32 = torch.float32
@@ -118,10 +127,10 @@ def _iou(inter, area_a, area_b):
 
 
 def far_pairs(det8: torch.Tensor, trk8: torch.Tensor) -> torch.Tensor:
-    """[D, T] bool: pairs whose enclosing circles do not meet."""
-    ddx = det8[:, 0:1] - trk8[None, :, 0]
-    ddy = det8[:, 1:2] - trk8[None, :, 1]
-    md = det8[:, 6:7] + trk8[None, :, 6]
+    """[S?, D, T] bool: pairs whose enclosing circles do not meet."""
+    ddx = det8[..., :, 0:1] - trk8[..., None, :, 0]
+    ddy = det8[..., :, 1:2] - trk8[..., None, :, 1]
+    md = det8[..., :, 6:7] + trk8[..., None, :, 6]
     return ddx * ddx + ddy * ddy > md * md
 
 
@@ -138,25 +147,34 @@ def tiles_to_run(far: torch.Tensor) -> torch.Tensor:
 
 def pair_block_plain(det8: torch.Tensor, trk8: torch.Tensor,
                      want_iou: bool) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: det8 [D, 8], trk8 [T, 8] ->
-    [D, T] IoU (want_iou) or intersection area, 0 where empty or too far.
-    Same arithmetic and operation order as the kernel."""
+    """Plain PyTorch version of the kernel: det8 [S?, D, 8], trk8
+    [S?, T, 8] -> [S?, D, T] IoU (want_iou) or intersection area, 0 where
+    empty or too far.  Same arithmetic and operation order as the kernel."""
     far = far_pairs(det8, trk8)
-    ax, ay, bx, by = _recentred(det8[:, None, :], trk8[None, :, :])
+    ax, ay, bx, by = _recentred(det8[..., :, None, :], trk8[..., None, :, :])
     s = (_pair_integral(ax, ay, bx, by, False)
          + _pair_integral(bx, by, ax, ay, True))
     inter = torch.where(far, 0.0, torch.abs(s) * 0.5)
     if not want_iou:
         return inter
-    return _iou(inter, det8[:, 7:8], trk8[None, :, 7])
+    return _iou(inter, det8[..., :, 7:8], trk8[..., None, :, 7])
+
+
+def tile_count(s: int, d: int, t: int) -> int:
+    """TILE x TILE tiles of S scenes' [D, T] pair matrices."""
+    return s * -(-d // TILE) * -(-t // TILE)
 
 
 def _check(det8: torch.Tensor, trk8: torch.Tensor, tiles) -> None:
     for name, x in (("det8", det8), ("trk8", trk8)):
-        if x.dim() != 2 or x.shape[1] != 8:
-            raise ValueError(f"{name} must be [N, 8], got {tuple(x.shape)}")
+        if x.dim() not in (2, 3) or x.shape[-1] != 8:
+            raise ValueError(f"{name} must be [S?, N, 8], got "
+                             f"{tuple(x.shape)}")
         if x.dtype != _F32:
             raise TypeError(f"{name} must be float32, got {x.dtype}")
+    if det8.dim() != trk8.dim() or det8.shape[:-2] != trk8.shape[:-2]:
+        raise ValueError(f"det8 {tuple(det8.shape)} and trk8 "
+                         f"{tuple(trk8.shape)} must have the same scenes")
     if trk8.device != det8.device:
         raise ValueError("det8 and trk8 must be on one device")
     if tiles is not None and (tiles.shape != (1,) or tiles.dtype != torch.int32
@@ -167,30 +185,52 @@ def _check(det8: torch.Tensor, trk8: torch.Tensor, tiles) -> None:
 
 def clip_pairs(det8: torch.Tensor, trk8: torch.Tensor, want_iou: bool,
                tiles=None) -> torch.Tensor:
-    """[D, T] rotated IoU (want_iou) or intersection area from clip
-    columns.  CUDA tensors launch the kernel, CPU tensors run
-    `pair_block_plain`.  `tiles`, an optional int32 [1] tensor on the same
-    device, is increased by the number of tiles whose clip ran."""
+    """[S?, D, T] rotated IoU (want_iou) or intersection area from clip
+    columns det8 [S?, D, 8] and trk8 [S?, T, 8].  CUDA tensors launch the
+    kernel once over every scene, CPU tensors run `pair_block_plain` scene
+    by scene.  `tiles`, an optional int32 [1] tensor on the same device,
+    is increased by the number of tiles whose clip ran."""
     _check(det8, trk8, tiles)
+    if det8.dim() == 2:
+        return _clip_scenes(det8[None], trk8[None], want_iou, tiles)[0]
+    return _clip_scenes(det8, trk8, want_iou, tiles)
+
+
+def _clip_scenes(det8, trk8, want_iou, tiles) -> torch.Tensor:
+    s, d, t = det8.shape[0], det8.shape[1], trk8.shape[1]
+    traced = tiles is None and recording()
+    if traced:
+        tiles = torch.zeros(1, dtype=torch.int32, device=det8.device)
     if det8.device.type == "cpu":
-        out = pair_block_plain(det8, trk8, want_iou)
-        if tiles is not None:
-            tiles += tiles_to_run(far_pairs(det8, trk8)).to(torch.int32)
-        return out
-    if det8.device.type != "cuda":
+        out = det8.new_empty((s, d, t))
+        for k in range(s):
+            out[k] = pair_block_plain(det8[k], trk8[k], want_iou)
+            if tiles is not None:
+                tiles += tiles_to_run(far_pairs(det8[k], trk8[k])).to(
+                    torch.int32)
+    elif det8.device.type == "cuda":
+        out = _launch(det8, trk8, want_iou, tiles)
+    else:
         raise ValueError(f"unsupported device {det8.device}")
+    if traced:
+        keep("clip.tiles_run", tiles)
+        keep("clip.tiles", torch.tensor([tile_count(s, d, t)]))
+    return out
+
+
+def _launch(det8, trk8, want_iou, tiles) -> torch.Tensor:
     from .._build import check, library
 
     lib = library()
     det8, trk8 = det8.contiguous(), trk8.contiguous()
-    d, t = det8.shape[0], trk8.shape[0]
-    out = torch.empty((d, t), dtype=_F32, device=det8.device)
+    s, d, t = det8.shape[0], det8.shape[1], trk8.shape[1]
+    out = torch.empty((s, d, t), dtype=_F32, device=det8.device)
     with torch.cuda.device(det8.device):
         code = lib.clip_pairs_launch(
             ctypes.c_void_p(det8.data_ptr()), ctypes.c_void_p(trk8.data_ptr()),
             ctypes.c_void_p(out.data_ptr()),
             ctypes.c_void_p(None if tiles is None else tiles.data_ptr()),
-            d, t, int(want_iou), ctypes.c_void_p(
+            s, d, t, d * 8, t * 8, d * t, int(want_iou), ctypes.c_void_p(
                 torch.cuda.current_stream(det8.device).cuda_stream))
     check(code, "clip_pairs_launch")
     count("clip.launches")
@@ -199,8 +239,8 @@ def clip_pairs(det8: torch.Tensor, trk8: torch.Tensor, want_iou: bool,
 
 def oriented_iou_blockskip(det_box: torch.Tensor, trk_box: torch.Tensor,
                            tiles=None):
-    """Pairwise rotated IoU det[D, 5] x trk[T, 5] -> (iou[D, T],
-    valid[D, T]).  Degenerate (zero-area) rows come out exactly 0/invalid;
+    """Pairwise rotated IoU det[S?, D, 5] x trk[S?, T, 5] -> (iou[S?, D, T],
+    valid[S?, D, T]).  Degenerate (zero-area) rows come out exactly 0/invalid;
     callers still mask padded rows and columns."""
     iou = clip_pairs(clip_columns(det_box), clip_columns(trk_box), True, tiles)
     return iou, iou > 0.0

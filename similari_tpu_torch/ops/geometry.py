@@ -24,6 +24,8 @@ import math
 
 import torch
 
+from ..utils.profiling import count
+
 EPS = 1e-5
 MAX_VERTS = 8  # two convex quads intersect in at most 8 vertices
 _NEG_BIG = -3e38  # the top-k score of a pair outside the radius prune
@@ -290,9 +292,12 @@ def universal_iou(a: torch.Tensor, b: torch.Tensor, oriented: bool = True):
 def universal_iou_matrix(a: torch.Tensor, b: torch.Tensor,
                          oriented: bool = True, neighbors: int = 0):
     """Pairwise IoU a[..., D, 5] x b[..., T, 5] -> (iou[..., D, T],
-    valid[..., D, T]); leading dims (a scene axis) broadcast."""
+    valid[..., D, T]); leading dims (a scene axis) broadcast.  Each call
+    that clips every oriented pair counts `geometry.oriented_dense`."""
     if oriented and 0 < neighbors < b.shape[-2]:
         return _universal_iou_matrix_topk(a, b, neighbors)
+    if oriented:
+        count("geometry.oriented_dense")
     return universal_iou(a[..., :, None, :], b[..., None, :, :], oriented)
 
 

@@ -75,9 +75,11 @@ def new_batched_visual_state(n_scenes: int, capacity: int, history: int,
 def batched_sort_step(cfg: SortConfig):
     """The SORT step over a leading scene axis: (states, det_box
     [S, D, 5], det_conf [S, D], det_valid [S, D], epochs int[S]) ->
-    (states, StepOutput [S, D, ...]).  The sorted clip-kernel matcher
-    works on one scene, so it is turned off here, as in the JAX package."""
-    cfg = dataclasses.replace(cfg, oriented_block_sort=False)
+    (states, StepOutput [S, D, ...]).  `oriented_block_sort` stays as
+    configured: oriented IoU above the sorted path's gates ("auto" on
+    CUDA) matches every scene on x-sorted views through one clip-kernel
+    launch a step (`trackers/sort_step.py::_match_sorted`), where the JAX
+    package's vmapped step scores every pair densely."""
 
     def step(states, det_box, det_conf, det_valid, epochs):
         with span("batched_sort_step"):

@@ -19,16 +19,21 @@ reduction (auction eps, new-track count, overflow, next id, free-slot
 ranks) per scene.  The single-scene call is the S = 1 case.
 
 Oriented IoU matching at T >= 512 and D >= 64 can take the sorted path
-(`_match_sorted`): x-sorted views of both axes, the rotated IoU from the
-tile-skipping clip kernel (`ops/clip.py`), the auction in sorted space.
+(`_match_sorted`): per scene, x-sorted views of both axes, the rotated
+IoU of every scene from one launch of the tile-skipping clip kernel
+(`ops/clip.py`), the auction in sorted space.
 `oriented_block_sort="auto"` takes it when the state is on CUDA; True
 forces it on any device (on the CPU the clip's plain version runs); False
-keeps the dense path; it matches one scene, so the batched steps
-(`parallel/mesh.py`) turn it off.  The fused kernel (`ops/fused_sort.py`) covers the
-aligned-IoU case of the same step for whole frame chunks.
+keeps the dense path.  It runs with or without the scene axis, so the
+batched steps (`parallel/mesh.py`) take it as configured.  The fused
+kernel (`ops/fused_sort.py`) covers the aligned-IoU case of the same step
+for whole frame chunks.
 
 The step's stages are spans of `utils/profiling.py`: `sort_step.weights`,
-`sort_step.auction`, `sort_step.slots_kalman`, `sort_step.state_write`.
+`sort_step.auction`, `sort_step.slots_kalman`, `sort_step.state_write`;
+the sorted path's weights hold `sort_step.sort_scenes` (the sorts and
+gathers) and `sort_step.clip` (the launch), and `sort_step.unsort`
+scatters its results back after the auction.
 """
 
 from __future__ import annotations
@@ -173,36 +178,42 @@ def _match_plain(cfg, state, det_box, det_conf, det_valid, epoch):
 
 
 def _match_sorted(cfg, state, det_box, det_conf, det_valid, epoch):
-    """Oriented-IoU matching on x-sorted views of both axes.
+    """Oriented-IoU matching on x-sorted views of both axes, scene by
+    scene, on [S, ...] tensors with epochs [S].
 
-    The stable sorts (inactive slots and padded rows last) gather the
-    in-radius pairs near the diagonal, so the clip kernel skips most
-    tiles.  The auction runs in sorted space; only the [D] results go back.
-    The same LP as `_match_plain` up to near-tie resolution.
+    One stable sort along the slot axis and one along the row axis
+    (inactive slots and padded rows last) put each scene's boxes in order
+    of x, which gathers its in-radius pairs near its diagonal, so the clip
+    kernel skips most of its tiles.  The auction runs on [S, D, T] in
+    sorted space; only the [S, D] results go back.  Each scene's answer is
+    that of the call on the scene alone (S = 1), and the same LP as
+    `_match_plain` up to near-tie resolution.
     """
     with span("sort_step.weights"):
-        tkey = torch.where(state.active, state.pred_box[:, 0], _BIG)
-        tperm = torch.sort(tkey, stable=True).indices
-        pred_s = state.pred_box[tperm]
-        act_s = state.active[tperm]
-        dkey = torch.where(det_valid, det_box[:, 0], _BIG)
-        dperm = torch.sort(dkey, stable=True).indices
-        det_s = det_box[dperm]
-        dval_s = det_valid[dperm]
-
-        compat = _compat(cfg, act_s, state.last_epoch[tperm], det_s, pred_s,
-                         epoch)
-        conf = torch.clamp(det_conf[dperm], min=cfg.min_confidence)
-        iou, valid = clip.oriented_iou_blockskip(det_s, pred_s)
-        m = iou * conf[:, None]
+        with span("sort_step.sort_scenes"):
+            tkey = torch.where(state.active, state.pred_box[..., 0], _BIG)
+            tperm = torch.sort(tkey, dim=-1, stable=True).indices
+            pred_s = mrg.take_rows(state.pred_box, tperm)
+            act_s = state.active.gather(-1, tperm)
+            last_s = state.last_epoch.gather(-1, tperm)
+            dkey = torch.where(det_valid, det_box[..., 0], _BIG)
+            dperm = torch.sort(dkey, dim=-1, stable=True).indices
+            det_s = mrg.take_rows(det_box, dperm)
+            dval_s = det_valid.gather(-1, dperm)
+            conf_s = det_conf.gather(-1, dperm)
+        compat = _compat(cfg, act_s, last_s, det_s, pred_s, epoch)
+        conf = torch.clamp(conf_s, min=cfg.min_confidence)
+        with span("sort_step.clip"):
+            iou, valid = clip.oriented_iou_blockskip(det_s, pred_s)
+        m = iou * conf[..., :, None]
         valid = valid & (m >= cfg.iou_threshold)
         W = torch.where(compat & valid, m, 0.0)
     with span("sort_step.auction"):
         matched_s, tgt_s = _assign(cfg, W, dval_s, act_s)
-    matched = torch.empty_like(matched_s)
-    matched[dperm] = matched_s
-    tgt = torch.empty_like(tgt_s)
-    tgt[dperm] = tperm[tgt_s]
+    with span("sort_step.unsort"):
+        matched = torch.empty_like(matched_s).scatter_(-1, dperm, matched_s)
+        tgt = torch.empty_like(tgt_s).scatter_(-1, dperm,
+                                               tperm.gather(-1, tgt_s))
     return matched, tgt
 
 
@@ -237,7 +248,7 @@ def sort_step(cfg: SortConfig, state: SortState, det_box: torch.Tensor,
 def _sort_step(cfg: SortConfig, state: SortState, det_box, det_conf,
                det_valid, epoch: torch.Tensor):
     """`sort_step` on [S, ...] tensors with epochs [S]."""
-    s, d = det_box.shape[:2]
+    d = det_box.shape[1]
     t = state.capacity
     spec = cfg.kalman_spec
     det_valid = det_valid.bool()
@@ -249,17 +260,9 @@ def _sort_step(cfg: SortConfig, state: SortState, det_box, det_conf,
             state, active=state.active
             & (epoch[:, None] - state.last_epoch <= cfg.max_idle_epochs))
 
-    if use_sorted_path(cfg, d, t, state.device):
-        if s != 1:
-            raise ValueError("the sorted path matches one scene; batched "
-                             "steps need oriented_block_sort=False")
-        matched, tgt = _match_sorted(
-            cfg, map_tensors(lambda a: a[0], state), det_box[0], det_conf[0],
-            det_valid[0], epoch[0])
-        matched, tgt = matched[None], tgt[None]
-    else:
-        matched, tgt = _match_plain(cfg, state, det_box, det_conf, det_valid,
-                                    epoch)
+    match = (_match_sorted if use_sorted_path(cfg, d, t, state.device)
+             else _match_plain)
+    matched, tgt = match(cfg, state, det_box, det_conf, det_valid, epoch)
 
     with span("sort_step.slots_kalman"):
         # slot allocation: the r-th new detection takes the r-th free slot

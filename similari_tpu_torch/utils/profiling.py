@@ -46,7 +46,9 @@ _KEPT: Dict[str, List[torch.Tensor]] = {}
 _OPEN: List["span"] = []
 
 
-def _recording() -> bool:
+def recording() -> bool:
+    """Whether a profiler records: what a wrapper asks before it makes
+    device tensors only for `keep`."""
     return _autograd_profiler._is_profiler_enabled
 
 
@@ -66,7 +68,7 @@ class span:
     def __enter__(self):
         self._child = self._wait_ns = self._syncs = 0
         self._range = None
-        if _recording():
+        if recording():
             self._range = record_function(self.name)
             self._range.__enter__()
         _OPEN.append(self)
@@ -134,7 +136,7 @@ def counter(name: str) -> int:
 def keep(name: str, tensor: torch.Tensor) -> None:
     """Hold `tensor` (no copy) under `name` while a profiler records, for
     `summary()` to sum; otherwise do nothing."""
-    if _recording():
+    if recording():
         _KEPT.setdefault(name, []).append(tensor)
 
 

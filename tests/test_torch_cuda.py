@@ -477,6 +477,67 @@ def test_clip_kernel_rejects_bad_inputs(cuda):
         cl.clip_pairs(x, x, True, torch.zeros(1, dtype=torch.int32))
 
 
+@pytest.mark.parametrize("want_iou", [True, False])
+def test_batched_clip_launch_equals_launches_per_scene(cuda, want_iou):
+    """One launch over S=5 scenes (D=70, T=535: neither a multiple of 32;
+    scene 2 all padding, scene 4 all far apart) is bit-equal, scene by
+    scene, to a launch on each scene alone, and runs their tiles."""
+    rng = np.random.default_rng(11)
+    s, d, t = 5, 70, 535
+    det = np.stack([random_boxes(rng, d, 400.0) for _ in range(s)])
+    trk = np.stack([random_boxes(rng, t, 400.0) for _ in range(s)])
+    det[2], trk[2] = 0.0, 0.0
+    trk[4, :, 0] += 1e5
+    det8 = cl.clip_columns(torch.tensor(det, device=cuda))
+    trk8 = cl.clip_columns(torch.tensor(trk, device=cuda))
+    tiles = torch.zeros(1, dtype=torch.int32, device=cuda)
+    before = profiling.counter("clip.launches")
+    k = cl.clip_pairs(det8, trk8, want_iou, tiles)
+    assert profiling.counter("clip.launches") == before + 1
+    assert k.shape == (s, d, t)
+    one_tiles = torch.zeros(1, dtype=torch.int32, device=cuda)
+    for j in range(s):
+        assert torch.equal(k[j], cl.clip_pairs(det8[j], trk8[j], want_iou,
+                                               one_tiles)), j
+    assert int(tiles) == int(one_tiles)
+    assert float(k[2].abs().max()) == 0.0 and float(k[4].abs().max()) == 0.0
+    assert int(cl.tiles_to_run(cl.far_pairs(det8[4], trk8[4]))) == 0
+    assert float(k[0].max()) > 0.0
+
+
+def test_batched_sorted_sort_step_is_each_scene_alone(cuda):
+    """The batched SORT step on CUDA takes the sorted path for oriented
+    scenes at its gate: one clip launch a step, no dense oriented IoU, and
+    each scene's outputs and state those of the single-scene step."""
+    s, n = 3, 4
+    streams = [oriented_stream(20 + j, n, 64, spread=2500.0)
+               for j in range(s)]
+    box, conf, valid = (torch.tensor(np.stack(x, 1), device=cuda)
+                        for x in zip(*streams))
+    cfg = SortConfig(method="iou", assignment="auction", max_idle_epochs=5,
+                     oriented=True)
+    step = pmesh.batched_sort_step(cfg)
+    st = pmesh.new_batched_state(s, 512, 1, device=cuda)
+    one = [new_sort_state(512, 1, device=cuda) for _ in range(s)]
+    from similari_tpu_torch.trackers.sort_step import sort_step
+    clips = profiling.counter("clip.launches")
+    dense = profiling.counter("geometry.oriented_dense")
+    for i in range(n):
+        ep = torch.full((s,), i + 1, dtype=torch.int32, device=cuda)
+        st, out = step(st, box[i], conf[i], valid[i], ep)
+        for j in range(s):
+            one[j], o = sort_step(cfg, one[j], box[i, j], conf[i, j],
+                                  valid[i, j], i + 1)
+            for f in ("slot", "track_id", "is_new", "length"):
+                assert torch.equal(getattr(o, f), getattr(out, f)[j]), f
+    assert profiling.counter("clip.launches") == clips + n * (1 + s)
+    assert profiling.counter("geometry.oriented_dense") == dense
+    for j in range(s):
+        for f in ("active", "track_id", "length", "last_epoch", "next_id"):
+            assert torch.equal(getattr(one[j], f), getattr(st, f)[j]), f
+        assert torch.equal(one[j].kf.mean_pos, st.kf.mean_pos[j])
+
+
 def _plain_clip(det8, trk8, want_iou, tiles=None):
     return cl.pair_block_plain(det8, trk8, want_iou)
 

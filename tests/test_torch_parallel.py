@@ -322,16 +322,30 @@ def test_batched_visual_scan_scenes_are_independent_in_other_configs(
 
 
 def test_batched_sort_step_turns_the_sorted_path_off():
+    """The batched step once turned the sorted path off; now, with
+    oriented_block_sort=True, it keeps it: one clip call over both scenes
+    a step and no dense oriented IoU, and two identical scenes get
+    identical results (each scene against the single-scene step:
+    tests/test_torch_oriented_batched.py)."""
+    from similari_tpu_torch.utils import profiling
+
     cfg = SortConfig(method="iou", oriented=True, oriented_block_sort=True,
                      assignment="auction")
     box, conf, valid = oriented_stream(3, 1, 64, spread=2500.0)
     st = pmesh.new_batched_state(2, 512, 1, device=CPU)
     args = [torch.tensor(np.stack([x[0]] * 2)) for x in (box, conf, valid)]
-    _, out = pmesh.batched_sort_step(cfg)(st, *args, torch.tensor([1, 1]))
+    def clip_calls():
+        return profiling.summary()["spans"].get(
+            "sort_step.clip", {"calls": 0})["calls"]
+
+    dense, clips = profiling.counter("geometry.oriented_dense"), clip_calls()
+    bst, out = pmesh.batched_sort_step(cfg)(st, *args, torch.tensor([1, 1]))
+    assert profiling.counter("geometry.oriented_dense") == dense
+    assert clip_calls() == clips + 1
     assert out.track_id.shape == (2, 64)
-    with pytest.raises(ValueError, match="sorted path"):
-        from similari_tpu_torch.trackers.sort_step import sort_step
-        sort_step(cfg, st, *args, 1)
+    assert torch.equal(out.track_id[0], out.track_id[1])
+    assert torch.equal(out.slot[0], out.slot[1])
+    assert torch.equal(bst.kf.mean_pos[0], bst.kf.mean_pos[1])
 
 
 # --------------------------------------------------------------------------
