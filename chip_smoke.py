@@ -248,6 +248,18 @@ Phases:
      holds the counters to a count holds it to one launch a general
      VisualSORT step on the card, and those launches go into the
      `kernels` line.
+ 29. (run after phase 28) the fallback auction kernel
+     (`ops/assignment.py::auction_fb_cuda`, through `solve_voting`)
+     against the plain rounds at the four stream cells' shapes
+     (S=1024, D=128, T=200; S=4096, D=128, T=200; S=256, D=256, T=512;
+     S=256, D=640, T=1024) on tracking-shaped IoU weights
+     (`torch_parity.tracking_weights`): columns bit-equal and the same
+     `auction.rounds`; the kernel's device ms a launch, its CUDA-event ms
+     a call, the plain rounds' ms and the byte bound.  Its launches are a
+     counter like the others: every phase that holds the counters to a
+     count holds it to one launch a general SORT or VisualSORT step on
+     the card with the auction (phase 6 too), and those launches go into
+     the `kernels` line.
 
 The fused-kernel checks take the main path's configurations from the
 runners' own builders, the other configurations and the crowded stream
@@ -304,6 +316,7 @@ from similari_tpu_torch.eval.mot import (  # noqa: E402
     sequence_sort_config, sequence_visual_config)
 from similari_tpu_torch.motchallenge import (  # noqa: E402
     KitConfig, TrackerConfig, run_config)
+from similari_tpu_torch.ops import assignment as asg  # noqa: E402
 from similari_tpu_torch.ops import clip as cl  # noqa: E402
 from similari_tpu_torch.ops import fused_sort as fs  # noqa: E402
 from similari_tpu_torch.ops import fused_visual as fv  # noqa: E402
@@ -337,7 +350,7 @@ from similari_tpu_torch.utils.nms import HOST_MAX_BOXES  # noqa: E402
 from similari_tpu_torch.utils.pad import pad_pow2  # noqa: E402
 from torch_parity import (  # noqa: E402
     ATOL, EXACT_BOX_COLUMNS, RTOL, VISUAL_CONFIGS, churn_stream,
-    crowded_stream, solutions_tie, write_mot_det)
+    crowded_stream, solutions_tie, tracking_weights, write_mot_det)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12  # non-tensor float32
@@ -1134,10 +1147,12 @@ def phase_oriented_sort(args, dev):
     zero_counts()
     with DeviceTimer(dev) as timer:
         state, out = sort_scan(cfg, st0, box, conf, valid, 1)
-    launches = read_counts()["clip_pairs"]
+    counts = read_counts()
+    launches = counts["clip_pairs"]
     if launches != s:
         raise AssertionError(f"oriented SORT: {launches} clip launches for "
                              f"{s} frames")
+    expect_counts("oriented SORT", counts, {"clip_pairs": s, "auction": s})
     if bool(out.overflow.any()):
         raise AssertionError("oriented SORT overflowed its 2000 slots")
     n = min(PARITY_FRAMES, s)
@@ -1389,6 +1404,68 @@ def phase_votes(dev, seed):
     return entry
 
 
+# phase 29: the fallback auction kernel at the stream cells' shapes
+# (perfbench/mixes: scenes, padded rows, slots)
+AUCTION_CELLS = (("vsort512_stream_s1024", 1024, 128, 200),
+                 ("sort_iou_stream_s4096", 4096, 128, 200),
+                 ("vsort512_crowd_s256", 256, 256, 512),
+                 ("sort_obb500_stream_s128", 256, 640, 1024))
+AUCTION_THETA = 0.3  # the new-track threshold of every cell's config
+
+
+def phase_auction(dev, seed):
+    """Phase 29: the auction kernel through `solve_voting` against the
+    plain rounds on the same masked weights at the four stream cells'
+    shapes: columns bit-equal and the same rounds a call; the kernel's
+    device ms a launch (profiler) and CUDA-event ms a call beside the
+    byte bound (the weights read once, the columns written once) and the
+    plain rounds' ms a call.  Returns the kernels line's entry, from the
+    second cell (the largest share of a step)."""
+    entry = None
+    for i, (cell, s, d, t) in enumerate(AUCTION_CELLS):
+        w, rv, cv = (torch.as_tensor(x, device=dev)
+                     for x in tracking_weights(seed + i, s, d, t))
+        masked = asg.edges(w, rv, cv)
+
+        def kernel():
+            return asg.solve_voting(w, AUCTION_THETA, rv, cv, "auction")
+
+        def plain():
+            return asg.auction_lap_fallback_plain(masked, AUCTION_THETA)
+
+        r0 = profiling.counter("auction.rounds")
+        got = kernel()
+        r1 = profiling.counter("auction.rounds")
+        want = plain()
+        r2 = profiling.counter("auction.rounds")
+        if not torch.equal(got, want):
+            raise AssertionError(f"auction[{cell}]: the kernel's columns and "
+                                 "the plain rounds' differ")
+        if r1 - r0 != r2 - r1:
+            raise AssertionError(f"auction[{cell}]: {r1 - r0} rounds counted "
+                                 f"by the kernel, {r2 - r1} by the plain "
+                                 "rounds")
+        matched = int((got >= d).sum())
+        dev_ms, seen = device_ms_per_call(kernel, "auction_fb_kernel", 20)
+        k_ms = time_ms(dev, kernel, 50)
+        p_ms = time_ms(dev, plain, 3)
+        bound = (w.numel() * 4 + got.numel() * 8) / HBM_BYTES_PER_S * 1e3
+        log(f"[29] auction[{cell}] S={s} D={d} T={t}: bit-equal, {matched} "
+            f"rows matched, {r1 - r0} rounds; kernel device {dev_ms:.5f} "
+            f"ms/launch ({seen}), call {k_ms:.5f} ms; plain rounds "
+            f"{p_ms:.4f} ms; bound {bound:.5f} ms (bytes)")
+        if i == 1:
+            entry = dict(name="auction_fb", route="cuda",
+                         source="similari_tpu_torch/csrc/auction.cu",
+                         replaces="none (the general steps' fallback "
+                         "auction; XLA in the JAX package)", launches=0,
+                         max_abs_err=0.0, ms=k_ms, device_ms=dev_ms,
+                         plain_ms=p_ms, bound_ms=bound, bound_by="bytes",
+                         library_ms=None)
+        del w, rv, cv, masked, got, want
+    return entry
+
+
 def bench_visual_config(**kw):
     """bench.py's VisualSORT bench config (`bench.py:383-388`)."""
     return VisualConfig(**dict(dict(
@@ -1500,13 +1577,14 @@ def phase_batched_visual(args, dev):
             with DeviceTimer(dev) as timer:
                 st_pl, out_pl = run(plain_step, start, n)
             expect_counts("batched VisualSORT, plain", read_counts(),
-                          {"visual_votes": n})
+                          {"visual_votes": n, "auction": n})
         else:
             with DeviceTimer(dev) as timer:
                 st_in, out_in = run(inplace_step, start, n)
             counts = read_counts()
             expect_counts("batched VisualSORT, in place", counts,
-                          {"lane_merge": 2 * n, "visual_votes": n})
+                          {"lane_merge": 2 * n, "visual_votes": n,
+                           "auction": n})
             launches = counts["lane_merge"]
         secs[form].append(timer.seconds)
     t_in, t_pl = (float(np.median(secs[f])) for f in ("in-place", "plain"))
@@ -1701,11 +1779,13 @@ COUNTERS = {"fused_sort": "fused_sort.launches",
             "gallery_dots": "gallery_dots.launches",
             "clip_pairs": "clip.launches",
             "lane_merge": "merge_inplace.launches",
-            "visual_votes": "visual_votes.launches"}
+            "visual_votes": "visual_votes.launches",
+            "auction": "auction.launches"}
 _COUNT_BASE = {}
-# the votes kernel's launches that a phase held to its count: one a general
-# VisualSORT step on the card (the kernels line's `launches`)
-HELD = {"visual_votes": 0}
+# the votes and auction kernels' launches that a phase held to its count:
+# one a general VisualSORT step on the card, and one a general SORT or
+# VisualSORT step with the auction (the kernels line's `launches`)
+HELD = {"visual_votes": 0, "auction": 0}
 OBJECT_FRAMES = 8  # phase 13's frames through `predict` on box objects
 API_PROFILED_FRAMES = 16  # calls under torch.profiler for the idle share
 
@@ -1725,7 +1805,8 @@ def expect_counts(label, counts, want):
     wrong = {k: v for k, v in counts.items() if v != want.get(k, 0)}
     if wrong:
         raise AssertionError(f"{label}: launches {counts}, expected {want}")
-    HELD["visual_votes"] += counts["visual_votes"]
+    for k in HELD:
+        HELD[k] += counts[k]
 
 
 def api_idle_share(dev, make, call, frames):
@@ -1794,7 +1875,7 @@ def phase_sort_api(args, dev, scan):
         check_same(f"Sort frame {f}: lengths", length,
                    scan_out.length[f].cpu().numpy())
     counts = read_counts()
-    expect_counts("Sort", counts, {"clip_pairs": s})
+    expect_counts("Sort", counts, {"clip_pairs": s, "auction": s})
     st = tr._scenes[0].state
     cap = st.capacity
     t = min(cap, OT)  # the slots both stores have; the others inactive
@@ -1901,7 +1982,7 @@ def phase_visual_api(args, dev, dets, feats, step_out, oa_out):
         visual_minimal_track_length=1, max_idle_epochs=10,
         kept_history_length=1, visual_max_observations=K)
     tr, ids, secs, counts = run_visual_api(dev, opts, n, arrays.__getitem__)
-    expect_counts("VisualSort", counts, {"visual_votes": n})
+    expect_counts("VisualSort", counts, {"visual_votes": n, "auction": n})
     for i, f in enumerate(frames):
         check_same(f"VisualSort frame {f}: ids", ids[i],
                    [r[0] for r in step_out[f]])
@@ -1924,7 +2005,7 @@ def phase_visual_api(args, dev, dets, feats, step_out, oa_out):
             dev, opts, OA_FRAMES, lambda f: (box[f], ones, feat[f]))
     tr, dev_ids, dev_secs, counts = runs["device"]
     expect_counts("VisualSort own-area", counts,
-                  {"visual_votes": OA_FRAMES})
+                  {"visual_votes": OA_FRAMES, "auction": OA_FRAMES})
     cap = tr._scenes[0].state.capacity
     # the API retires idle tracks by auto-waste, not in the step: the
     # same config without recycle_idle, at the capacity the API grew to
@@ -2050,7 +2131,7 @@ def phase_batch_api(args, dev, visual_rate, sort_rate):
         lambda i: (boxes[i], ones, ones > 0, feat, ones > 0, ones, ones,
                    ep(i)))
     expect_counts("BatchVisualSort", counts,
-                  {"lane_merge": 2 * n, "visual_votes": n})
+                  {"lane_merge": 2 * n, "visual_votes": n, "auction": n})
     log(f"[16] BatchVisualSort API S={BS} x {BD} objects, F={F} bf16, from "
         f"128 slots (grown to {cap}), {n} frames: lengths, is_new, voting "
         f"types and every slot's state equal to phase 10's in-place step "
@@ -2082,7 +2163,7 @@ def phase_batch_api(args, dev, visual_rate, sort_rate):
         "BatchSort", dev, tracker, requests, mesh.batched_sort_step(cfg),
         mesh.new_batched_state(BS, BT, 1, device=dev),
         lambda i: (sboxes[i], ones, ones > 0, ep(i)))
-    expect_counts("BatchSort", counts, {})
+    expect_counts("BatchSort", counts, {"auction": n})
     log(f"[16] BatchSort API S={BS} x {BD} objects from 128 slots (grown to "
         f"{cap}), {n} frames: lengths, is_new and every slot's state equal "
         f"to phase 12's step every frame, ids a fixed one-to-one map per "
@@ -2376,7 +2457,8 @@ def phase_host_sort(dev):
             host_ms, dev_ms, ties, _, clips = compare_engines(
                 f"Sort {'oriented' if oriented else 'aligned'} n={n}",
                 host_tr, dev_tr, frames, dev, False,
-                lambda i: {"clip_pairs": 1} if clip else {})
+                lambda i: {"clip_pairs": 1, "auction": 1} if clip
+                else {"auction": 1})
             launches += clips
             label = (f"Sort IoU 0.3 {'oriented' if oriented else 'aligned'} "
                      f"n={n}")
@@ -2403,7 +2485,7 @@ def phase_host_visual(dev):
         host_tr, dev_tr = make("host"), make("device")
         host_ms, dev_ms, ties, votes, _ = compare_engines(
             f"VisualSort n={n}", host_tr, dev_tr, frames, dev, True,
-            lambda i: {"visual_votes": 1})
+            lambda i: {"visual_votes": 1, "auction": 1})
         if votes == 0:
             raise AssertionError(f"VisualSort n={n}: no visual match")
         label = f"VisualSort {HOST_VISUAL_DIM}-d f32 euclidean(10) n={n}"
@@ -2426,7 +2508,8 @@ def phase_host_visual(dev):
         check_same(f"bf16 VisualSort call {i}: ids",
                    a.predict_arrays(0, *fr)[1], b.predict_arrays(0, *fr)[1])
     expect_counts("bf16 VisualSort", read_counts(),
-                  {"visual_votes": 2 * len(frames)})
+                  {"visual_votes": 2 * len(frames),
+                   "auction": 2 * len(frames)})
     st = a._scenes[0].state
     if a._scenes[0].host or st.feats.dtype != torch.bfloat16 or \
             st.feats.device.type != dev.type:
@@ -2478,7 +2561,8 @@ def compare_batches(label, host_tr, dev_tr, requests, dev):
         rh, h_ms, h_counts = counted(dev, lambda: batch_call(host_tr, scenes))
         rd, d_ms, d_counts = counted(dev, lambda: batch_call(dev_tr, scenes))
         expect_counts(f"{label} host request {i}", h_counts, {})
-        expect_counts(f"{label} device request {i}", d_counts, {})
+        expect_counts(f"{label} device request {i}", d_counts,
+                      {"auction": 1})
         if i >= HOST_WARMUP:
             host_ms.append(h_ms)
             dev_ms.append(d_ms)
@@ -2772,7 +2856,7 @@ def phase_sharded_visual(args, dev, gmesh, visual_ref, visual_rate, card):
         st, ids, new, ovf = scan(mesh.shard_batched_state(st0, gmesh), boxes,
                                  ones, tru, feats, tru, ones, ones, ep0)
     expect_counts("sharded VisualSORT scan", read_counts(),
-                  {"lane_merge": 2 * n, "visual_votes": n})
+                  {"lane_merge": 2 * n, "visual_votes": n, "auction": n})
     st_ref, out_ref = visual_ref
     same_tensors("sharded VisualSORT scan ids", [ids],
                  [torch.stack([o.track_id for o in out_ref])])
@@ -2816,7 +2900,7 @@ def phase_sharded_visual(args, dev, gmesh, visual_ref, visual_rate, card):
             raise AssertionError(f"trace(): {len(traces)} files, none "
                                  "naming lane_merge_kernel")
     expect_counts("sharded VisualSORT steps", read_counts(),
-                  {"lane_merge": 2 * n, "visual_votes": n})
+                  {"lane_merge": 2 * n, "visual_votes": n, "auction": n})
     rates = timer.summary()
     log(f"[18] sharded_visual_step frame by frame: ids and voting types "
         f"equal to phase 10's every frame; StepTimer {rates['scenes_per_sec']}"
@@ -2846,7 +2930,7 @@ def phase_sharded_sort(args, dev, gmesh, sort_ref, sort_rate, card):
     with DeviceTimer(dev) as timer:
         st, ids, new, ovf = scan(mesh.new_batched_state(s, BT, 1, device=dev),
                                  boxes, conf, conf > 0, ep0)
-    expect_counts("sharded SORT scan", read_counts(), {})
+    expect_counts("sharded SORT scan", read_counts(), {"auction": n})
     st_ref, ids_ref, ovf_ref = sort_ref
     same_tensors("sharded SORT scan ids", [ids], [ids_ref])
     if int(ovf) != int(ovf_ref.sum()):
@@ -2874,7 +2958,8 @@ def phase_sharded_sort(args, dev, gmesh, sort_ref, sort_rate, card):
             oconf, oconf > 0, oep)
     clip = read_counts()["clip_pairs"]
     expect_counts("oriented sharded SORT scan", read_counts(),
-                  {"clip_pairs": ORIENTED_SHARDED_FRAMES})
+                  {"clip_pairs": ORIENTED_SHARDED_FRAMES,
+                   "auction": ORIENTED_SHARDED_FRAMES})
     rst, (rids, rovf) = mesh.batched_sort_scan(ocfg)(
         mesh.new_batched_state(ORIENTED_SCENES, OT, 1, device=dev), obox,
         oconf, oconf > 0, oep)
@@ -3190,7 +3275,8 @@ def expect_launched(label, counts, names):
             v for k, v in counts.items() if k not in names):
         raise AssertionError(f"{label}: launches {counts}, expected "
                              f"{sorted(names)} only")
-    HELD["visual_votes"] += counts["visual_votes"]
+    for k in HELD:
+        HELD[k] += counts[k]
 
 
 @contextlib.contextmanager
@@ -3299,8 +3385,8 @@ def zero_height_api(dev, frames):
         got, ms = timed(dev, lambda: run(make(dev, "auction")))
         counts = read_counts()
         expect_counts(f"zero heights, {name}", counts,
-                      {"visual_votes": len(frames)} if name == "VisualSort"
-                      else {})
+                      {"visual_votes": len(frames), "auction": len(frames)}
+                      if name == "VisualSort" else {"auction": len(frames)})
         want, cpu_ms = timed(cpu, lambda: run(make(cpu, "native")))
         if got != want:
             bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
@@ -3582,12 +3668,12 @@ def phase_kit(dev):
             zero_counts()
             res, fps, ids = kit_run(data, Path(tmp) / f"{label}-cuda", kind,
                                     params, dev.type)
-            # a VisualSORT step a frame with detections, each on the card
+            # a general step a frame with detections, each on the card
+            steps = sum(sum(1 for rows in dets.values() if len(rows))
+                        for _, dets, _ in seqs)
             expect_counts(f"kit {label}", read_counts(),
-                          {"visual_votes": sum(
-                              sum(1 for rows in dets.values() if len(rows))
-                              for _, dets, _ in seqs)}
-                          if kind == "visual_sort" else {})
+                          {"visual_votes": steps, "auction": steps}
+                          if kind == "visual_sort" else {"auction": steps})
             res_c, fps_c, ids_c = kit_run(data, Path(tmp) / f"{label}-cpu",
                                           kind, params, "cpu")
             for seq, m in res.items():
@@ -3862,9 +3948,16 @@ def phase_last_forms(dev):
     profiles = form_profiles(dev, stream, nms_in, quads)
     counts = read_counts()
     # 23c's visual step: S / chunk slices a frame, 2 warm-up frames and two
-    # runs of CHUNK_FRAMES for each chunk
-    expect_counts("phase 23", counts, {"visual_votes": sum(
-        (2 + 2 * CHUNK_FRAMES) * max(BS // c, 1) for c in CHUNKS)})
+    # runs of CHUNK_FRAMES for each chunk; its SORT step the same; 23a's
+    # two forms: 2 warm-up frames and TOPK_FRAMES, then on the card three
+    # runs of TOPK_CPU_FRAMES in `form_profiles`
+    chunk_steps = sum((2 + 2 * CHUNK_FRAMES) * max(BS // c, 1)
+                      for c in CHUNKS)
+    topk_steps = 2 * (2 + TOPK_FRAMES) + (
+        2 * 3 * TOPK_CPU_FRAMES if dev.type == "cuda" else 0)
+    expect_counts("phase 23", counts, {"visual_votes": chunk_steps,
+                                       "auction": 2 * chunk_steps
+                                       + topk_steps})
     topk_sort_cpu(run, stream)
     box = stream[0]
     partners = max(max_partners(b, b) - 1 for b in box[:TOPK_CPU_FRAMES])
@@ -3931,11 +4024,12 @@ BENCH_ROWS = (
     ("sort_iou_100_pallas", 64, {"fused_sort": 2}),
     ("visual_sort_100x512_pallas", 64, {"fused_visual": 2,
                                         "gallery_dots": 2}),
-    ("sort_iou_oriented_100", 16, {}),
-    ("sort_iou_oriented_500", 16, {"clip_pairs": 16}),
+    ("sort_iou_oriented_100", 16, {"auction": 16}),
+    ("sort_iou_oriented_500", 16, {"clip_pairs": 16, "auction": 16}),
     ("nms_oriented_100", 16, {}),
     ("nms_oriented_1000", 16, {"clip_pairs": 16}),
-    ("batch_visual_64x100x512", 8, {"lane_merge": 16, "visual_votes": 8}),
+    ("batch_visual_64x100x512", 8, {"lane_merge": 16, "visual_votes": 8,
+                                    "auction": 8}),
 )
 BENCH_CMDS = (
     ("bench.py BENCH_FAST=1", ["similari_tpu_torch.bench"],
@@ -4130,9 +4224,10 @@ def adversarial_on_card(dev):
 
 def check_adversarial(scores, preds, counts, card):
     # the fused axis launches the fused kernels, the card's other
-    # VisualSORT axes the votes kernel
+    # VisualSORT axes the votes kernel, its auction axes the auction kernel
     expect_launched("[25] the adversarial suite", counts,
-                    ("fused_visual", "gallery_dots", "visual_votes"))
+                    ("fused_visual", "gallery_dots", "visual_votes",
+                     "auction"))
     if counts["fused_visual"] != counts["gallery_dots"]:
         raise AssertionError(f"[25] launches {counts}: one product a chunk")
     worst = 0.0
@@ -4483,7 +4578,8 @@ def main(argv=None) -> int:
     kernels.append(clip_entry)
     phase_merge(args, dev)
     votes_entry = phase_votes(dev, args.seed)
-    stamp("phases 8-9 and 28 done")
+    auction_entry = phase_auction(dev, args.seed)
+    stamp("phases 8-9, 28 and 29 done")
     merge_entry, visual_rate, visual_ref = phase_batched_visual(args, dev)
     kernels.append(merge_entry)
     step_out = phase_general_visual(args, dev, dets, feats, fused_out)
@@ -4549,6 +4645,12 @@ def main(argv=None) -> int:
         f"{votes_entry['launches']} (one a general VisualSORT step on the "
         f"card, phases 10, 15-18, 20 and 22-25; the processes of phases "
         f"24-26 not counted)")
+    auction_entry["launches"] = HELD["auction"]
+    kernels.append(auction_entry)
+    log(f"[29] auction kernel launches held to their phases' counts: "
+        f"{auction_entry['launches']} (one a general SORT or VisualSORT "
+        f"step with the auction on the card, phases 6, 10, 13, 15-18, 20 "
+        f"and 22-25; the processes of phases 24-26 not counted)")
     log(json.dumps({"kernels": kernels, "not_ported": []}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -37,7 +37,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("fused_track.cu", "gallery_dots.cu", "clip.cu", "merge.cu",
-           "visual_votes.cu")
+           "visual_votes.cu", "auction.cu")
 HEADERS = ("fused_track.cuh",)
 # --fmad=false: no multiply-add contraction, so the kernels round every
 # product and sum exactly as their plain PyTorch versions do, and the clip
@@ -76,6 +76,12 @@ VOTES_ARGTYPES = ([_P] * 13 + [ctypes.c_longlong] * 2 + [_I] * 6 + [_F]
                   + [_I] * 3 + [_P])
 # visual_votes_plan: s, d, t, column scratch given; plan[3]
 VOTES_PLAN_ARGTYPES = [_I] * 4 + [ctypes.POINTER(_I)]
+# csrc/auction.cu: weights, row and column valid, out, scene rounds,
+# rounds counter, column scratch; s, d, t, cap, min rounds; theta, 1 / div;
+# the plan's threads, lanes, storage and shared bytes; vec; stream
+AUCTION_ARGTYPES = [_P] * 7 + [_I] * 5 + [_F] * 2 + [_I] * 5 + [_P]
+# auction_fb_plan: s, d, t; plan[4]
+AUCTION_PLAN_ARGTYPES = [_I] * 3 + [ctypes.POINTER(_I)]
 
 
 # the host library's sources and headers, with the flags of the JAX
@@ -218,6 +224,12 @@ def library() -> ctypes.CDLL:
         lib.visual_votes_launch.restype = ctypes.c_int
         lib.visual_votes_plan.argtypes = VOTES_PLAN_ARGTYPES
         lib.visual_votes_plan.restype = ctypes.c_int
+        lib.auction_fb_launch.argtypes = AUCTION_ARGTYPES
+        lib.auction_fb_launch.restype = ctypes.c_int
+        lib.auction_fb_plan.argtypes = AUCTION_PLAN_ARGTYPES
+        lib.auction_fb_plan.restype = ctypes.c_int
+        lib.auction_fb_scratch_bytes.argtypes = [_I, _I]
+        lib.auction_fb_scratch_bytes.restype = ctypes.c_longlong
         _LIB.lib = lib
     return _LIB.lib
 

@@ -10,11 +10,19 @@ col >= D is track col - D.
 * `auction_lap_fallback` / `auction_lap`: the Jacobi forward auction of the
   JAX package, round for round (3 rounds, then more until every row is
   assigned or 3000 rounds ran).  Ties go to the first column and the lowest
-  row.  It is tensor code on the device of its input, with one host check
-  per round after the third (the wait `auction.converged`; the counter
-  `auction.rounds` counts every round).  A leading scene axis [S, D, N]
-  solves S problems at once, each with its own eps, as the JAX package's
-  vmap does.
+  row.  A leading scene axis [S, D, N] solves S problems at once, each with
+  its own eps, as the JAX package's vmap does.
+  - On the card `auction_lap_fallback` (and `solve_voting`'s auction) is
+    one launch of the CUDA kernel `csrc/auction.cu::auction_fb_kernel`
+    (counter `auction.launches`): each scene bids to convergence on the
+    device, with no host check, and the rounds are a device counter
+    (`utils/profiling.py::device_counter`).
+  - On the CPU it runs the plain rounds, `auction_lap_fallback_plain`:
+    tensor code on the device of its input, with one host check per round
+    after the third (the wait `auction.converged`).  The two give the same
+    columns bit for bit, and the same `auction.rounds` a call: max(3, the
+    rounds until no row of any scene is pending).
+  - `auction_lap` (the augmented matrix) is tensor code everywhere.
 * `hungarian_host`: the exact optimum by scipy's `linear_sum_assignment`;
   the matrix goes to the host and the columns come back.
 * `native_host`: the exact optimum by the port's host C++ solver
@@ -23,17 +31,20 @@ col >= D is track col - D.
   thread pool, and the columns come back.
 
 The JAX package's general step solves the auction in XLA, not in a Pallas
-kernel, so it stays plain PyTorch here.
+kernel; the fallback auction's CUDA kernel replaces the eager rounds'
+passes and host checks on the card.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+import functools
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..utils.profiling import count, wait
+from ..utils.profiling import count, device_counter, wait
 
 NEG = -1e30
 MAX_AUCTION_ROUNDS = 3000
@@ -149,7 +160,19 @@ def auction_lap_fallback(weights: torch.Tensor, theta: float,
     """Auction on the SORT voting LP (real-column weights [S?, D, T], 0 =
     no edge) with private fallback columns.  Returns per row the column in
     the augmented convention.  eps is per scene, as under the JAX
-    package's vmap."""
+    package's vmap.  A CUDA tensor launches the kernel; a CPU tensor runs
+    `auction_lap_fallback_plain`."""
+    if _device_kind(weights) == "cuda":
+        return auction_fb_cuda(weights, theta, max_iters)
+    return auction_lap_fallback_plain(weights, theta, max_iters)
+
+
+def auction_lap_fallback_plain(weights: torch.Tensor, theta: float,
+                               max_iters: int = MAX_AUCTION_ROUNDS
+                               ) -> torch.Tensor:
+    """The plain rounds of `auction_lap_fallback` on the weights' device:
+    UNROLLED_ROUNDS rounds, then a host check (the wait
+    `auction.converged`) before each further round."""
     return _scenes(weights, _auction_lap_fallback, theta, max_iters)
 
 
@@ -165,6 +188,112 @@ def _auction_lap_fallback(weights, theta, max_iters):
         lambda r2c: r2c == -1)
     rows = torch.arange(d, device=dev)
     return torch.where(row_to_col >= 0, d + row_to_col, rows)
+
+
+def _device_kind(x: torch.Tensor) -> str:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    return x.device.type
+
+
+def f32(x: float) -> float:
+    """x rounded to float32, as PyTorch rounds a Python number it compares
+    with, clamps or divides a float32 tensor by (out of range: infinite)."""
+    with np.errstate(over="ignore"):
+        return float(np.float32(x))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(device: int, s: int, d: int, t: int) -> Tuple[int, int, int, int]:
+    """(threads, lanes a row, storage, shared bytes) of the kernel at
+    (s, d, t) on the card `device`: the library's `auction_fb_plan`."""
+    from .._build import library
+
+    plan = (ctypes.c_int * 4)()
+    if library().auction_fb_plan(s, d, t, plan) != 0:
+        raise ValueError(
+            f"the auction kernel takes at most ~9,200 rows a scene (its "
+            f"rows' state lives in shared memory); got D={d}; use "
+            f"assignment='native' or 'hungarian'")
+    return tuple(plan)
+
+
+def auction_fb_cuda(weights: torch.Tensor, theta: float,
+                    max_iters: int = MAX_AUCTION_ROUNDS,
+                    row_valid: Optional[torch.Tensor] = None,
+                    col_valid: Optional[torch.Tensor] = None,
+                    scene_rounds: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """`auction_lap_fallback` of f32 CUDA weights [S?, D, T] in one launch
+    of `auction_fb_kernel`; with the bool masks row_valid [S?, D] and
+    col_valid [S?, T] the weights are `edges(weights, row_valid,
+    col_valid)`, applied as the kernel loads them.  Writes each scene's
+    rounds into `scene_rounds` (int32 [S?]) where given.  Adds one to
+    `auction.launches` and the call's rounds to the device counter
+    `auction.rounds`; never waits for the device."""
+    if weights.dtype != torch.float32:
+        raise TypeError(f"the auction kernel takes float32 weights, got "
+                        f"{weights.dtype}")
+    if weights.device.type != "cuda":
+        raise ValueError(f"the auction kernel runs on a card, got weights "
+                         f"on {weights.device}")
+    if (row_valid is None) != (col_valid is None):
+        raise ValueError("give both masks or neither")
+    single = weights.dim() == 2
+    w = weights[None] if single else weights
+    if w.dim() != 3:
+        raise ValueError(f"weights must be [S?, D, T], got "
+                         f"{tuple(weights.shape)}")
+    s, d, t = w.shape
+    dev = w.device
+    if min(d, t) < 1:
+        raise ValueError(f"D={d}, T={t}: the auction needs a row and a "
+                         "column")
+    out = torch.empty((s, d), dtype=torch.int64, device=dev)
+    if s == 0:
+        return out
+    w = w.contiguous()
+    masks = []
+    for m, n, name in ((row_valid, d, "row_valid"),
+                       (col_valid, t, "col_valid")):
+        if m is None:
+            continue
+        if m.dtype != torch.bool or m.device != dev:
+            raise TypeError(f"{name} must be a bool tensor on {dev}")
+        masks.append(torch.broadcast_to(m, (s, n)).contiguous())
+    if scene_rounds is not None and (
+            scene_rounds.dtype != torch.int32 or scene_rounds.numel() != s
+            or not scene_rounds.is_contiguous()
+            or scene_rounds.device != dev):
+        raise ValueError("scene_rounds must be a contiguous int32 tensor "
+                         "of S elements on the weights' card")
+    from .._build import check, library
+
+    lib = library()
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    threads, lanes, storage, smem = _plan(index, s, d, t)
+    scratch = (None if storage else torch.empty(
+        (lib.auction_fb_scratch_bytes(s, t),), dtype=torch.uint8,
+        device=dev))
+    acc = device_counter("auction.rounds", dev, 3)
+    vec = int(t % 4 == 0 and w.data_ptr() % 16 == 0)
+
+    def ptr(x):
+        return ctypes.c_void_p(None if x is None else x.data_ptr())
+
+    rv, cv = masks if masks else (None, None)
+    with torch.cuda.device(dev):
+        code = lib.auction_fb_launch(
+            ptr(w), ptr(rv), ptr(cv), ptr(out), ptr(scene_rounds), ptr(acc),
+            ptr(scratch), s, d, t,
+            min(max(UNROLLED_ROUNDS, int(max_iters)), 2 ** 31 - 1),
+            UNROLLED_ROUNDS, f32(theta),
+            f32(np.float32(1.0) / np.float32(max(4096.0, 64.0 * d))),
+            threads, lanes, storage, smem, vec,
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    check(code, "auction_fb_launch")
+    count("auction.launches")
+    return out[0] if single else out
 
 
 def _auction_round(carry, weights, eps):
@@ -316,7 +445,10 @@ def solve_voting(metric: torch.Tensor, threshold: float,
     convention.  The auction never builds the [D, D] diagonal block; the
     host solvers solve the augmented matrix."""
     if backend == "auction":
-        return auction_lap_fallback(edges(metric, row_valid, col_valid),
-                                    threshold)
+        if _device_kind(metric) == "cuda":
+            return auction_fb_cuda(metric, threshold, row_valid=row_valid,
+                                   col_valid=col_valid)
+        return auction_lap_fallback_plain(
+            edges(metric, row_valid, col_valid), threshold)
     return solve_lap(augment_with_threshold(metric, threshold, row_valid,
                                             col_valid), backend)

@@ -28,7 +28,6 @@ from __future__ import annotations
 import ctypes
 import functools
 
-import numpy as np
 import torch
 
 from ..utils.profiling import count
@@ -131,13 +130,6 @@ def _check(dot, qn, gn, use_gate, compat, track_gate, feat_valid,
         raise ValueError("every input must be on one device")
 
 
-def _f32(x: float) -> float:
-    """x rounded to float32 as PyTorch rounds a Python scalar compared with
-    a float32 tensor (an out-of-range threshold becomes infinite)."""
-    with np.errstate(over="ignore"):
-        return float(np.float32(x))
-
-
 @functools.lru_cache(maxsize=None)
 def _plan(device: int, s: int, d: int, t: int):
     """(cluster size, storage bits, shared bytes a block) of a launch at
@@ -199,7 +191,7 @@ def visual_best_fit(dot, qn, gn, use_gate, compat, track_gate, feat_valid,
             *ptr, ctypes.c_void_p(None if colkey is None
                                   else colkey.data_ptr()),
             compat.stride(0), compat.stride(1), s, d, t, k,
-            KINDS.index(kind), int(min_votes), _f32(threshold), cluster,
+            KINDS.index(kind), int(min_votes), asg.f32(threshold), cluster,
             storage, smem,
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     check(code, "visual_votes_launch")

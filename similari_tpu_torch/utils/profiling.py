@@ -10,6 +10,9 @@ counts the sync at its site.  `count(name, n)` is a plain counter (the
 kernel wrappers count their launches), and `keep(name, tensor)` holds a
 device tensor while a profiler records, for `summary()` to sum.  None of
 them synchronises, launches or allocates on the device.
+`device_counter(name, device)` is a counter that a kernel adds to on the
+device (the auction kernel's rounds): it is read, with a sync, only where
+`counter(name)` or `summary()` is.
 
 Every record lives in this module until `reset()`; `summary()` returns
 them as one dict.  The records are kept for one thread: the port steps
@@ -42,6 +45,8 @@ from ..device import DeviceLike, resolve_device
 # (its own and its descendants'), syncs (the same), parent name, is a wait]
 _SPANS: Dict[str, list] = {}
 _COUNTS: Dict[str, int] = {}
+# counter name -> device -> int64 tensor whose first element kernels add to
+_DEVICE_COUNTS: Dict[str, Dict[torch.device, torch.Tensor]] = {}
 _KEPT: Dict[str, List[torch.Tensor]] = {}
 _OPEN: List["span"] = []
 
@@ -128,9 +133,28 @@ def count(name: str, n: int = 1) -> None:
     _COUNTS[name] = _COUNTS.get(name, 0) + n
 
 
+def device_counter(name: str, device: torch.device,
+                   slots: int = 1) -> torch.Tensor:
+    """The int64 tensor [slots] on `device` whose first element kernels add
+    the counter `name` to (the other slots are the kernel's own, 0 between
+    its launches).  Made as zeros on first use after `reset()`; reading
+    the counter synchronises with the device."""
+    per = _DEVICE_COUNTS.setdefault(name, {})
+    t = per.get(device)
+    if t is None:
+        t = per[device] = torch.zeros(slots, dtype=torch.int64,
+                                      device=device)
+    return t
+
+
+def _device_count(name: str) -> int:
+    return sum(int(t[0]) for t in _DEVICE_COUNTS.get(name, {}).values())
+
+
 def counter(name: str) -> int:
-    """The counter `name` (0 before its first count)."""
-    return _COUNTS.get(name, 0)
+    """The counter `name` (0 before its first count), its device part
+    included."""
+    return _COUNTS.get(name, 0) + _device_count(name)
 
 
 def keep(name: str, tensor: torch.Tensor) -> None:
@@ -150,7 +174,8 @@ def summary() -> Dict:
     - "kept": name -> tensors, rows (their first dimensions summed) and
       sum (the column sums over every row, as a list).
 
-    Reading the kept tensors synchronises with the device."""
+    Reading the kept tensors and the device counters synchronises with
+    the device."""
     spans = {name: dict(calls=r[0], ns=r[1], self_ns=r[1] - r[2],
                         wait_ns=r[3], syncs=r[4], parent=r[5])
              for name, r in _SPANS.items()}
@@ -162,7 +187,10 @@ def summary() -> Dict:
                     for t in ts)
         kept[name] = dict(tensors=len(ts), rows=sum(t.shape[0] for t in ts),
                           sum=total.tolist())
-    return dict(counts=dict(_COUNTS), spans=spans, waits=waits, kept=kept)
+    counts = dict(_COUNTS)
+    for name in _DEVICE_COUNTS:
+        counts[name] = counts.get(name, 0) + _device_count(name)
+    return dict(counts=counts, spans=spans, waits=waits, kept=kept)
 
 
 def device_events(prof) -> list:
@@ -180,6 +208,7 @@ def reset() -> None:
     _SPANS.clear()
     _COUNTS.clear()
     _KEPT.clear()
+    _DEVICE_COUNTS.clear()
 
 
 class StepTimer:

@@ -16,6 +16,9 @@ plain version bit for bit:
   against the owner block's heaviest row (`visual_best_fit_replay`), the
   auction over dealt columns, and the free slots in slot order from the
   blocks' bit masks (`visual_slots_replay`);
+- the fallback auction kernel (`csrc/auction.cu::auction_fb_kernel`):
+  each scene to its own convergence over a pending-row list, L lanes a
+  row, keys cleared by the winners (`auction_fb_replay`);
 - the clip kernel (`csrc/clip.cu`): 8 lanes per in-radius pair
   (`clip_lanes_replay`);
 - the bf16 gallery product (`csrc/gallery_dots.cu`): the staged copy and
@@ -24,10 +27,11 @@ plain version bit for bit:
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from similari_tpu_torch.ops.assignment import (MAX_AUCTION_ROUNDS, NEG,
-                                               first_argmax)
+                                               UNROLLED_ROUNDS, first_argmax)
 from similari_tpu_torch.ops.clip import _edge_term, _iou, _recentred, far_pairs
 from similari_tpu_torch.ops.fused_visual import VISUAL_THREADS
 from similari_tpu_torch.ops.gallery_dots import (PAD, TILE_COLS, TILE_ROWS,
@@ -130,6 +134,113 @@ def cluster_auction_replay(A: torch.Tensor, dvalid: torch.Tensor, g: int,
         prices[cols] = bid[won]
         r2c[won] = cols
     return r2c, rounds, bids
+
+
+def _lane_columns(t: int, lanes: int, vec: bool):
+    """The columns each of L lanes scans, in its order: 4 at a time from
+    column 4 * lane in steps of 4 L (vec), else from `lane` in steps of L."""
+    if vec:
+        return [[4 * q + k for q in range(sub, t // 4, lanes)
+                 for k in range(4)] for sub in range(lanes)]
+    return [list(range(sub, t, lanes)) for sub in range(lanes)]
+
+
+def _fb_top(values, lane_cols):
+    """(v1, its column, v2 before the NaN rule, NaN count) of one row: each
+    lane's running (b1, i1, b2, NaN count) in its column order, merged
+    over the lanes by the kernel's butterfly (xor L/2 .. 1)."""
+    f = np.float32
+    tops = []
+    for cols in lane_cols:
+        b1, b2, i1, nan = f(-np.inf), f(-np.inf), (cols[0] if cols
+                                                   else 2 ** 31 - 1), 0
+        for j in cols:
+            v = values[j]
+            isn = bool(np.isnan(v))
+            nan += isn
+            vn = f(-np.inf) if isn else v
+            if vn > b1:
+                b1, b2, i1 = vn, b1, j
+            elif vn > b2:
+                b2 = vn
+        tops.append((b1, i1, b2, nan))
+    o = len(tops) // 2
+    while o:
+        nxt = []
+        for lane, (b1, i1, b2, nan) in enumerate(tops):
+            ob1, oi1, ob2, on = tops[lane ^ o]
+            better = ob1 > b1 or (ob1 == b1 and oi1 < i1)
+            nb2 = max(b1, ob2) if better else max(ob1, b2)
+            nxt.append((ob1, oi1, nb2, nan + on) if better
+                       else (b1, i1, nb2, nan + on))
+        tops, o = nxt, o // 2
+    return tops[0]
+
+
+def auction_fb_replay(weights, theta: float, max_iters=MAX_AUCTION_ROUNDS,
+                      row_valid=None, col_valid=None, lanes: int = 8,
+                      vec: bool = False):
+    """`auction_fb_kernel` on weights [S, D, T] (numpy f32; with the bool
+    masks, `edges` applied as it loads), each scene alone: round 1 over
+    every row with the scene's min and max, eps by the rounded reciprocal,
+    then only the pending rows, each row's top-2 from L lanes, bids as
+    (bid, inverted row) keys per column, the winner clearing its column's
+    key.  Returns (columns int64 [S, D], rounds a scene, the call's
+    `auction.rounds`)."""
+    f = np.float32
+    w = np.asarray(weights, np.float32)
+    s, d, t = w.shape
+    if row_valid is not None:
+        ok = (np.asarray(row_valid)[:, :, None]
+              & np.asarray(col_valid)[:, None, :] & ~np.isnan(w))
+        w = np.where(ok, w, f(0.0)).astype(np.float32)
+    th = f(theta)
+    cap = max(UNROLLED_ROUNDS, max_iters)
+    inv = f(1.0) / f(max(4096.0, 64.0 * d))
+    lane_cols = _lane_columns(t, lanes, vec)
+    out = np.zeros((s, d), np.int64)
+    rounds_out = []
+    for sc in range(s):
+        W = w[sc]
+        wmax = f(np.nan) if np.isnan(W).any() else max(f(W.max()), th)
+        wmin = f(np.nan) if np.isnan(W).any() else min(f(W.min()), f(0.0))
+        span = f(wmax - wmin)
+        span = span if np.isnan(span) else max(span, f(1e-6))
+        eps = f(span * inv)
+        prices = np.zeros(t, np.float32)
+        c2r = np.full(t, -1)
+        r2c = np.full(d, -1)
+        pend, rounds = list(range(d)), 0
+        while pend and rounds < cap:
+            key, bids = {}, {}
+            for r in pend:
+                v1, j, b2, nan = _fb_top(W[r] - prices, lane_cols)
+                if nan and v1 == -np.inf and np.isnan(W[r, j] - prices[j]):
+                    nan -= 1
+                v2 = f(np.nan) if nan else max(b2, f(NEG))
+                if th >= v1:
+                    r2c[r] = -2
+                    continue
+                c = v2 if np.isnan(v2) else max(v2, th)
+                bid = f(f(prices[j] + f(v1 - c)) + eps)
+                bids[r] = (j, bid)
+                if bid > f(NEG * 0.5):
+                    k = (float(bid) + 0.0, -r)  # -0 as +0, lower row first
+                    key[j] = max(key.get(j, k), k)
+            nxt = []
+            for r, (j, bid) in bids.items():
+                if bid > f(NEG * 0.5) and key.get(j) == (float(bid) + 0.0,
+                                                         -r):
+                    if c2r[j] >= 0:
+                        r2c[c2r[j]] = -1
+                        nxt.append(c2r[j])
+                    c2r[j], prices[j], r2c[r] = r, bid, j
+                else:
+                    nxt.append(r)
+            pend, rounds = nxt, rounds + 1
+        out[sc] = np.where(r2c >= 0, d + r2c, np.arange(d))
+        rounds_out.append(rounds)
+    return out, rounds_out, max([UNROLLED_ROUNDS] + rounds_out)
 
 
 def cluster_slots_replay(is_new: torch.Tensor, matched: torch.Tensor,

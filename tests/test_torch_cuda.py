@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from similari_tpu_torch import _build
+from similari_tpu_torch.ops import assignment as asg
 from similari_tpu_torch.ops import clip as cl
 from similari_tpu_torch.ops import fused_sort as fs
 from similari_tpu_torch.ops import fused_visual as fv
@@ -39,12 +40,13 @@ from similari_tpu_torch.trackers.visual_state import new_visual_state
 from similari_tpu_torch.trackers.visual_step import VT_VISUAL, VisualConfig
 from similari_tpu_torch.utils import profiling
 
-from torch_parity import (ATOL, EXACT_BOX_COLUMNS, RTOL, VISUAL_CONFIGS,
-                          VOTE_CASES, crowded_stream, large_norm_stream,
+from torch_parity import (ATOL, AUCTION_CASES, EXACT_BOX_COLUMNS, RAW_CASES,
+                          RAW_ROUNDS, RTOL, VISUAL_CONFIGS, VOTE_CASES,
+                          auction_inputs, crowded_stream, large_norm_stream,
                           oriented_stream, random_boxes, sort_overflow_stream,
-                          sort_stream, visual_overflow_stream,
-                          visual_padded_stream, visual_stream, votes_args,
-                          votes_inputs)
+                          sort_stream, tracking_weights,
+                          visual_overflow_stream, visual_padded_stream,
+                          visual_stream, votes_args, votes_inputs)
 
 pytestmark = pytest.mark.cuda
 CHUNK = 4
@@ -401,6 +403,8 @@ def test_launchers_run_on_the_inputs_device(cuda, monkeypatch):
             state, torch.ones((2, 3, 16), device=cuda),
             torch.arange(3, dtype=torch.int32, device=cuda).repeat(2, 1),
             torch.ones((2, 3), dtype=torch.int32, device=cuda)), 1),
+        "auction_fb": (lambda: asg.auction_lap_fallback(
+            state[..., :5], 0.3), 1),
     }
     for name, (call, guards) in calls.items():
         entered.clear()
@@ -755,11 +759,152 @@ def test_inplace_batched_step_with_the_votes_kernel_matches_plain_votes(
                for o in k_outs)
 
 
+# the fallback auction kernel ------------------------------------------------
+
+# (S, D, T): the stream cells' shapes (1, 2, 4, 5) and one scene
+AUCTION_SHAPES = [(1024, 128, 200), (4096, 128, 200), (256, 256, 512),
+                  (256, 640, 1024), (1, 128, 200)]
+
+
+def _auction_both(w, theta, max_iters=asg.MAX_AUCTION_ROUNDS, rv=None,
+                  cv=None):
+    """(kernel columns, its `auction.rounds`, plain columns, theirs): the
+    masked form through `solve_voting` where masks are given (through the
+    kernel's wrapper below the default cap, which `solve_voting` keeps)."""
+    r0 = profiling.counter("auction.rounds")
+    n0 = profiling.counter("auction.launches")
+    if rv is None:
+        got = asg.auction_lap_fallback(w, theta, max_iters)
+        want_w = w
+    else:
+        got = (asg.solve_voting(w, theta, rv, cv, "auction")
+               if max_iters == asg.MAX_AUCTION_ROUNDS
+               else asg.auction_fb_cuda(w, theta, max_iters, rv, cv))
+        want_w = asg.edges(w, rv, cv)
+    assert profiling.counter("auction.launches") == n0 + 1
+    r1 = profiling.counter("auction.rounds")
+    want = asg.auction_lap_fallback_plain(want_w, theta, max_iters)
+    r2 = profiling.counter("auction.rounds")
+    return got, r1 - r0, want, r2 - r1
+
+
+@pytest.mark.parametrize("shape", AUCTION_SHAPES)
+def test_auction_kernel_matches_plain_rounds(cuda, shape):
+    """Tracking-shaped weights at the cells' shapes, masked as the steps
+    give them and raw: columns bit-equal and the same rounds a call."""
+    w, rv, cv = (torch.tensor(x, device=cuda)
+                 for x in tracking_weights(sum(shape), *shape))
+    for masks in ((rv, cv), (None, None)):
+        got, rounds, want, p_rounds = _auction_both(w, 0.3, rv=masks[0],
+                                                    cv=masks[1])
+        assert got.dtype == torch.int64 and torch.equal(got, want)
+        assert rounds == p_rounds >= asg.UNROLLED_ROUNDS
+    assert bool((got >= shape[1]).any())
+
+
+@pytest.mark.parametrize("max_iters", [1, 2, 3, asg.MAX_AUCTION_ROUNDS])
+@pytest.mark.parametrize("case", sorted(AUCTION_CASES))
+def test_auction_kernel_matches_plain_on_hard_cases(cuda, case, max_iters):
+    """Ties within and across rows, an all-zero scene, every row below
+    theta, D > T, T = 1, a contested scene among easy ones, a negative
+    theta, NaN and infinite weights; every cap."""
+    w, rv, cv, theta = auction_inputs(11, case)
+    if case in RAW_CASES:
+        max_iters = min(max_iters, RAW_ROUNDS)
+    w = torch.tensor(w, device=cuda)
+    masks = ((None, None) if rv is None else
+             (torch.tensor(rv, device=cuda), torch.tensor(cv, device=cuda)))
+    got, rounds, want, p_rounds = _auction_both(w, theta, max_iters, *masks)
+    assert torch.equal(got, want)
+    assert rounds == p_rounds
+
+
+def test_auction_kernel_scene_rounds_are_each_scene_alone(cuda):
+    """Each scene's rounds, as the kernel writes them, are the plain
+    rounds' count for that scene alone, up to the unrolled floor."""
+    w, rv, cv, theta = auction_inputs(13, "contested")
+    w = asg.edges(*(torch.tensor(x, device=cuda) for x in (w, rv, cv)))
+    rounds = torch.zeros(w.shape[0], dtype=torch.int32, device=cuda)
+    asg.auction_fb_cuda(w, theta, scene_rounds=rounds)
+    assert int(rounds[0]) > asg.UNROLLED_ROUNDS
+    for i in range(w.shape[0]):
+        before = profiling.counter("auction.rounds")
+        asg.auction_lap_fallback_plain(w[i], theta)
+        alone = profiling.counter("auction.rounds") - before
+        assert max(int(rounds[i]), asg.UNROLLED_ROUNDS) == alone, i
+
+
+def test_auction_kernel_one_launch_a_call(cuda):
+    """A call is one device kernel, `auction_fb_kernel`, and one count of
+    `auction.launches`; it never waits for the device."""
+    w, rv, cv = (torch.tensor(x, device=cuda)
+                 for x in tracking_weights(3, 64, 128, 200))
+    call = lambda: asg.solve_voting(w, 0.3, rv, cv, "auction")  # noqa: E731
+    call()
+    torch.cuda.synchronize()
+    before = profiling.counter("auction.launches")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(3):
+                call()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    names = [e.name for e in profiling.device_events(prof)]
+    assert len(names) == 3 and all("auction_fb_kernel" in n for n in names)
+    assert profiling.counter("auction.launches") == before + 3
+
+
+def test_auction_kernel_with_column_scratch(cuda):
+    """Columns past shared memory (T = 20,000) live in device scratch."""
+    plan = (ctypes.c_int * 4)()
+    assert _build.library().auction_fb_plan(2, 100, 20000, plan) == 0
+    assert plan[2] == 0
+    w, rv, cv = (torch.tensor(x, device=cuda)
+                 for x in tracking_weights(5, 2, 100, 20000))
+    got, rounds, want, p_rounds = _auction_both(w, 0.3, rv=rv, cv=cv)
+    assert torch.equal(got, want) and rounds == p_rounds
+
+
+@pytest.mark.parametrize("kw,err", [
+    (dict(weights=(1, 20000, 4)), ValueError),  # rows past shared memory
+    (dict(dtype=torch.float64), TypeError),
+    (dict(row_valid=(2, 3)), ValueError),  # one mask only
+    (dict(row_valid=(2, 3), col_valid=(2, 4), mask_dtype=torch.int32),
+     TypeError),
+    (dict(weights=(2, 2, 3, 4)), ValueError),
+    (dict(weights=(2, 0, 4)), ValueError),
+    (dict(weights=(2, 3, 0)), ValueError),
+    (dict(scene_rounds=torch.int64), ValueError),
+])
+def test_auction_kernel_refuses_bad_inputs(cuda, kw, err):
+    """Shapes, dtypes and masks are checked before any launch."""
+    kw = dict(kw)
+    mask = kw.pop("mask_dtype", torch.bool)
+    args = dict(weights=torch.zeros(kw.pop("weights", (2, 3, 4)),
+                                    dtype=kw.pop("dtype", torch.float32),
+                                    device=cuda), theta=0.3)
+    for name in ("row_valid", "col_valid"):
+        if name in kw:
+            args[name] = torch.ones(kw.pop(name), dtype=mask, device=cuda)
+    if "scene_rounds" in kw:
+        args["scene_rounds"] = torch.zeros(2, dtype=kw.pop("scene_rounds"),
+                                           device=cuda)
+    before = profiling.counter("auction.launches")
+    with pytest.raises(err):
+        asg.auction_fb_cuda(**args)
+    assert profiling.counter("auction.launches") == before
+
+
 def test_batched_steps_sync_only_at_counted_waits(cuda, monkeypatch):
     """Under torch.cuda.set_sync_debug_mode("error"), relaxed only inside
     `utils/profiling.py::wait` spans, the batched VisualSORT (in place)
     and SORT steps run crowded frames, whose auctions take extra rounds:
-    every sync of a step is a counted wait site."""
+    every sync of a step is a counted wait site, and the only one is
+    `merge.written`: the auction kernel bids to convergence on the card,
+    with no `auction.converged` wait."""
     enter, leave = profiling.wait.__enter__, profiling.wait.__exit__
 
     def relaxed(self):
@@ -806,22 +951,24 @@ def test_batched_steps_sync_only_at_counted_waits(cuda, monkeypatch):
         run(*start)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    summ = profiling.summary()
+    summ = profiling.summary()  # reads the device's rounds: a sync
     rounds = summ["counts"]["auction.rounds"]
-    checks = summ["waits"]["auction.converged"]["syncs"]
-    assert checks == rounds - 2 * 2 * n
     assert rounds > 2 * n * 3  # some auction ran past its unrolled rounds
+    assert summ["counts"]["auction.launches"] == 2 * n
     # the scalar writes of `merge.written`: one in each step's state write;
-    # the votes and BestFit are one kernel launch, with no wait
+    # the votes and BestFit and the auction are one kernel launch each,
+    # with no wait
     assert summ["waits"]["merge.written"]["syncs"] == 2 * n
-    assert set(summ["waits"]) == {"auction.converged", "merge.written"}
+    assert set(summ["waits"]) == {"merge.written"}
     spans = summ["spans"]
     assert spans["visual_step.best_fit"]["syncs"] == 0
+    assert spans["visual_step.auction"]["syncs"] == 0
+    assert spans["sort_step.auction"]["syncs"] == 0
     assert summ["counts"]["visual_votes.launches"] == n
     assert spans["batched_visual_step"]["calls"] == n
     assert spans["batched_sort_step"]["calls"] == n
-    assert (spans["batched_visual_step"]["syncs"]
-            + spans["batched_sort_step"]["syncs"]) == checks + 2 * n
+    assert spans["batched_visual_step"]["syncs"] == n
+    assert spans["batched_sort_step"]["syncs"] == n
 
 
 def test_f32_products_are_not_tf32(cuda):

@@ -383,6 +383,111 @@ def votes_args(inputs, kind, precision, device):
     return (dot, qn, gn, gates[0], tc, *gates[1:], kind, thr)
 
 
+# the auction kernel's cases (ops/assignment.py::auction_fb_cuda): name ->
+# (scenes, rows D, columns T)
+AUCTION_CASES = {
+    "tracking": (3, 16, 24),
+    "row_ties": (2, 12, 16),
+    "col_ties": (2, 12, 16),
+    "zero_scene": (3, 10, 12),
+    "below_theta": (2, 8, 12),
+    "d_over_t": (3, 24, 5),
+    "t1": (4, 12, 1),
+    "contested": (4, 12, 12),
+    "negative_theta": (2, 6, 12),
+    "nan_masked": (3, 16, 24),
+    "nan_raw": (2, 8, 12),
+    "inf_raw": (2, 8, 12),
+}
+# cases whose weights are given raw (no mask); with NaN or inf in them eps
+# is not finite and rows may stay pending to the cap, so their tests cap
+# the rounds at RAW_ROUNDS
+RAW_CASES = ("nan_raw", "inf_raw")
+RAW_ROUNDS = 12
+
+
+def tracking_weights(seed, s, d, t, spread=None):
+    """SORT-step-shaped voting weights for `solve_voting`: (metric f32
+    [S, D, T], row_valid [S, D], col_valid [S, T]).  Each scene has T
+    tracks of 20-40 px at random in a square where a box overlaps a few
+    others; 70-90% of the rows re-detect distinct tracks with a 3 px
+    jitter, the rest are new boxes; the metric is IoU x confidence
+    (U(0.4, 1)) where that reaches 0.3, else 0, as `distance_weights`
+    makes it; a tenth of the rows are padding and the last tracks are
+    free slots."""
+    rng = np.random.default_rng(seed)
+    spread = spread or 30.0 * np.sqrt(t)
+    cx = rng.uniform(0, spread, (s, t)).astype(np.float32)
+    cy = rng.uniform(0, spread, (s, t)).astype(np.float32)
+    tw = rng.uniform(20, 40, (s, t)).astype(np.float32)
+    th = rng.uniform(20, 40, (s, t)).astype(np.float32)
+    src = np.argsort(rng.random((s, t)), axis=1)[:, :d] if d <= t else \
+        rng.integers(0, t, (s, d))
+    pick = lambda a: np.take_along_axis(a, src, axis=1)  # noqa: E731
+    jit = lambda n: rng.uniform(-3, 3, (s, n)).astype(np.float32)  # noqa
+    dx, dy = pick(cx) + jit(d), pick(cy) + jit(d)
+    dw, dh = pick(tw) + jit(d), pick(th) + jit(d)
+    new = rng.random((s, d)) > rng.uniform(0.7, 0.9, (s, 1))
+    dx = np.where(new, rng.uniform(0, spread, (s, d)), dx).astype(np.float32)
+    dy = np.where(new, rng.uniform(0, spread, (s, d)), dy).astype(np.float32)
+    def overlap(dc, dl, tc, tl):  # [S, D, T] along one axis
+        lo = np.maximum(dc[..., None] - dl[..., None] / 2,
+                        tc[:, None] - tl[:, None] / 2)
+        hi = np.minimum(dc[..., None] + dl[..., None] / 2,
+                        tc[:, None] + tl[:, None] / 2)
+        return hi - lo
+
+    ix, iy = overlap(dx, dw, cx, tw), overlap(dy, dh, cy, th)
+    inter = np.where((ix > 0) & (iy > 0), ix * iy, 0).astype(np.float32)
+    union = (dw * dh)[..., None] + (tw * th)[:, None] - inter
+    conf = rng.uniform(0.4, 1.0, (s, d, 1)).astype(np.float32)
+    m = (inter / union * conf).astype(np.float32)
+    m = np.where(m >= 0.3, m, 0).astype(np.float32)
+    row_valid = rng.random((s, d)) < 0.9
+    col_valid = np.arange(t)[None] < t - rng.integers(0, max(t // 8, 1) + 1,
+                                                      (s, 1))
+    return m, row_valid, col_valid
+
+
+def auction_inputs(seed, case):
+    """(weights f32 [S, D, T], row_valid, col_valid, theta) of an
+    `AUCTION_CASES` case; the masks are None for the raw cases, whose
+    weights go to `auction_lap_fallback` unmasked."""
+    s, d, t = AUCTION_CASES[case]
+    rng = np.random.default_rng(seed)
+    w, rv, cv = tracking_weights(seed, s, d, t)
+    theta = 0.3
+    if case == "row_ties":  # exact copies of row 0, and equal values
+        w = (rng.integers(0, 3, (s, d, t)) / 2).astype(np.float32)
+        w[:, 1::2] = w[:, :1]
+    elif case == "col_ties":  # many equal maxima within a row
+        w = (0.5 + 0.5 * (rng.integers(0, 3, (s, d, t)) // 2)).astype(
+            np.float32)
+    elif case == "zero_scene":
+        w[0] = 0.0
+    elif case == "below_theta":
+        w = rng.uniform(0, 0.29, (s, d, t)).astype(np.float32)
+    elif case in ("d_over_t", "t1"):
+        w = rng.uniform(0, 1, (s, d, t)).astype(np.float32)
+    elif case == "contested":  # scene 0: every row wants every column
+        w[0] = (0.5 + 0.01 * rng.random((d, t))).astype(np.float32)
+        rv[0] = cv[0] = True
+    elif case == "negative_theta":  # zero weights beat the fallback
+        theta = -0.2
+    elif case == "nan_masked":
+        w[rng.random(w.shape) < 0.1] = np.nan
+    elif case == "nan_raw":
+        w = rng.uniform(0, 1, (s, d, t)).astype(np.float32)
+        w[0, 1, 2] = np.nan
+    elif case == "inf_raw":
+        w = rng.uniform(0, 1, (s, d, t)).astype(np.float32)
+        w[0, 2, 5] = np.inf
+        w[1, 3, 1] = -np.inf
+    if case in RAW_CASES:
+        return w, None, None, theta
+    return w, rv, cv, theta
+
+
 def jax_state_dict(state) -> dict:
     """A JAX state dataclass as the dict `similari_tpu_torch.convert` reads:
     `np.asarray` per field, `kf` nested."""

@@ -28,29 +28,9 @@ sys.path.insert(0, str(ROOT / "tests"))
 
 import chip_smoke as cs  # noqa: E402
 from similari_tpu_torch.eval.mot import DeviceTimer, ltwh_to_vec5  # noqa: E402
-from similari_tpu_torch.ops import assignment as asg  # noqa: E402
 from similari_tpu_torch.trackers.sort_step import SortConfig, sort_scan  # noqa: E402
 from similari_tpu_torch.trackers.state import new_sort_state  # noqa: E402
-
-
-class RoundCounter:
-    """Counts auction rounds by wrapping `assignment._fb_round`."""
-
-    def __init__(self):
-        self.rounds = 0
-        self.orig = asg._fb_round
-
-    def __enter__(self):
-        def counted(*a, **k):
-            self.rounds += 1
-            return self.orig(*a, **k)
-
-        asg._fb_round = counted
-        return self
-
-    def __exit__(self, *exc):
-        asg._fb_round = self.orig
-        return False
+from similari_tpu_torch.utils import profiling  # noqa: E402
 
 
 def maha_stream(frames, seed):
@@ -71,8 +51,11 @@ def profile(name, cfg, t, box, conf, valid, dev):
                         for x in (box, conf, valid))
     st0 = new_sort_state(t, 1, device=dev)
     sort_scan(cfg, st0, box[:2], conf[:2], valid[:2], 1)  # warm-up
-    with RoundCounter() as rc, DeviceTimer(dev) as timer:
+    # the auction's rounds, counted on the card and read after the run
+    rounds = profiling.counter("auction.rounds")
+    with DeviceTimer(dev) as timer:
         sort_scan(cfg, st0, box, conf, valid, 1)
+    rounds = profiling.counter("auction.rounds") - rounds
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -88,7 +71,7 @@ def profile(name, cfg, t, box, conf, valid, dev):
     launches = sum(e.count for e in events)
     ms = timer.seconds * 1e3 / steps
     print(f"{name}: {steps} frames, {ms:.4f} ms/frame (CUDA events), "
-          f"{rc.rounds / steps:.2f} auction rounds/frame, "
+          f"{rounds / steps:.2f} auction rounds/frame, "
           f"device busy {busy_us / 1e3 / steps:.4f} ms/frame "
           f"(idle share {1 - busy_us / 1e3 / steps / ms:.3f} against the "
           f"CUDA-event time), {launches / steps:.1f} kernel launches/frame",
